@@ -1,5 +1,5 @@
 """Whisper decoding engine in eager PyTorch (``norma_tpu/decode/engine.py``,
-without speculation, quantization or meshes).
+without speculation, the int8 self-KV cache or meshes).
 
 The reference's per-window decode (``model.rs:164-389``): mel -> encoder ->
 cross-K/V -> optional language detection -> prefill with the no-speech
@@ -25,6 +25,12 @@ timestamp, sum of logprobs, finished flags) stays on the device, but the
 loop condition "any row unfinished" is read on the host once per step
 (the JAX package runs the loop as one ``lax.while_loop``).  Every host
 read is counted in :attr:`DecodeEngine.host_syncs`.
+
+``quantize_cross_kv`` (int8, or int4 under ``cross_kv_impl="kernel"``)
+quantizes the cross-K/V the token loop reads, per window after prefill;
+prefill and language detection stay unquantized.  Under
+``cross_kv_impl="kernel"`` the codes are laid out for the cross-decode
+kernel (``ops/paged_cross.py``) on every device.
 """
 
 from __future__ import annotations
@@ -40,7 +46,15 @@ from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD, TEMPERATURES
 from ..frontend.mel import log_mel_spectrogram
 from ..model.config import WhisperConfig
 from ..model.load import Params
-from ..model.whisper import cross_kv, decoder_prefill, decoder_step, encode
+from ..model.whisper import (
+    cross_kv,
+    decoder_prefill,
+    decoder_step,
+    encode,
+    quantize_cross_kv as quantize_xkv8,
+    quantize_cross_kv4,
+)
+from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.sample_step import sample_step
 from ..tracing import decode_telemetry, instrument
 from .masks import SpecialTokens, build_masks
@@ -83,6 +97,7 @@ class DecodeEngine:
         st: SpecialTokens,
         language_token_ids: Optional[Sequence[int]] = None,
         mel_center: bool = False,
+        quantize_cross_kv: "bool | str" = False,
     ):
         self.params = params
         self.cfg = cfg
@@ -97,6 +112,23 @@ class DecodeEngine:
         # False = reference (whisper.cpp/candle) framing; True = OpenAI/HF
         # centered STFT.
         self.mel_center = bool(mel_center)
+        # int8 cross-K/V for the token loop (the loop's largest per-step
+        # stream at batch); "int4" (nibble-packed codes) runs on the kernel
+        # layout only and otherwise falls back to int8 with a warning.
+        if quantize_cross_kv not in (False, True, "int8", "int4"):
+            raise ValueError(
+                "quantize_cross_kv must be False, True/'int8' or 'int4', "
+                f"got {quantize_cross_kv!r}"
+            )
+        if quantize_cross_kv == "int4" and cfg.cross_kv_impl != "kernel":
+            logger.warning(
+                "quantize_cross_kv='int4' needs cross_kv_impl='kernel'; "
+                "falling back to the int8 tier"
+            )
+            quantize_cross_kv = True
+        self.quantize_cross_kv = (
+            quantize_cross_kv if quantize_cross_kv in (False, "int4") else True
+        )
         bad = [b for b in cfg.decode_buckets if not isinstance(b, int) or b <= 0]
         if bad:
             raise ValueError(f"decode_buckets must be positive ints, got {bad}")
@@ -128,6 +160,19 @@ class DecodeEngine:
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, n_mels, T] -> audio features [B, T//2, D]."""
         return encode(self.params, self.cfg, torch.as_tensor(mel).to(self.device))
+
+    def _quantize_xkv(self, xk, xv):
+        """Window-time int8/int4 quantization of the loop's cross-K/V, in
+        the form ``cfg.cross_kv_impl`` needs: the kernel layout under
+        "kernel" (int4 is kernel-only, validated in ``__init__``), else
+        the plain per-channel dicts."""
+        H = self.cfg.decoder_attention_heads
+        if self.quantize_cross_kv == "int4":
+            return prep_cross_kv_kernel4(*quantize_cross_kv4(xk, xv), H)
+        kq, vq = quantize_xkv8(xk, xv)
+        if self.cfg.cross_kv_impl == "kernel":
+            return prep_cross_kv_kernel(kq, vq, H)
+        return kq, vq
 
     def _prefill_kv(self, prefix_tokens, xk, xv):
         """prefix_tokens [B, P] over cross-K/V -> (cache_k, cache_v,
@@ -297,6 +342,8 @@ class DecodeEngine:
             audio, langs, detect=detect
         )
         cache_k, cache_v, next_logits, nsp = self._prefill_kv(prefix, xk, xv)
+        if self.quantize_cross_kv:  # loop-side only; prefill/detect are unquantized
+            xk, xv = self._quantize_xkv(xk, xv)
 
         Tmax = cfg.max_target_positions
         tokens_init = torch.zeros((B, Tmax), dtype=torch.int32, device=dev)
@@ -427,11 +474,16 @@ class DecodeEngine:
             self.transcribe_window_async(audio, langs, seed, n_active)
         )
 
+    # The window splits into dispatch and fetch (the batching scheduler
+    # pipelines rounds on it).  The eager token loop reads its stop
+    # condition on the host each step, so the window's device work is
+    # finished or nearly so when the dispatch returns: the split overlaps
+    # only the final copy and the host unpack.
+    supports_async_window = True
+
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
         """Run the window up to its packed device result, without the final
-        device->host copy; :meth:`transcribe_window_fetch` completes it.
-        (The token loop reads its stop condition on the host each step, so
-        the window's device work is finished or nearly so on return.)"""
+        device->host copy; :meth:`transcribe_window_fetch` completes it."""
         langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
         if isinstance(audio, torch.Tensor):
             audio_t = audio.to(self.device, torch.float32)
@@ -513,6 +565,8 @@ class DecodeEngine:
         prefix_arr = self._prefix_array(B, lang_token)
         xk, xv = cross_kv(self.params, self.cfg, feats)
         ck, cv, nl, nsp = self._prefill_kv(torch.from_numpy(prefix_arr).to(self.device), xk, xv)
+        if self.quantize_cross_kv:  # loop-side only
+            xk, xv = self._quantize_xkv(xk, xv)
         return dict(
             prefix=prefix_arr, B=B, xk=xk, xv=xv, cache_k=ck, cache_v=cv,
             next_logits=nl, no_speech_prob=self._host(nsp),

@@ -1,15 +1,28 @@
 """Whisper model configuration (copy of ``norma_tpu/model/config.py``).
 
 The field set is the JAX package's, so a config converts between the two
-with ``WhisperConfig(**dataclasses.asdict(other))``.  The TPU-only knobs
-are accepted and ignored by this package: ``flash_attention``,
-``encoder_attn_impl`` (the encoder always runs the plain "xla" form),
-``encoder_attn_chunk``, ``encoder_unroll``, ``flash_block_q/k``,
-``encoder_scores_bf16``, ``encoder_q8_mode``, ``cross_kv_impl``,
-``cross_kv_chunk``, ``cross_kv_kernel_hpc``, ``self_kv_kernel_hpc`` and
-``decoder_scan_unroll``.  The knobs this package reads are
-``self_kv_impl`` ("xla" = plain write-row + attention, "kernel" = the
-self-decode kernel, ``ops/self_decode.py``) and ``decode_buckets``.
+with ``WhisperConfig(**dataclasses.asdict(other))``.  The knobs this
+package reads:
+
+  - ``flash_attention`` / ``encoder_attn_impl``: ``flash_attention=True``
+    or "flash" / "jax_flash" run the encoder's self-attention through the
+    flash kernel (``ops/flash_encoder.py``); "xla", "auto" and "chunked"
+    run the plain attention (the same math on this hardware);
+  - ``encoder_q8_mode`` (with ``quantize_encoder`` params): "w8a8" and
+    "w8a8_pallas" run the int8 GEMM (``ops/quant_matmul.py``), "w8a16"
+    dequantizes and runs the bf16/f32 product;
+  - ``cross_kv_impl`` (with an engine's ``quantize_cross_kv``): "kernel"
+    lays the codes out for the cross-decode kernel
+    (``ops/paged_cross.py``); "einsum", "chunked" and "a8" run the plain
+    ``attention_cross_q8`` (the last two are TPU forms recorded as losses);
+  - ``self_kv_impl``: "xla" = plain write-row + attention, "kernel" = the
+    self-decode kernel (``ops/self_decode.py``);
+  - ``decode_buckets``.
+
+The TPU tile / unroll knobs are accepted and ignored: ``encoder_attn_chunk``,
+``encoder_unroll``, ``flash_block_q/k``, ``encoder_scores_bf16`` (a
+negative result), ``cross_kv_chunk``, ``cross_kv_kernel_hpc``,
+``self_kv_kernel_hpc`` and ``decoder_scan_unroll``.
 """
 
 from __future__ import annotations
@@ -46,7 +59,9 @@ class WhisperConfig:
     max_source_positions: int = 1500
     max_target_positions: int = 448
     suppress_tokens: Tuple[int, ...] = field(default=_DEFAULT_SUPPRESS_V1)
-    # TPU-only knobs: accepted, ignored (see the module docstring).
+    # Encoder attention, int8 encoder mode and the quantized cross-K/V
+    # layout (see the module docstring); the tile / unroll knobs among
+    # these fields are accepted and ignored.
     flash_attention: bool = False
     encoder_attn_impl: str = "auto"
     encoder_attn_chunk: int = 250

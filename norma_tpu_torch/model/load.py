@@ -72,6 +72,12 @@ class Params(nn.Module):
         return self["decoder"]["tok_emb"].device
 
 
+def _is_scale(name: str) -> bool:
+    """Quantization scales: ``name_s`` layer leaves and the ``s`` of the
+    int8 head (``tok_emb_q8``); they stay f32 in every model dtype."""
+    return name.endswith("_s") or name == "s"
+
+
 def params_from_numpy(
     tree: NumpyTree,
     device: "torch.device | str" = "cpu",
@@ -79,17 +85,22 @@ def params_from_numpy(
 ) -> Params:
     """Nested numpy arrays (e.g. the JAX package's params after
     ``jax.tree.map(np.asarray, params)``) -> :class:`Params` on ``device``.
-    Floating leaves are cast to ``dtype`` (None keeps each leaf's dtype)."""
+    Floating weights are cast to ``dtype`` (None keeps each leaf's dtype);
+    quantization scales (:func:`_is_scale`) are f32 whatever ``dtype`` is,
+    and integer leaves (int8 codes) keep their dtype."""
 
-    def conv(v):
+    def conv(name, v):
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
+            return {k: conv(k, x) for k, x in v.items()}
         t = torch.from_numpy(np.require(v, requirements=["C", "W"]))  # copies only if needed
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
+        if t.is_floating_point():
+            if _is_scale(name):
+                t = t.to(torch.float32)
+            elif dtype is not None:
+                t = t.to(dtype)
         return t.to(device)
 
-    return Params(conv(tree))
+    return Params(conv("", tree))
 
 
 def _stack(layer_dicts) -> NumpyTree:

@@ -52,11 +52,13 @@ class WhisperModel(Model):
 
     @instrument
     def warmup(self, batch: int = 1) -> None:
-        """Run one silent window through the serving path (at ``batch``
-        streams), so the first real chunk pays no first-use costs: the
+        """Run one silent window through the serving path at ``batch``
+        streams, so the first real chunk pays no first-use costs: the
         kernel build (``ops/_build.py``), CUDA context and library
-        initialization.  Detect-mode models also run the known-language
-        variant they switch to after the first window."""
+        initialization, allocator growth at this batch width.  Detect-mode
+        models also run the known-language variant they switch to after
+        the first window.  The batching scheduler calls
+        ``warmup(batch=b)`` per bucket."""
         lf = self.longform
         audio = torch.from_numpy(
             np.tile(prepare_audio(np.zeros(lf.window_samples, np.float32), lf.n_frames), (batch, 1))

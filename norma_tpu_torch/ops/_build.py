@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-All sources compile in ONE ``nvcc`` call into a shared library with a plain
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into a shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds, not minutes).  The library lands in ``build/norma_tpu_torch/``
 beside the package, named by a hash of the sources and flags: it is built
@@ -23,10 +24,8 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "norma_tpu_torch")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -52,6 +51,27 @@ SIGNATURES = {
         I64, I64, I64, I64,  # cache_k strides (layer, batch), cache_v strides
         I, I, I, I, I, I,  # li, pos, B, H, dh, T
         I, F32,  # is_bf16, scale (dh**-0.5)
+        P,  # stream
+    ],
+    "norma_cross_decode": [
+        P, I64,  # q, q row stride
+        P, P, I64, I64,  # k codes, v codes, codes layer / stream strides
+        P, P, I64, I64,  # k scales, v scales, scales layer / stream strides
+        P, I64,  # out, out row stride
+        I, I, I, I, I, I,  # li, B, H, dh, G, Ta
+        I, I, F32,  # is_bf16, is_int4, scale (dh**-0.5)
+        P,  # stream
+    ],
+    "norma_flash_encoder": [
+        P, P, P,  # q, k, v
+        I64, I64, I64, I64, I64, I64,  # batch / row strides of q, k, v
+        P, I, I, I, I,  # out, B, T, H, dh
+        I, F32,  # is_bf16, scale (dh**-0.5)
+        P,  # stream
+    ],
+    "norma_q8a8": [
+        P, P, P, P, P, P,  # xq, xs, wq, ws, bias (or NULL), out
+        I, I, I,  # M, N, K
         P,  # stream
     ],
 }
@@ -98,17 +118,30 @@ def build() -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     cu = [s for s in _sources() if s.endswith(".cu")]
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, s],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for s, o in zip(cu, objs)
+    ]
+    logs = [p.communicate() for p in procs]
+    bad = [(s, p.returncode, out, err) for s, p, (out, err) in zip(cu, procs, logs) if p.returncode]
+    if bad:
+        raise RuntimeError(
+            "nvcc failed:\n" + "\n".join(f"{s} ({rc}):\n{out}\n{err}" for s, rc, out, err in bad)
+        )
+    r = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
     os.replace(tmp, path)
     build_info.update(
         nvcc=ver.stdout.strip().splitlines()[-1],
         seconds=time.perf_counter() - t0,
-        ptxas=r.stderr,
+        ptxas="".join(err for _, err in logs),
     )
     return path
 

@@ -252,15 +252,17 @@ def test_step_chain_matches_decoder_full(params):
 
 
 TPU_KNOBS = dict(
-    flash_attention=True, encoder_attn_impl="flash", encoder_attn_chunk=50, encoder_unroll=2,
-    flash_block_q=128, flash_block_k=128, encoder_scores_bf16=True, encoder_q8_mode="w8a16",
-    cross_kv_impl="kernel", cross_kv_chunk=100, cross_kv_kernel_hpc=2, self_kv_kernel_hpc=2,
+    encoder_attn_chunk=50, encoder_unroll=2, flash_block_q=128, flash_block_k=128,
+    encoder_scores_bf16=True, cross_kv_chunk=100, cross_kv_kernel_hpc=2, self_kv_kernel_hpc=2,
     decoder_scan_unroll=2,
 )
 
 
 def test_tpu_only_knobs_are_ignored(params):
-    """The TPU-only WhisperConfig fields are accepted and change nothing."""
+    """The TPU tile / unroll WhisperConfig fields are accepted and change
+    nothing (the knobs the port reads -- flash_attention, encoder_attn_impl,
+    encoder_q8_mode, cross_kv_impl -- are tested in test_torch_quant.py,
+    test_torch_flash_encoder.py and test_torch_paged_cross.py)."""
     _, pp = params
     knobbed = PCFG.with_(**TPU_KNOBS)
     mel = t(_mel(1, 2))
@@ -270,6 +272,10 @@ def test_tpu_only_knobs_are_ignored(params):
     want, _, _ = pw.decoder_step(pp, PCFG, tok, 3, pck.clone(), pcv.clone(), pxk, pxv)
     got, _, _ = pw.decoder_step(pp, knobbed, tok, 3, pck.clone(), pcv.clone(), pxk, pxv)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # The read knobs are validated, not silently ignored.
+    for bad in (dict(encoder_attn_impl="pallas"), dict(encoder_q8_mode="w4a8")):
+        with pytest.raises(ValueError):
+            pw.encode(pp, PCFG.with_(**bad), mel)
 
 
 def test_step_rejects_position_outside_cache(params):

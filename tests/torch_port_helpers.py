@@ -32,7 +32,14 @@ def port_st(st) -> PortSpecialTokens:
 
 
 def to_numpy_tree(params):
-    return jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    """JAX params -> numpy: floating leaves as f32 (bf16 widened exactly),
+    integer leaves (int8 codes) as they are."""
+
+    def leaf(a):
+        a = np.asarray(a)
+        return a if a.dtype.kind in "iub" else a.astype(np.float32)
+
+    return jax.tree.map(leaf, params)
 
 
 def port_params(jax_params, dtype=torch.float32):
