@@ -33,21 +33,47 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      BatchedTranscriber(max_streams=8) after warmup() serving 8 concurrent
      20-40 s synthetic streams fed in lockstep at 3x real time: no audio
      or transcript drops, >= 3 rounds per stream, a round with all 8
-     active, and every one of the five kernels' launch counters must move
+     active, and every one of the six kernels' launch counters (the five
+     above and w8, which the int8 decoder layers and head run) must move
      during the served rounds.  Then one B=1 window with int4 cross-K/V,
      and a full-width decoder_step through the kernel routes against the
      plain routes on the prefill of the engine's padded window, at B=1 and
-     at B=8 (5 active).
+     at B=8 (5 active);
+ 10. w4_matmul kernel vs its plain version at the int4 head's shape
+     [1280 -> 51866], rows 1/6/8/48, bf16 and f32 x, timed beside the int8
+     head (w8 kernel) and a bf16 cuBLAS head;
+ 11. w8_matmul kernel vs its plain version at the int8 decoder's four
+     shapes and the head, rows 1/6/8/48/200, bf16 and f32 x;
+ 12. log_mel kernel: a B=8 batch of 30 s windows through log_mel_pallas
+     (its own path; the kernel is on no serving path, as in the JAX
+     package), then kernel vs log_mel_dft and vs frontend/mel.py at B 1/8,
+     80 and 128 mels;
+ 13. the public entry point at full width: a distil-large-v3-shaped
+     checkpoint (config.json, a WordLevel tokenizer.json, BF16
+     model.safetensors of seeded random weights) written to a temporary
+     directory, monolingual.Definition(quantize_decoder, int4 head,
+     quantize_encoder, quantize_cross_kv, jax_flash / kernel / kernel) ->
+     Transcriber.blocking_spawn streaming >= 35 s of real-time synthetic
+     audio, stop(), close(), join(): no audio dropped, no error, and the
+     seven on-path kernels' counters (sample_step, self_decode,
+     cross_decode, flash_encoder, q8a8, w8, w4) all move; then one window
+     of multilingual.Definition in detect mode with quantize_self_kv and
+     the int4 head (the self-decode kernel stays off on the int8 cache).
 
 Then one JSON line with each kernel's launches, error and times, the
 card's ``nvidia-smi`` name/power-limit line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is the count
+from the path that runs it, its counters set to 0 just before: phase 5
+(sample_step, self_decode), phase 9 (cross_decode, flash_encoder, q8a8),
+phase 13 (w4_matmul, w8_matmul) and, for the log-mel kernel that no
+serving path runs, phase 12's own batch.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -726,7 +752,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
 
     counters = (sample_step.sample_step, self_decode.self_attention_decode,
                 paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
-                quant_matmul.q8a8_dense)
+                quant_matmul.q8a8_dense, quant_matmul.w8_matmul)
     engine.transcribe_window_async, engine.transcribe_window_fetch = timed_async, checked_fetch
     LongFormDecoder.feed, RecycledRing.try_send, LongFormDecoder.apply_result = feed, try_send, apply_result
     sr = 16000
@@ -937,6 +963,400 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         f"(|z| <= {step_b8[1]:.3g})")
 
 
+# --------------------------------------------------------------------------
+# Phases 10-13: the int4 / int8 weight-streaming kernels, the fused log-mel
+# kernel, and the public entry point at full width.
+# --------------------------------------------------------------------------
+
+HEAD_K, HEAD_N = 1280, V3
+
+
+def _rel_err(k, p):
+    """max |kernel - plain| and that over max |plain|."""
+    err = float((k - p).abs().max())
+    return err, err / max(float(p.abs().max()), 1e-30)
+
+
+def phase_w4(rec, dev):
+    import torch
+
+    from norma_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    w = torch.randn((HEAD_K, HEAD_N), generator=g, device=dev) * 0.02  # the tied embedding, transposed
+    q4, s4 = qm.quantize_blockwise_int4(w)
+    q8, s8 = qm.quantize_per_channel(w)
+    wb = w.to(torch.bfloat16)
+    # Tolerance: both sum f32 products of the same exact operands (bf16 or
+    # f32 x, integer codes, bf16 scales widened) in other orders: 1e-5 of
+    # the output's range.
+    worst, worst_abs, n_cases = 0.0, 0.0, 0
+    for rows in (1, 6, 8, 48):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((rows, HEAD_K), generator=g, device=dev).to(dtype)
+            ko, po = qm.w4_matmul(x, q4, s4), qm.w4_matmul_torch(x, q4, s4)
+            torch.cuda.synchronize()
+            if ko.shape != (rows, HEAD_N) or ko.dtype != torch.float32 or not torch.isfinite(ko).all():
+                raise AssertionError(f"w4 rows={rows} {dtype}: bad output")
+            err, rel = _rel_err(ko, po)
+            if not rel <= 1e-5:
+                raise AssertionError(f"w4 rows={rows} {dtype}: err {err} ({rel:.3g} of max|y|)")
+            worst, worst_abs, n_cases = max(worst, rel), max(worst_abs, err), n_cases + 1
+    x = torch.randn((6, HEAD_K), generator=g, device=dev).to(torch.bfloat16)
+    k_ms, p_ms = turns(lambda: qm.w4_matmul_torch(x, q4, s4), lambda: qm.w4_matmul(x, q4, s4))
+    w8_ms = cuda_ms(lambda: qm.w8_matmul(x, q8, s8))
+    bf16_ms = cuda_ms(lambda: qm.mm_f32(x, wb))
+    x1 = x[:1].contiguous()
+    k1_ms = cuda_ms(lambda: qm.w4_matmul(x1, q4, s4))
+    nbytes = dict(int4=q4.numel() + 2 * s4.numel(), int8=q8.numel() + 4 * s8.numel(), bf16=2 * wb.numel())
+    rec["w4_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms)
+    rec["w4_detail"] = dict(rel_err=worst, int8_head_ms=w8_ms, bf16_head_ms=bf16_ms, rows1_ms=k1_ms, bytes=nbytes)
+    log(f"phase 10 w4_matmul: ok {n_cases} cases ([1280 -> 51866], rows 1/6/8/48, bf16/f32 x); max err "
+        f"{worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms; "
+        f"int8 head (w8 kernel) {w8_ms:.4f} ms; bf16 cuBLAS head {bf16_ms:.4f} ms; w4 at 1 row {k1_ms:.4f} ms; "
+        f"head bytes int4 {nbytes['int4']} int8 {nbytes['int8']} bf16 {nbytes['bf16']}")
+
+
+def phase_w8(rec, dev):
+    import torch
+
+    from norma_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst, worst_abs, n_cases, times = 0.0, 0.0, 0, {}
+    for K, N in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (HEAD_K, HEAD_N)):
+        q, s = qm.quantize_per_channel(torch.randn((K, N), generator=g, device=dev) * K**-0.5)
+        for rows in (1, 6, 8, 48, 200):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((rows, K), generator=g, device=dev).to(dtype)
+                ko, po = qm.w8_dense(x, q, s), qm.w8_dense_torch(x, q, s)
+                torch.cuda.synchronize()
+                if ko.shape != (rows, N) or not torch.isfinite(ko).all():
+                    raise AssertionError(f"w8 K={K} N={N} rows={rows} {dtype}: bad output")
+                err, rel = _rel_err(ko, po)
+                if not rel <= 1e-5:  # f32 summation order of exact products, as phase 10
+                    raise AssertionError(f"w8 K={K} N={N} rows={rows} {dtype}: err {err} ({rel:.3g} of max|y|)")
+                worst, worst_abs, n_cases = max(worst, rel), max(worst_abs, err), n_cases + 1
+        x = torch.randn((6, K), generator=g, device=dev).to(torch.bfloat16)
+        # Plain: exact widening to f32 and an f32 product; and the route the
+        # int8 layers took before this kernel (a bf16 copy of the codes,
+        # then cuBLAS), for reference.
+        times[(K, N)] = turns(lambda: qm.w8_dense_torch(x, q, s), lambda: qm.w8_dense(x, q, s)) + (
+            cuda_ms(lambda: qm.mm_f32(x, q.to(torch.bfloat16)) * s),)
+    k_ms, p_ms, _ = times[(1280, 3840)]
+    rec["w8_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms)
+    rec["w8_times"] = {f"K={k[0]} N={k[1]}": v for k, v in times.items()}
+    t = "; ".join(f"{k}: kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms (bf16 widen + cuBLAS {v[2]:.4f} ms)"
+                  for k, v in rec["w8_times"].items())
+    log(f"phase 11 w8_matmul: ok {n_cases} cases (4 decoder shapes + head, rows 1/6/8/48/200, bf16/f32 x); "
+        f"max err {worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: {t}")
+
+
+def phase_log_mel(rec, dev):
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.frontend.mel import log_mel_spectrogram, prepare_audio
+    from norma_tpu_torch.ops import mel_pallas as mp
+
+    sr = 16000
+    tt = np.arange(30 * sr) / sr
+    rng = np.random.default_rng(12)
+    raw = [(0.3 * np.sin(2 * np.pi * (220.0 + 50 * i) * tt) + 0.02 * rng.standard_normal(tt.size)).astype(np.float32)
+           for i in range(8)]
+    raw[1][: 10 * sr] = 0.0  # near-silent stretch: bins at the clamp floor
+    batch = torch.from_numpy(np.stack([mp.pad_for_pallas(a) for a in raw])).to(dev)
+    # ---- its own path: a B=8 batch of windows through the frontend kernel ----
+    mp.log_mel_pallas.launches = 0
+    mels = {n: mp.log_mel_pallas(batch, n_mels=n) for n in (80, 128)}
+    torch.cuda.synchronize()
+    launches = mp.log_mel_pallas.launches
+    # ---- end of its path ----
+    # Tolerance 5e-4 in whisper units, the JAX package's bound between two
+    # f32 algorithms of this transform (tests/test_mel_pallas.py): exact f32
+    # both, other summation orders, magnified by log10 in low-power bins.
+    worst, n_cases = {"dft": 0.0, "rfft": 0.0}, 0
+    for n_mels in (80, 128):
+        for B in (1, 8):
+            ko = mels[n_mels][:B] if B == 8 else mp.log_mel_pallas(batch[:1], n_mels=n_mels)
+            po = mp.log_mel_dft(batch[:B], n_mels=n_mels)
+            ro = log_mel_spectrogram(
+                torch.from_numpy(np.stack([prepare_audio(a) for a in raw[:B]])).to(dev), n_mels=n_mels
+            )
+            torch.cuda.synchronize()
+            if ko.shape != (B, n_mels, 3000) or not torch.isfinite(ko).all():
+                raise AssertionError(f"log_mel B={B} mels={n_mels}: bad output")
+            for name, ref in (("dft", po), ("rfft", ro)):
+                err = float((ko - ref).abs().max())
+                if not err <= 5e-4:
+                    raise AssertionError(f"log_mel B={B} mels={n_mels} vs {name}: err {err}")
+                worst[name] = max(worst[name], err)
+            n_cases += 1
+    k_ms, p_ms = turns(lambda: mp.log_mel_dft(batch, n_mels=128), lambda: mp.log_mel_pallas(batch, n_mels=128))
+    b1 = batch[:1].contiguous()
+    k1_ms, p1_ms = turns(lambda: mp.log_mel_dft(b1, n_mels=128), lambda: mp.log_mel_pallas(b1, n_mels=128))
+    rfft_ms = cuda_ms(lambda: log_mel_spectrogram(batch[:, : (3000 - 1) * 160 + 400], n_mels=128))
+    rec["log_mel"] = dict(launches=launches, max_abs_err=worst["dft"], ms=k_ms, plain_ms=p_ms)
+    rec["log_mel_detail"] = dict(err_vs_rfft=worst["rfft"], b1_ms=k1_ms, b1_plain_ms=p1_ms, rfft_b8_ms=rfft_ms)
+    log(f"phase 12 log_mel: ok path B=8 x 30 s at 80 and 128 mels ({launches} launches); {n_cases} cases "
+        f"(B 1/8, 80/128 mels): max err vs log_mel_dft {worst['dft']:.3g}, vs frontend/mel.py rFFT "
+        f"{worst['rfft']:.3g}; B=8 128 mels: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms (rFFT frontend "
+        f"{rfft_ms:.3f} ms); B=1: kernel {k1_ms:.3f} ms vs plain {p1_ms:.3f} ms")
+
+
+# large-v3's special-token names beyond the text ids, in id order from the
+# EOT (50257): the 99 languages, then Cantonese (v3's 100th).
+def _v3_specials():
+    from norma_tpu_torch.models.whisper.languages import ALL_LANGUAGES
+
+    names = ["<|endoftext|>", "<|startoftranscript|>"] + [lang.token() for lang in ALL_LANGUAGES]
+    names += ["<|yue|>", "<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+              "<|nospeech|>", "<|notimestamps|>"]
+    names += [f"<|{i * 0.02:.2f}|>" for i in range(1501)]
+    return names
+
+
+def write_v3_checkpoint(d, dev, seed=13, cfg=None):
+    """A distil-large-v3-shaped checkpoint in ``d``: config.json, a
+    WordLevel tokenizer.json (text ids w0..w50256, then the large-v3
+    special ids of ST_V3) and a BF16 model.safetensors in HF names, of
+    random weights drawn on ``dev`` from ``seed`` (linear weights
+    N(0, 1/in), embeddings N(0, 0.02^2), LayerNorms 1 and 0).  ``cfg``
+    (default: the distil-large-v3 preset) may shrink the widths and depths
+    for a CPU rehearsal; the vocabulary stays large-v3's.  Returns the
+    weights file's bytes."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.model import PRESETS
+
+    cfg = cfg or PRESETS["distil-large-v3"].with_(max_source_positions=1500, max_target_positions=448)
+    D, F, M, V = cfg.d_model, 4 * cfg.d_model, cfg.num_mel_bins, cfg.vocab_size
+    specials = _v3_specials()
+    n_text = ST_V3["eot"]
+    if n_text + len(specials) != V or specials.index("<|transcribe|>") + n_text != ST_V3["task"]:
+        raise AssertionError("the large-v3 token layout does not add up")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(num_mel_bins=M, vocab_size=V, d_model=D, encoder_layers=cfg.encoder_layers,
+                       encoder_attention_heads=cfg.encoder_attention_heads, decoder_layers=cfg.decoder_layers,
+                       decoder_attention_heads=cfg.decoder_attention_heads,
+                       max_source_positions=cfg.max_source_positions,
+                       max_target_positions=cfg.max_target_positions, suppress_tokens=list(cfg.suppress_tokens)), f)
+    tok = dict(
+        version="1.0", truncation=None, padding=None, normalizer=None, post_processor=None, decoder=None,
+        pre_tokenizer={"type": "Whitespace"},
+        added_tokens=[dict(id=n_text + i, content=c, single_word=False, lstrip=False, rstrip=False,
+                           normalized=False, special=True) for i, c in enumerate(specials)],
+        model=dict(type="WordLevel", vocab={f"w{i}": i for i in range(n_text)}, unk_token="w0"),
+    )
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(tok, f)
+
+    shapes = {"model.encoder.conv1.weight": (D, M, 3), "model.encoder.conv1.bias": (D,),
+              "model.encoder.conv2.weight": (D, D, 3), "model.encoder.conv2.bias": (D,),
+              "model.encoder.embed_positions.weight": (cfg.max_source_positions, D),
+              "model.decoder.embed_tokens.weight": (V, D),
+              "model.decoder.embed_positions.weight": (cfg.max_target_positions, D)}
+    for side, n in (("encoder", cfg.encoder_layers), ("decoder", cfg.decoder_layers)):
+        for i in range(n):
+            p = f"model.{side}.layers.{i}"
+            for attn in ("self_attn",) + (("encoder_attn",) if side == "decoder" else ()):
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    shapes[f"{p}.{attn}.{proj}.weight"] = (D, D)
+                    if proj != "k_proj":
+                        shapes[f"{p}.{attn}.{proj}.bias"] = (D,)
+                ln = "self_attn_layer_norm" if attn == "self_attn" else "encoder_attn_layer_norm"
+                shapes[f"{p}.{ln}.weight"] = shapes[f"{p}.{ln}.bias"] = (D,)
+            shapes[f"{p}.fc1.weight"], shapes[f"{p}.fc1.bias"] = (F, D), (F,)
+            shapes[f"{p}.fc2.weight"], shapes[f"{p}.fc2.bias"] = (D, F), (D,)
+            shapes[f"{p}.final_layer_norm.weight"] = shapes[f"{p}.final_layer_norm.bias"] = (D,)
+        shapes[f"model.{side}.layer_norm.weight"] = shapes[f"model.{side}.layer_norm.bias"] = (D,)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def tensor(name, shape):
+        if name.endswith("norm.weight"):
+            return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        if name.endswith(".bias"):
+            return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        scale = 0.02 if "embed" in name else (0.05 if "conv" in name else shape[1] ** -0.5)
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    header, offset = {}, 0
+    for name, shape in shapes.items():
+        nb = 2 * int(np.prod(shape))
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + nb]}
+        offset += nb
+    hj = json.dumps(header).encode()
+    path = os.path.join(d, "model.safetensors")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hj)))
+        f.write(hj)
+        for name, shape in shapes.items():
+            f.write(tensor(name, shape).view(torch.int16).cpu().numpy().tobytes())
+    return os.path.getsize(path)
+
+
+def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dtype=None):
+    """The public entry point at full width (the defaults).  A CPU
+    rehearsal passes the fixture checkpoint's directory, a short stream
+    and torch.float32; it checks everything but the launch counts (the
+    plain versions launch nothing)."""
+    import contextlib
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch import Transcriber
+    from norma_tpu_torch.audio.sources import SyntheticSource
+    from norma_tpu_torch.input import Settings
+    from norma_tpu_torch.models import SelectedDevice
+    from norma_tpu_torch.models.whisper import monolingual, multilingual
+    from norma_tpu_torch.ops import flash_encoder, paged_cross, quant_matmul, sample_step, self_decode
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    device = SelectedDevice.cuda() if cuda else SelectedDevice.cpu()
+    dtype = dtype or torch.bfloat16
+    counters = {"sample_step": sample_step.sample_step, "self_decode": self_decode.self_attention_decode,
+                "cross_decode": paged_cross.cross_attention_q8_kernel_stacked,
+                "flash_encoder": flash_encoder.flash_self_attention, "q8a8": quant_matmul.q8a8_dense,
+                "w8_matmul": quant_matmul.w8_matmul, "w4_matmul": quant_matmul.w4_matmul}
+    tmp = tempfile.TemporaryDirectory(prefix="norma_v3_ckpt_") if ckpt_dir is None else contextlib.nullcontext(ckpt_dir)
+    with tmp as d:
+        t0 = time.perf_counter()
+        nbytes = write_v3_checkpoint(d, dev) if ckpt_dir is None else os.path.getsize(os.path.join(d, "model.safetensors"))
+        write_s = time.perf_counter() - t0
+        defn = monolingual.Definition(
+            monolingual.ModelType.DISTIL_LARGE_EN_V3, device, local_dir=d, dtype=dtype,
+            quantize_decoder=True, quantize_logits="int4", quantize_encoder=True, quantize_cross_kv=True,
+            config_overrides={"encoder_attn_impl": "jax_flash", "cross_kv_impl": "kernel",
+                              "self_kv_impl": "kernel"},
+        )
+        models = []
+        build = defn.blocking_try_to_model
+        defn.blocking_try_to_model = lambda: models.append(build()) or models[-1]
+        t0 = time.perf_counter()
+        jh, th = Transcriber.blocking_spawn(defn)
+        load_s = time.perf_counter() - t0
+        model = models[0]
+        engine = model.engine
+        dec = engine.params["decoder"]
+        V, D = dec["tok_emb"].shape
+        head_bytes = dict(int4=sum(t.numel() * t.element_size() for t in dec["tok_emb_q4"].buffers()),
+                          int8=D * V + 4 * V)
+        if "tok_emb_q8" in dec or dec["tok_emb_q4"]["s"].dtype != torch.bfloat16:
+            raise AssertionError("the Definition did not build the int4 head alone")
+        windows, fed, rings = [], [0], []
+        inner_window, inner_transcribe = engine.transcribe_window, model.transcribe
+
+        def timed_window(audio, langs, seed, n_active=None):
+            sync()
+            s0, w0 = engine.decode_steps, time.perf_counter()
+            out = inner_window(audio, langs, seed, n_active)
+            sync()
+            windows.append(dict(ms=(time.perf_counter() - w0) * 1e3, steps=engine.decode_steps - s0))
+            return out
+
+        def counted_transcribe(data, final_chunk):
+            fed[0] += len(data)
+            return inner_transcribe(data, final_chunk)
+
+        open_stream = Transcriber._open_stream
+
+        def keep_ring(self, settings):
+            pipeline, ring = open_stream(self, settings)
+            rings.append(ring)
+            return pipeline, ring
+
+        engine.transcribe_window, model.transcribe = timed_window, counted_transcribe
+        Transcriber._open_stream = keep_ring
+        texts = []
+        try:
+            model.warmup()  # first-use costs (kernel build, allocator) outside the measured stream
+            windows.clear()
+            # ---- the main path: counts from zero ----
+            for c in counters.values():
+                c.launches = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            src = SyntheticSource(sample_rate=16000, channels=1, dtype=np.float32, freq=330.0, noise=0.05,
+                                  realtime=True, seed=13)
+            w0 = time.perf_counter()
+            stream = th.blocking_start(Settings(source=src))
+            reader = threading.Thread(target=lambda: texts.extend(stream), daemon=True)
+            reader.start()
+            time.sleep(stream_s)
+            th.stop()
+            reader.join(timeout=120)
+            sync()
+            wall_s = time.perf_counter() - w0
+            launches = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            # ---- end of the main path ----
+            th.close()
+            jh.join(timeout=60)  # raises the run loop's error, if any
+        finally:
+            Transcriber._open_stream = open_stream
+            engine.transcribe_window, model.transcribe = inner_window, inner_transcribe
+        if reader.is_alive():
+            raise AssertionError("the string stream never ended after stop()")
+        if len(rings) != 1 or rings[0].dropped:
+            raise AssertionError(f"audio dropped: rings {[r.dropped for r in rings]}")
+        if fed[0] < min_fed_s * 16000:
+            raise AssertionError(f"only {fed[0] / 16000:.1f} s of audio reached the model")
+        if model.longform.buf.size:
+            raise AssertionError(f"{model.longform.buf.size} samples left after the final chunk")
+        missing = [k for k, v in launches.items() if v <= 0]
+        if cuda and missing:
+            raise AssertionError(f"kernels not launched during the streamed run: {missing}")
+        # Segments decode one by one and concatenate: text is "wN" words.
+        for text in texts:
+            if not (re.fullmatch(r"(\s*w\d+)+\s*", text)
+                    and all(int(i) < ST_V3["eot"] for i in re.findall(r"w(\d+)", text))):
+                raise AssertionError(f"streamed text is not WordLevel text: {text[:80]!r}")
+        for k in ("w8_matmul", "w4_matmul"):
+            rec.setdefault(k, {})["launches"] = launches[k]
+
+        # Multilingual detect mode with the int8 self-KV cache: one window.
+        mdef = multilingual.Definition(
+            multilingual.ModelType.LARGE_V3, device, multilingual.Task.TRANSCRIBE, local_dir=d,
+            dtype=dtype, quantize_self_kv=True, quantize_logits="int4",
+            config_overrides={"self_kv_impl": "kernel"},
+        )
+        mmodel = mdef.blocking_try_to_model()
+        sr = 16000
+        tt = np.arange(30 * sr) / sr
+        audio = (0.2 * np.sin(2 * np.pi * 250 * tt) + 0.05 * np.random.default_rng(14).standard_normal(tt.size))
+        before = {k: c.launches for k, c in counters.items()}
+        sync()
+        m0, ms0 = time.perf_counter(), mmodel.engine.decode_steps
+        mtext = mmodel.transcribe(audio.astype(np.float32), final_chunk=True)
+        sync()
+        multi_ms, multi_steps = (time.perf_counter() - m0) * 1e3, mmodel.engine.decode_steps - ms0
+        moved = {k: c.launches - before[k] for k, c in counters.items()}
+        if not (mmodel.engine.quantize_self_kv and multi_steps > 0 and (moved["w4_matmul"] > 0 or not cuda)):
+            raise AssertionError(f"multilingual self-KV window: steps {multi_steps}, launches {moved}")
+        if moved["self_decode"]:
+            raise AssertionError("the self-decode kernel ran on an int8 self-KV cache")
+        if mmodel.longform.buf.size or mmodel.longform.lang.detected is not None:
+            raise AssertionError("detect-mode window did not drain or did not clear its language")
+    rec["definition"] = dict(windows=windows, wall_s=wall_s, fed_s=fed[0] / 16000, peak_bytes=peak,
+                             launches=launches, head_bytes=head_bytes, ckpt_bytes=nbytes, write_s=write_s,
+                             load_s=load_s, multi_ms=multi_ms, multi_steps=multi_steps)
+    log(f"phase 13 definition: ok distil-large-v3 BF16 checkpoint {nbytes / 2**30:.2f} GiB written in {write_s:.1f} s, "
+        f"Definition + Transcriber.blocking_spawn {load_s:.1f} s; streamed {fed[0] / 16000:.1f} s real time in "
+        f"{wall_s:.1f} s, no drops, stop/close/join clean; windows wall_ms={[round(w['ms'], 1) for w in windows]} "
+        f"steps={[w['steps'] for w in windows]}; {len(texts)} strings; peak_mem={peak / 2**30:.2f} GiB; "
+        f"launches={launches}; head bytes int4 {head_bytes['int4']} vs int8 {head_bytes['int8']}; multilingual "
+        f"detect + int8 self-KV window {multi_ms:.1f} ms, {multi_steps} steps, self-decode launches 0, "
+        f"{len(mtext)} chars")
+
+
 def main() -> int:
     import torch
 
@@ -966,6 +1386,10 @@ def main() -> int:
         ("flash_encoder", lambda: phase_flash_encoder(rec, dev)),
         ("q8a8", lambda: phase_q8a8(rec, dev)),
         ("serving", lambda: phase_serving(rec, dev)),
+        ("w4_matmul", lambda: phase_w4(rec, dev)),
+        ("w8_matmul", lambda: phase_w8(rec, dev)),
+        ("log_mel", lambda: phase_log_mel(rec, dev)),
+        ("definition", lambda: phase_definition(rec, dev)),
     ):
         if failed and failed[0] == "build":
             break
@@ -993,6 +1417,12 @@ def main() -> int:
              replaces="norma_tpu/ops/flash_encoder.py:66", **rec["flash_encoder"]),
         dict(name="q8a8", route="cuda", source="norma_tpu_torch/csrc/q8a8.cu",
              replaces="norma_tpu/ops/quant_matmul.py:145", **rec["q8a8"]),
+        dict(name="w4_matmul", route="cuda", source="norma_tpu_torch/csrc/w4_matmul.cu",
+             replaces="norma_tpu/ops/quant_matmul.py:309", **rec["w4_matmul"]),
+        dict(name="w8_matmul", route="cuda", source="norma_tpu_torch/csrc/w8_matmul.cu",
+             replaces="norma_tpu/ops/quant_matmul.py:51", **rec["w8_matmul"]),
+        dict(name="log_mel", route="cuda", source="norma_tpu_torch/csrc/log_mel.cu",
+             replaces="norma_tpu/ops/mel_pallas.py:88", **rec["log_mel"]),
     ]
     served = rec["serving"]["launches"]
     for k, fn in zip(kernels[2:], ("cross_attention_q8_kernel_stacked", "flash_self_attention", "q8a8_dense")):

@@ -12,12 +12,16 @@ to find:
   - ``ops.self_decode``     single-query self-attention decode (CUDA kernel)
   - ``ops.paged_cross``     cross-attention over int8/int4 codes (CUDA kernel)
   - ``ops.flash_encoder``   encoder flash attention (CUDA kernel)
-  - ``ops.quant_matmul``    int8 GEMM (CUDA kernel) and the w8a16 product
+  - ``ops.quant_matmul``    int8 GEMM, w8a16 and w4a16 products (CUDA kernels)
   - ``decode.engine``       ``DecodeEngine`` (temperature ladders, buckets,
                             quantized cross-K/V)
   - ``decode.longform``     ``LongFormDecoder`` (streaming buffer/drain)
-  - ``models.whisper``      ``WhisperModel`` (the user-facing entry point)
+  - ``models.whisper``      ``monolingual`` / ``multilingual.Definition``,
+                            their checkpoint loader and tokenizer, and
+                            ``WhisperModel``
+  - ``runtime.transcriber`` ``Transcriber`` (the public entry point)
   - ``runtime.batching``    ``BatchedTranscriber`` (multi-stream serving)
+  - ``ops.mel_pallas``      the fused log-mel frontend (CUDA kernel)
   - ``audio``, ``runtime.channels``, ``errors``, ``input``  copies of the
                             JAX package's numpy-only modules
 
@@ -28,4 +32,35 @@ compiled with ``nvcc`` at first use into ``build/norma_tpu_torch/``
 PyTorch version instead.
 """
 
+from . import audio, input, models, tracing
+from .errors import (
+    NormaError,
+    NoStreamRunning,
+    StartError,
+    StopError,
+    TranscriberDown,
+    TranscriberRunning,
+)
+from .runtime import JoinHandle, StringReceiver, Transcriber, TranscriberHandle
+from .runtime.batching import BatchedTranscriber
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "audio",
+    "input",
+    "models",
+    "tracing",
+    "BatchedTranscriber",
+    "Transcriber",
+    "TranscriberHandle",
+    "JoinHandle",
+    "StringReceiver",
+    "NormaError",
+    "StartError",
+    "StopError",
+    "TranscriberDown",
+    "TranscriberRunning",
+    "NoStreamRunning",
+    "__version__",
+]

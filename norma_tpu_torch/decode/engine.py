@@ -1,5 +1,5 @@
 """Whisper decoding engine in eager PyTorch (``norma_tpu/decode/engine.py``,
-without speculation, the int8 self-KV cache or meshes).
+without speculation or meshes).
 
 The reference's per-window decode (``model.rs:164-389``): mel -> encoder ->
 cross-K/V -> optional language detection -> prefill with the no-speech
@@ -30,7 +30,11 @@ read is counted in :attr:`DecodeEngine.host_syncs`.
 quantizes the cross-K/V the token loop reads, per window after prefill;
 prefill and language detection stay unquantized.  Under
 ``cross_kv_impl="kernel"`` the codes are laid out for the cross-decode
-kernel (``ops/paged_cross.py``) on every device.
+kernel (``ops/paged_cross.py``) on every device.  ``quantize_self_kv``
+turns the self-attention caches into int8 with per-row scales after
+prefill (``model/whisper.py::quantize_self_kv_cache``); the loop then
+writes int8 rows, and the self-decode kernel stays off, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..model.whisper import (
     encode,
     quantize_cross_kv as quantize_xkv8,
     quantize_cross_kv4,
+    quantize_self_kv_cache,
 )
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.sample_step import sample_step
@@ -70,6 +75,22 @@ class DecodingResult:
     avg_logprob: float
     no_speech_prob: float
     compression_ratio: float = float("nan")
+
+
+def _crop(cache, S: int):
+    """Rows [0, S) of a [L, B, T, ...] cache, or of each tensor of an int8
+    cache's {"q", "s"} (views, so row writes land in the full cache)."""
+    if isinstance(cache, dict):
+        return {k: v[:, :, :S] for k, v in cache.items()}
+    return cache[:, :, :S]
+
+
+def _tile_rows(cache, R: int):
+    """The cache's stream axis repeated R times (rung r of stream b at row
+    r*B + b), for a tensor or an int8 cache's {"q", "s"}."""
+    if isinstance(cache, dict):
+        return {k: v.repeat(1, R, 1, 1) for k, v in cache.items()}
+    return cache.repeat(1, R, 1, 1)
 
 
 def _rung_seed(seed: int, rung: int) -> int:
@@ -98,6 +119,7 @@ class DecodeEngine:
         language_token_ids: Optional[Sequence[int]] = None,
         mel_center: bool = False,
         quantize_cross_kv: "bool | str" = False,
+        quantize_self_kv: bool = False,
     ):
         self.params = params
         self.cfg = cfg
@@ -129,6 +151,9 @@ class DecodeEngine:
         self.quantize_cross_kv = (
             quantize_cross_kv if quantize_cross_kv in (False, "int4") else True
         )
+        # int8 self-attention caches with per-row scales: halves the other
+        # per-step K/V stream; the scales fold exactly into the attention.
+        self.quantize_self_kv = bool(quantize_self_kv)
         bad = [b for b in cfg.decode_buckets if not isinstance(b, int) or b <= 0]
         if bad:
             raise ValueError(f"decode_buckets must be positive ints, got {bad}")
@@ -177,10 +202,14 @@ class DecodeEngine:
     def _prefill_kv(self, prefix_tokens, xk, xv):
         """prefix_tokens [B, P] over cross-K/V -> (cache_k, cache_v,
         next_logits [B, V], no_speech_prob [B]).  The probe reads the
-        logits at the SOT position (model.rs:300)."""
+        logits at the SOT position (model.rs:300).  Under
+        ``quantize_self_kv`` the caches come back int8 (the prefill pass
+        itself is unquantized)."""
         logits, cache_k, cache_v = decoder_prefill(
             self.params, self.cfg, prefix_tokens, xk, xv
         )
+        if self.quantize_self_kv:
+            cache_k, cache_v = quantize_self_kv_cache(cache_k), quantize_self_kv_cache(cache_v)
         nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, self.st.no_speech]
         return cache_k, cache_v, logits[:, -1, :].contiguous(), nsp
 
@@ -208,7 +237,8 @@ class DecodeEngine:
         rewritten before any read, so callers may reuse the caches for
         another loop over the same prefix.  ``cfg.decode_buckets`` runs
         each step against the smallest cache crop ``cache[:, :, :S]`` that
-        holds its row (a view of the one [L, B, Tmax, D] allocation, so a
+        holds its row (a view of the one [L, B, Tmax, D] allocation — of each
+        of an int8 cache's tensors — so a
         bucket boundary copies nothing; rows beyond the fill are masked out
         whatever they hold, as the JAX chain's zero padding is).
         """
@@ -277,7 +307,7 @@ class DecodeEngine:
             pos = n0 + step
             S = next((s for s in sizes if pos < s), mtp)
             ll, _, _ = decoder_step(
-                self.params, cfg, nxt, pos, cache_k[:, :, :S], cache_v[:, :, :S],
+                self.params, cfg, nxt, pos, _crop(cache_k, S), _crop(cache_v, S),
                 xk, xv, n_rungs=n_rungs,
             )
             step += 1
@@ -358,7 +388,7 @@ class DecodeEngine:
             temps_row = temps_row.repeat_interleave(B)
             toks, n, slp = self._token_loop(
                 xk, xv,
-                cache_k.repeat(1, R, 1, 1), cache_v.repeat(1, R, 1, 1),
+                _tile_rows(cache_k, R), _tile_rows(cache_v, R),
                 next_logits.repeat(R, 1), tokens_init.repeat(R, 1), 3,
                 prefix[:, -1].repeat(R), prefix[:, -2].repeat(R),
                 temps_row, _rung_seed(seed, 0),

@@ -26,6 +26,42 @@ class SpecialTokens:
     zero_sec: int  # <|0.00|>
     one_sec: int  # <|1.00|>
 
+    @classmethod
+    def from_tokenizer(cls, tokenizer, task_token_str: str) -> "SpecialTokens":
+        """Resolve the ids through a tokenizer (reference:
+        monolingual.rs:242-250); the no-speech token is the first of its
+        two historical names the vocabulary has."""
+        from ..constants import (
+            EOT_TOKEN,
+            NO_SPEECH_TOKENS,
+            NO_TIMESTAMPS_TOKEN,
+            ONE_SEC_TOKEN,
+            SOT_TOKEN,
+            ZERO_SEC_TOKEN,
+        )
+        from ..errors import TokenIdError
+
+        def tid(s: str) -> int:
+            i = tokenizer.token_to_id(s)
+            if i is None:
+                raise TokenIdError(s)
+            return i
+
+        no_speech = next(
+            (i for i in map(tokenizer.token_to_id, NO_SPEECH_TOKENS) if i is not None), None
+        )
+        if no_speech is None:
+            raise TokenIdError(" nor ".join(NO_SPEECH_TOKENS))
+        return cls(
+            sot=tid(SOT_TOKEN),
+            eot=tid(EOT_TOKEN),
+            task=tid(task_token_str),
+            no_speech=no_speech,
+            no_timestamps=tid(NO_TIMESTAMPS_TOKEN),
+            zero_sec=tid(ZERO_SEC_TOKEN),
+            one_sec=tid(ONE_SEC_TOKEN),
+        )
+
 
 @dataclass(frozen=True)
 class Masks:

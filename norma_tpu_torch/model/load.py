@@ -72,10 +72,25 @@ class Params(nn.Module):
         return self["decoder"]["tok_emb"].device
 
 
-def _is_scale(name: str) -> bool:
-    """Quantization scales: ``name_s`` layer leaves and the ``s`` of the
-    int8 head (``tok_emb_q8``); they stay f32 in every model dtype."""
-    return name.endswith("_s") or name == "s"
+def _scale_dtype(path: Tuple[str, ...]) -> Optional[torch.dtype]:
+    """The dtype of a quantization scale, whatever the model dtype: bf16
+    for the int4 head's (``tok_emb_q4.s``, the JAX package's bf16 grid),
+    f32 for ``name_s`` layer leaves and the int8 head's ``s``; None for a
+    leaf that is not a scale."""
+    name = path[-1]
+    if name == "s" and len(path) > 1 and path[-2] == "tok_emb_q4":
+        return torch.bfloat16
+    if name.endswith("_s") or name == "s":
+        return torch.float32
+    return None
+
+
+def _tensor(v: np.ndarray) -> torch.Tensor:
+    """numpy -> tensor; ml_dtypes' bfloat16 arrays (what ``np.asarray`` of a
+    JAX bf16 array gives) keep their bits."""
+    if v.dtype.name == "bfloat16":
+        return torch.from_numpy(np.require(v, requirements=["C"]).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.require(v, requirements=["C", "W"]))  # copies only if needed
 
 
 def params_from_numpy(
@@ -86,21 +101,23 @@ def params_from_numpy(
     """Nested numpy arrays (e.g. the JAX package's params after
     ``jax.tree.map(np.asarray, params)``) -> :class:`Params` on ``device``.
     Floating weights are cast to ``dtype`` (None keeps each leaf's dtype);
-    quantization scales (:func:`_is_scale`) are f32 whatever ``dtype`` is,
-    and integer leaves (int8 codes) keep their dtype."""
+    quantization scales keep their own dtype whatever ``dtype`` is
+    (:func:`_scale_dtype`: bf16 for the int4 head, f32 otherwise), and
+    integer leaves (int8 codes) keep theirs."""
 
-    def conv(name, v):
+    def conv(path, v):
         if isinstance(v, dict):
-            return {k: conv(k, x) for k, x in v.items()}
-        t = torch.from_numpy(np.require(v, requirements=["C", "W"]))  # copies only if needed
+            return {k: conv(path + (k,), x) for k, x in v.items()}
+        t = _tensor(v)
         if t.is_floating_point():
-            if _is_scale(name):
-                t = t.to(torch.float32)
+            sd = _scale_dtype(path)
+            if sd is not None:
+                t = t.to(sd)
             elif dtype is not None:
                 t = t.to(dtype)
         return t.to(device)
 
-    return Params(conv("", tree))
+    return Params(conv(("",), tree))
 
 
 def _stack(layer_dicts) -> NumpyTree:

@@ -3,23 +3,28 @@
   - :func:`quantize_logits_head` — an int8 tied-embedding head
     (``tok_emb_q8``: codes [D, V] int8, scales [V] f32) beside ``tok_emb``,
     which the token embedding keeps using;
+  - :func:`quantize_logits_head_int4` — a blockwise-int4 head
+    (``tok_emb_q4``: nibble-packed codes [D/2, V] int8, scales [D/64, V]
+    bf16), half the int8 head's bytes.  Each head tier drops the other, so
+    the one asked for last is the one ``logits_head`` runs;
   - :func:`quantize_decoder` — every decoder-layer matmul weight as
     per-(layer, out-channel) int8 (``name_q`` + ``name_s``), plus the int8
-    head.  The decoder computes w8a16 (``model/whisper.py::ldense``): the
-    decode step is weight-bandwidth-bound, so only the stored bytes matter;
+    or int4 head.  The decoder computes w8a16 (``model/whisper.py::ldense``,
+    the w8 kernel on the card): the decode step is weight-bandwidth-bound,
+    so only the stored bytes matter;
   - :func:`quantize_encoder` — the encoder-layer weights in the same
     storage; the encoder computes w8a8 through the int8 GEMM
     (``encoder_q8_mode``), changing numerics by the activation grid.
 
 Codes and scales are bit-equal to the JAX package's (f32 arithmetic,
-round half to even).  The blockwise-int4 head waits for ROADMAP queue 2 #7.
+round half to even).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from ..ops.quant_matmul import quantize_axis, quantize_per_channel
+from ..ops.quant_matmul import quantize_axis, quantize_blockwise_int4, quantize_per_channel
 from .load import Params
 
 # Decoder-layer weight matrices eligible for int8 (stacked [L, in, ...out]).
@@ -56,25 +61,37 @@ def _quantize_layer_stack(layers: Dict[str, Any], keys) -> Dict[str, Any]:
 
 
 def quantize_logits_head(params: Params) -> Params:
-    """Return params with an int8 tied-embedding head added."""
+    """Return params with an int8 tied-embedding head added (and any int4
+    head dropped: ``logits_head`` takes ``tok_emb_q4`` first, so a leftover
+    one would override this request)."""
     tree = _tree(params)
     q, s = quantize_per_channel(tree["decoder"]["tok_emb"].t())  # [D, V]
     tree["decoder"]["tok_emb_q8"] = {"q": q, "s": s}
+    tree["decoder"].pop("tok_emb_q4", None)
+    return Params(tree)
+
+
+def quantize_logits_head_int4(params: Params, block: int = 64) -> Params:
+    """Return params with a blockwise-int4 tied-embedding head added (and
+    any int8 head dropped)."""
+    tree = _tree(params)
+    q, s = quantize_blockwise_int4(tree["decoder"]["tok_emb"].t(), block)  # [D/2, V], [D/block, V]
+    tree["decoder"]["tok_emb_q4"] = {"q": q, "s": s}
+    tree["decoder"].pop("tok_emb_q8", None)
     return Params(tree)
 
 
 def quantize_decoder(params: Params, logits: str = "int8") -> Params:
-    """Return params with all decoder-layer matmul weights and the logits
-    head as int8.  Works on fused (``qkv_w`` [L, in, 3, out]) and unfused
-    stacks.  ``logits="int4"`` (the blockwise-int4 head) is not ported
-    yet."""
+    """Return params with all decoder-layer matmul weights as int8 and the
+    logits head as int8 (``logits`` True or "int8") or blockwise int4
+    ("int4").  Works on fused (``qkv_w`` [L, in, 3, out]) and unfused
+    stacks."""
     if logits == "int4":
-        raise NotImplementedError(
-            "the int4 logits head is not ported yet (ROADMAP queue 2 #7, w4_matmul_pallas)"
-        )
-    if logits not in (True, "int8"):
+        tree = _tree(quantize_logits_head_int4(params))
+    elif logits in (True, "int8"):
+        tree = _tree(quantize_logits_head(params))
+    else:
         raise ValueError(f"logits={logits!r}: expected 'int8' or 'int4'")
-    tree = _tree(quantize_logits_head(params))
     tree["decoder"]["layers"] = _quantize_layer_stack(tree["decoder"]["layers"], DECODER_W8_KEYS)
     return Params(tree)
 

@@ -11,14 +11,19 @@ bf16 weights never round a product twice, and the logits head returns
 unrounded f32 logits (:func:`~norma_tpu_torch.ops.quant_matmul.mm_f32`).
 
 Quantized trees (``model/quant.py``) dispatch per key: ``name_q`` /
-``name_s`` int8 weights run dequantize-then-matmul (w8a16, :func:`ldense`)
-in the decoder and, under ``encoder_q8_mode="w8a16"``, in the encoder;
-"w8a8" / "w8a8_pallas" run the encoder's six projections through the int8
-GEMM (:func:`~norma_tpu_torch.ops.quant_matmul.q8a8_dense`).  The token
-loop's cross-attention runs over int8 / int4 codes when the engine
-quantizes the cross-K/V: the stacked kernel layout
+``name_s`` int8 weights run w8a16 (:func:`ldense`, through
+:func:`~norma_tpu_torch.ops.quant_matmul.w8_dense`: the w8 kernel on the
+card, which reads the int8 bytes without a widened copy) in the decoder
+and, under ``encoder_q8_mode="w8a16"``, in the encoder; "w8a8" /
+"w8a8_pallas" run the encoder's six projections through the int8 GEMM
+(:func:`~norma_tpu_torch.ops.quant_matmul.q8a8_dense`); an int4 head
+(``tok_emb_q4``) runs :func:`~norma_tpu_torch.ops.quant_matmul.w4_matmul`.
+The token loop's cross-attention runs over int8 / int4 codes when the
+engine quantizes the cross-K/V: the stacked kernel layout
 (``ops/paged_cross.py``) or the plain per-channel dict
-(:func:`attention_cross_q8`).
+(:func:`attention_cross_q8`); its self-attention over an int8 cache with
+per-row scales (:func:`attention_self_q8`) when the engine quantizes the
+self-K/V.
 
 Differences from the JAX form, all outcome-neutral:
   - the layer scans are Python loops over per-layer views;
@@ -37,7 +42,15 @@ import torch.nn.functional as F
 
 from ..ops.flash_encoder import flash_self_attention
 from ..ops.paged_cross import cross_attention_q8_kernel, cross_attention_q8_kernel_stacked
-from ..ops.quant_matmul import mm_f32, q8a8_dense, q8a8_qkv, quantize_activations, w8_matmul
+from ..ops.quant_matmul import (
+    mm_f32,
+    q8a8_dense,
+    q8a8_qkv,
+    quantize_activations,
+    w4_matmul,
+    w8_dense,
+    w8_matmul,
+)
 from ..ops.self_decode import self_attention_decode
 from .config import WhisperConfig
 from .load import Params, sinusoids  # noqa: F401  (sinusoids re-exported)
@@ -93,13 +106,12 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
 
 def ldense(lp: Layer, name: str, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Layer dense with int8 dispatch: ``name_q`` int8 codes and ``name_s``
-    f32 per-out-channel scales (``quantize_decoder``) are widened to x's
-    dtype (exact) and the f32 product is scaled; otherwise the
+    f32 per-out-channel scales (``quantize_decoder``) run the w8a16
+    product (x . codes in f32, times the scale); otherwise the
     full-precision ``name`` weight."""
     qk = name + "_q"
     if qk in lp:
-        y = mm_f32(x, lp[qk].to(x.dtype)) * lp[name + "_s"].float()
-        return _finish(y, bias, x.dtype)
+        return _finish(w8_dense(x, lp[qk], lp[name + "_s"]), bias, x.dtype)
     return dense(x, lp[name], bias)
 
 
@@ -108,13 +120,13 @@ def qkv_proj(lp: Layer, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, to
     [D, 3, D] (int8 ``qkv_w_q`` + ``qkv_w_s`` [3, D], or full precision;
     :func:`~norma_tpu_torch.model.load.fuse_qkv`), else three."""
     if "qkv_w_q" in lp or "qkv_w" in lp:
-        q8 = "qkv_w_q" in lp
-        w = lp["qkv_w_q"] if q8 else lp["qkv_w"]
-        d_in = w.shape[0]
-        y = mm_f32(x, w.reshape(d_in, -1).to(x.dtype)).unflatten(-1, (3, -1))
-        if q8:
-            y = y * lp["qkv_w_s"].float()
-        y = _finish(y, lp["qkv_b"], x.dtype)
+        if "qkv_w_q" in lp:  # one w8a16 product over [D, 3*D] codes, [3*D] scales
+            wq = lp["qkv_w_q"]
+            y = w8_dense(x, wq.reshape(wq.shape[0], -1), lp["qkv_w_s"].reshape(-1))
+        else:
+            w = lp["qkv_w"]
+            y = mm_f32(x, w.reshape(w.shape[0], -1).to(x.dtype))
+        y = _finish(y.unflatten(-1, (3, -1)), lp["qkv_b"], x.dtype)
         return y[..., 0, :], y[..., 1, :], y[..., 2, :]
     q = ldense(lp, "q_w", x, lp["q_b"])
     k = ldense(lp, "k_w", x)  # whisper k_proj has no bias
@@ -292,13 +304,15 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tenso
 
 def logits_head(dec: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied-embedding logits head: [..., D] -> [..., V] unrounded f32.
-    An int8 head (``tok_emb_q8``, :func:`~norma_tpu_torch.model.quant.
-    quantize_logits_head`) runs w8a16."""
+    An int4 head (``tok_emb_q4``, :func:`~norma_tpu_torch.model.quant.
+    quantize_logits_head_int4`) runs w4a16 and takes precedence; an int8
+    head (``tok_emb_q8``) runs w8a16 on x cast to bf16."""
+    if "tok_emb_q4" in dec:
+        q4 = dec["tok_emb_q4"]
+        return w4_matmul(x, q4["q"], q4["s"])
     if "tok_emb_q8" in dec:
         q8 = dec["tok_emb_q8"]
-        lead = x.shape[:-1]
-        y = w8_matmul(x.reshape(-1, x.shape[-1]), q8["q"], q8["s"])
-        return y.reshape(*lead, y.shape[-1])
+        return w8_matmul(x, q8["q"], q8["s"])
     return mm_f32(x, dec["tok_emb"].t())
 
 
@@ -396,6 +410,44 @@ def cross_q8_attn(
     return attention_cross_q8(q, kq, vq, n_heads, n_groups)
 
 
+def quantize_kv_row(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K or V rows [..., D] -> (int8 [..., D], f32 scale [..., 1]) with
+    scale = max(amax over D, 1e-8) / 127 (the JAX package's grid)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+@torch.no_grad()
+def quantize_self_kv_cache(cache: torch.Tensor) -> XKV:
+    """Per-row int8 self-attention cache: [L, B, T, D] -> {"q": int8 same
+    shape, "s": [L, B, T, 1] f32}, on the grid the token loop's row writes
+    use (:func:`quantize_kv_row`), so prefix rows and loop rows quantize
+    alike.  Unwritten rows quantize to zeros; the position mask hides them."""
+    q, s = quantize_kv_row(cache)
+    return {"q": q, "s": s}
+
+
+def attention_self_q8(
+    q: torch.Tensor, ckq: XKV, cvq: XKV, n_heads: int, mask: torch.Tensor
+) -> torch.Tensor:
+    """Self-attention over one layer's int8 cache with per-row scales.
+
+    q: [B, 1, D]; ckq/cvq: {"q": [B, T, D] int8, "s": [B, T, 1] f32}; mask:
+    additive, broadcastable to [B, H, 1, T].  Both whisper dh**-0.25
+    factors fold onto q; the K scale multiplies the f32 logits of its key,
+    the V scale the softmax weight of its row (both exact foldings), and the
+    weights are rounded to q's dtype for the PV product."""
+    dh = q.shape[-1] // n_heads
+    qh = (_split_heads(q, n_heads) * _scalar(dh**-0.5, q.dtype)).float()
+    kh = _split_heads(ckq["q"].to(q.dtype), n_heads).float()
+    vh = _split_heads(cvq["q"].to(q.dtype), n_heads).float()
+    logits = torch.matmul(qh, kh.transpose(-1, -2))  # [B, H, 1, T]
+    logits = logits * ckq["s"][:, None, None, :, 0] + mask
+    w = torch.softmax(logits, dim=-1) * cvq["s"][:, None, None, :, 0]
+    return _merge_heads(torch.matmul(w.to(q.dtype).float(), vh).to(q.dtype))
+
+
 def _decoder_layer_cross_mlp(lp: Layer, x: torch.Tensor, cross_attn: Callable) -> torch.Tensor:
     """The cross-attention + MLP tail of one decoder layer."""
     h = layer_norm(x, lp["xattn_ln_g"], lp["xattn_ln_b"])
@@ -469,7 +521,10 @@ def decoder_step(
     ``r*B' + b`` and share stream ``b``'s cross-K/V.
     ``cfg.self_kv_impl`` selects the self-attention: "xla" writes the row
     and runs the plain masked :func:`attention`; "kernel" runs
-    :func:`~norma_tpu_torch.ops.self_decode.self_attention_decode`.
+    :func:`~norma_tpu_torch.ops.self_decode.self_attention_decode`.  An
+    int8 cache ({"q", "s"} dicts, :func:`quantize_self_kv_cache`) writes
+    the row quantized and runs :func:`attention_self_q8`, under either
+    setting: the kernel reads bf16/f32 caches only, as in the JAX package.
     Cross-K/V: tensors run the plain attention; a quantized dict
     ({"q", "s"} stacked over layers) runs :func:`attention_cross_q8` per
     layer; the kernel layout ({"codes"/"codes4", "s"}) runs the stacked
@@ -477,12 +532,13 @@ def decoder_step(
     """
     dec = params["decoder"]
     n_heads = cfg.decoder_attention_heads
-    T = cache_k.shape[2]
+    q8_cache = isinstance(cache_k, dict)
+    T = (cache_k["q"] if q8_cache else cache_k).shape[2]
     if not 0 <= pos < T:
         raise ValueError(f"position {pos} outside the cache's {T} rows")
     if cfg.self_kv_impl not in ("xla", "kernel"):
         raise ValueError(f"unknown self_kv_impl {cfg.self_kv_impl!r}")
-    use_kernel = cfg.self_kv_impl == "kernel"
+    use_kernel = cfg.self_kv_impl == "kernel" and not q8_cache
 
     x = (dec["tok_emb"][tok.long()] + dec["pos_emb"][pos])[:, None, :]
     key_mask = None
@@ -514,6 +570,13 @@ def decoder_step(
         q, k, v = qkv_proj(lp, h)
         if use_kernel:
             a, _, _ = self_attention_decode(q, k, v, cache_k, cache_v, li, pos, n_heads)
+        elif q8_cache:
+            for c, row in ((cache_k, k), (cache_v, v)):
+                c["q"][li, :, pos], c["s"][li, :, pos] = (t[:, 0] for t in quantize_kv_row(row))
+            a = attention_self_q8(
+                q, {n: t[li] for n, t in cache_k.items()}, {n: t[li] for n, t in cache_v.items()},
+                n_heads, key_mask,
+            )
         else:
             cache_k[li, :, pos] = k[:, 0]
             cache_v[li, :, pos] = v[:, 0]

@@ -1,13 +1,27 @@
-"""Model abstractions: the ``Model`` trait and device selection
-(``norma_tpu/models/__init__.py``; reference ``models/mod.rs:24-56``)."""
+"""Model abstractions: the traits, device selection and common parameters
+(``norma_tpu/models/__init__.py``; reference ``models/mod.rs``):
+
+  - ``ModelDefinition`` / ``Model`` traits (mod.rs:13-34)
+  - ``SelectedDevice``     (mod.rs:38-56), with a CUDA variant
+  - ``CommonModelParams``  (mod.rs:58-117) with the same clamping rules
+"""
 
 from __future__ import annotations
 
 import abc
+import logging
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
+
+# It would be insanely wasteful to have a chunk below this (mod.rs:59).
+MIN_CHUNK_LEN = 100
+# The recycled ring reserves 2 slots (mod.rs:61).
+MIN_DATA_BUF_SIZE = 2
+MIN_STRING_BUF_SIZE = 1
 
 
 @dataclass(frozen=True)
@@ -56,10 +70,68 @@ class SelectedDevice:
         return torch.device("cpu")
 
 
+@dataclass
+class CommonModelParams:
+    """Per-model runtime knobs (reference: CommonModelParams, mod.rs:58-117).
+
+    The constructor clamps exactly like the reference: max_chunk_len is
+    floored at MIN_CHUNK_LEN, data_buffer_size gets +2 ring slack, and
+    string_buffer_size is floored at 1.
+    """
+
+    # The hand-written __init__ below (which @dataclass keeps) is the only
+    # constructor, so the fields carry no defaults.
+    max_chunk_len: int
+    data_buffer_size: int
+    string_buffer_size: int
+
+    def __init__(
+        self,
+        max_chunk_len: int = MIN_CHUNK_LEN,
+        data_buffer_size: int = 1,
+        string_buffer_size: int = MIN_STRING_BUF_SIZE,
+    ) -> None:
+        self.max_chunk_len = max(max_chunk_len, MIN_CHUNK_LEN)
+        self.data_buffer_size = data_buffer_size + 2
+        self.string_buffer_size = max(string_buffer_size, MIN_STRING_BUF_SIZE)
+
+    def get_max_chunk_len(self) -> int:
+        if self.max_chunk_len < MIN_CHUNK_LEN:
+            logger.warning(
+                "max_chunk_len=%d below minimum; using %d", self.max_chunk_len, MIN_CHUNK_LEN
+            )
+            return MIN_CHUNK_LEN
+        return self.max_chunk_len
+
+    def set_max_chunk_len(self, v: int) -> None:
+        self.max_chunk_len = max(v, MIN_CHUNK_LEN)
+
+    def set_data_buffer_size(self, v: int) -> None:
+        self.data_buffer_size = v + 2
+
+    def set_string_buffer_size(self, v: int) -> None:
+        self.string_buffer_size = max(v, MIN_STRING_BUF_SIZE)
+
+    # Optional (de)serialization, mirroring the reference's serde feature.
+    def to_dict(self) -> dict:
+        return {
+            "max_chunk_len": self.max_chunk_len,
+            "data_buffer_size": self.data_buffer_size,
+            "string_buffer_size": self.string_buffer_size,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CommonModelParams":
+        p = cls(d["max_chunk_len"], 0, d["string_buffer_size"])
+        p.data_buffer_size = d["data_buffer_size"]
+        return p
+
+
 class Model(abc.ABC):
     """A runnable transcription model (reference: Model trait, mod.rs:24-34).
 
-    ``dtype`` is the PCM sample dtype the model consumes.
+    ``dtype`` is the PCM sample dtype the model consumes; the capture
+    pipeline converts whatever the source produces into it.
     """
 
     SAMPLE_RATE: int = 16_000
@@ -70,4 +142,31 @@ class Model(abc.ABC):
         """Consume one chunk of PCM; return newly-final transcript text."""
 
 
-__all__ = ["Model", "SelectedDevice"]
+class ModelDefinition(abc.ABC):
+    """Builder for a Model (reference: ModelDefinition trait, mod.rs:13-22)."""
+
+    @abc.abstractmethod
+    def common_params(self) -> CommonModelParams: ...
+
+    @abc.abstractmethod
+    def blocking_try_to_model(self) -> Model: ...
+
+    async def try_to_model(self) -> Model:
+        """Async variant; by default runs the blocking builder in a thread."""
+        import asyncio
+
+        return await asyncio.to_thread(self.blocking_try_to_model)
+
+
+from . import mock  # noqa: E402,F401
+from . import whisper  # noqa: E402,F401
+
+__all__ = [
+    "CommonModelParams",
+    "Model",
+    "ModelDefinition",
+    "SelectedDevice",
+    "MIN_CHUNK_LEN",
+    "mock",
+    "whisper",
+]

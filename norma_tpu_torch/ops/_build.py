@@ -74,6 +74,24 @@ SIGNATURES = {
         I, I, I,  # M, N, K
         P,  # stream
     ],
+    "norma_w8_matmul": [
+        P, P, P, P, P,  # x, q, scale, out, workspace (or NULL)
+        I, I, I,  # M, N, K
+        I, I, I, I, I,  # splits, warps, kchunk, row tile (2 or 4), is_bf16
+        P,  # stream
+    ],
+    "norma_w4_matmul": [
+        P, P, P, P, P,  # x, q, scale, out, workspace (or NULL)
+        I, I, I, I,  # M, N, K, blk
+        I, I, I,  # splits, warps, is_bf16
+        P,  # stream
+    ],
+    "norma_log_mel": [
+        P, I64, I64,  # audio, row stride, samples per row
+        P, P, P, P,  # cos, sin, mel matrices, out
+        I, I, I,  # B, T, n_mels
+        P,  # stream
+    ],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,127 @@
+"""Fused log-mel frontend as one kernel (``norma_tpu/ops/mel_pallas.py``).
+
+The whole frontend (framing, hann-folded DFT, power spectrum, mel
+filterbank, log10) as one pass, with the DFT written as two products
+against precomputed cos/sin matrices (:func:`_dft_mats`):
+
+  - :func:`log_mel_dft` — the plain PyTorch version (the CPU path and the
+    kernel's oracle): the frame matrix, three f32 matmuls, log10;
+  - :func:`log_mel_pallas` — the wrapper: the CUDA kernel
+    (``csrc/log_mel.cu``, exact f32, frames read by stride from the padded
+    PCM) for CUDA tensors, the plain version for CPU tensors; any other
+    device raises.  ``log_mel_pallas.launches`` counts kernel launches.
+
+Both emit log10 mel power and leave the global dynamic-range clamp (max -
+8, + 4, / 4) to :func:`_epilogue`, as the JAX package leaves it to XLA.
+The serving path keeps ``frontend/mel.py``'s ``torch.fft`` (the JAX
+package's frontend is its rFFT too); this kernel is the port of the TPU
+one, held against both by the tests and the chip smoke run.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import HOP_LENGTH, N_FFT, N_FRAMES, N_FREQS
+from ..frontend.filters import mel_filterbank
+from ..frontend.mel import hann_window
+from . import _build
+
+# The matrices' padded bin count (201 -> 256, the JAX package's lane pad).
+_KP = 256
+
+
+@functools.lru_cache(maxsize=4)
+def _dft_mats(n_mels: int):
+    """Hann-folded DFT cos/sin matrices [400, 256] and the padded mel matrix
+    [256, n_mels], f32 (float64 arithmetic, one rounding; zero beyond bin
+    201) — the JAX package's ``_dft_mats``."""
+    j = np.arange(N_FFT, dtype=np.float64)[:, None]
+    k = np.arange(N_FREQS, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * j * k / N_FFT
+    w = hann_window().astype(np.float64)[:, None]
+    cos_m = np.zeros((N_FFT, _KP), np.float32)
+    sin_m = np.zeros((N_FFT, _KP), np.float32)
+    cos_m[:, :N_FREQS] = (w * np.cos(ang)).astype(np.float32)
+    sin_m[:, :N_FREQS] = (w * np.sin(ang)).astype(np.float32)
+    mel_p = np.zeros((_KP, n_mels), np.float32)
+    mel_p[:N_FREQS, :] = mel_filterbank(n_mels).T
+    return cos_m, sin_m, mel_p
+
+
+@functools.lru_cache(maxsize=8)
+def _mats_on(n_mels: int, dev: torch.device):
+    """:func:`_dft_mats` on ``dev`` (copied once per device)."""
+    return tuple(torch.from_numpy(m).to(dev) for m in _dft_mats(n_mels))
+
+
+def _as_batch(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    if audio.dim() == 1:
+        audio = audio[None]
+    need = (n_frames + 3) * HOP_LENGTH
+    if audio.dim() != 2 or audio.shape[1] < need:
+        raise ValueError(f"audio must be [B, >= {need}] (pad_for_pallas), got {tuple(audio.shape)}")
+    if audio.dtype != torch.float32:
+        raise TypeError(f"audio must be f32, got {audio.dtype}")
+    return audio[:, :need]
+
+
+def _epilogue(log_spec_tm: torch.Tensor) -> torch.Tensor:
+    """Global-max clamp and whisper scaling; [B, T, M] -> [B, M, T]."""
+    log_spec = log_spec_tm.transpose(1, 2)
+    mx = log_spec.amax(dim=(1, 2), keepdim=True)
+    return (torch.maximum(log_spec, mx - 8.0) + 4.0) / 4.0
+
+
+@torch.no_grad()
+def log_mel_dft(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAMES) -> torch.Tensor:
+    """Plain version: [B, samples] f32 (>= (n_frames + 3) * hop of them)
+    -> [B, n_mels, n_frames] whisper-scale log-mel."""
+    audio = _as_batch(audio, n_frames)
+    cos_m, sin_m, mel_p = _mats_on(n_mels, audio.device)
+    frames = audio.unfold(1, N_FFT, HOP_LENGTH)[:, :n_frames]  # [B, T, 400]
+    re = torch.matmul(frames, cos_m)
+    im = torch.matmul(frames, sin_m)
+    mel = torch.matmul(re * re + im * im, mel_p)
+    return _epilogue(torch.log(torch.clamp(mel, min=1e-10)) / np.float32(np.log(10.0)))
+
+
+@torch.no_grad()
+def log_mel_pallas(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAMES) -> torch.Tensor:
+    """Same contract as :func:`log_mel_dft`.  CUDA tensors launch the
+    kernel, CPU tensors run the plain version."""
+    audio = _as_batch(audio, n_frames)
+    dev = audio.device
+    if dev.type == "cpu":
+        return log_mel_dft(audio, n_mels, n_frames)
+    if dev.type != "cuda":
+        raise ValueError(f"log_mel_pallas: unsupported device {dev}")
+    if audio.stride(1) != 1:
+        audio = audio.contiguous()
+    B = audio.shape[0]
+    cos_m, sin_m, mel_p = _mats_on(n_mels, dev)
+    out = torch.empty((B, n_frames, n_mels), dtype=torch.float32, device=dev)
+    code = _build.lib().norma_log_mel(
+        audio.data_ptr(), audio.stride(0), audio.shape[1], cos_m.data_ptr(), sin_m.data_ptr(),
+        mel_p.data_ptr(), out.data_ptr(), B, n_frames, n_mels, _build.stream_ptr(dev),
+    )
+    _build.check(code, "log_mel kernel")
+    log_mel_pallas.launches += 1
+    return _epilogue(out)
+
+
+log_mel_pallas.launches = 0
+
+
+def pad_for_pallas(audio: np.ndarray, n_frames: int = N_FRAMES) -> np.ndarray:
+    """Zero-pad (or trim) PCM to the (n_frames + 3) * hop samples
+    :func:`log_mel_pallas` / :func:`log_mel_dft` read."""
+    need = (n_frames + 3) * HOP_LENGTH
+    audio = np.asarray(audio, np.float32)[..., :need]
+    pad = need - audio.shape[-1]
+    if pad:
+        audio = np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(0, pad)])
+    return audio

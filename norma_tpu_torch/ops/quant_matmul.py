@@ -1,10 +1,23 @@
-"""Int8 quantized matmuls (``norma_tpu/ops/quant_matmul.py``).
+"""Quantized matmuls (``norma_tpu/ops/quant_matmul.py``).
 
   - :func:`quantize_per_channel` — [in, out] float -> (int8 codes, f32
     per-out-channel scales), bit-equal to the JAX package's numpy grid;
-  - :func:`w8_matmul` — w8a16: x and the int8 codes as bf16, f32
-    accumulation, times the scale (the int8 logits head; the JAX package
-    computes it in XLA too, ``w8_matmul_jnp``);
+  - :func:`w8_matmul` — w8a16 with ``w8_matmul_jnp``'s contract (x cast
+    to bf16; the int8 logits head) and :func:`w8_dense` — the same product
+    with x in the model dtype (the int8 decoder layers).  Both route
+    through one wrapper: the CUDA kernel (``csrc/w8_matmul.cu``, the port
+    of ``w8_matmul_pallas``) for CUDA tensors, the plain version
+    (:func:`w8_matmul_torch` / :func:`w8_dense_torch`: exact widening, f32
+    accumulation, times the scale) for CPU tensors; ``w8_matmul.launches``
+    counts the kernel's launches through either;
+  - :func:`quantize_blockwise_int4` / :func:`unpack_int4` — the int4 head's
+    split-half nibble packing with bf16 scales per (block, column),
+    bit-equal to the JAX package's;
+  - :func:`w4_matmul` — w4a16 over those codes: the CUDA kernel
+    (``csrc/w4_matmul.cu``, the port of ``w4_matmul_pallas``) for CUDA
+    tensors, the plain :func:`w4_matmul_torch` (``w4_matmul_jnp``: per-block
+    f32 partials times the f32 scale, summed) for CPU tensors;
+    ``w4_matmul.launches`` counts kernel launches;
   - :func:`quantize_activations` — per-row dynamic int8 activations;
   - :func:`q8a8_dense_torch` — the plain w8a8 product, with the integer
     accumulation exact (float64 on every device: every partial sum of
@@ -17,13 +30,13 @@
     is the int8 GEMM;
   - :func:`q8a8_qkv` — the fused-QKV form over [in, 3, out] weights.
 
-The epilogue is ``acc * xs[m] * ws[n] (+ b[n])`` in f32, in that order, in
-every version.  The int4 helpers (``quantize_blockwise_int4``,
-``w4_matmul_*``) are not ported yet (ROADMAP queue 2 #7).
+The w8a8 epilogue is ``acc * xs[m] * ws[n] (+ b[n])`` in f32, in that
+order, in every version.  Any device other than the CPU or CUDA raises.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -67,20 +80,220 @@ def quantize_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def quantize_axis(w: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over ``axis`` (the contraction axis) of any float
-    tensor: returns (codes like ``w``, f32 scales without ``axis``)."""
+    tensor: returns (codes like ``w``, f32 scales without ``axis``), both
+    contiguous whatever ``w``'s strides (the kernels read them row-major;
+    the head quantizes a transposed view)."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / scale.unsqueeze(axis)), -127, 127).to(torch.int8)
-    return q, scale
+    return q.contiguous(), scale.contiguous()
+
+
+# -- weight-streaming kernels (csrc/wgemv.cuh) --------------------------------
+
+# Block shape of csrc/wgemv.cuh: columns per block, most warps per block,
+# floats of x a block stages.
+_WG_BN, _WG_WARPS, _WG_XTILE = 496, 8, 8192
+# Blocks to aim for: two per SM of the H100's 132.
+_WG_TARGET_BLOCKS = 264
+_X_DTYPES = (torch.float32, torch.bfloat16)
+# Row tile of the w4 kernel (x rows per block).  At 4 rows its 2 x 4 x 16
+# f32 accumulators per thread spill, and it ran 1.4-2x slower than at 2
+# rows at every M on the H100.
+_W4_BM = 2
+
+
+def _w8_bm(M: int) -> int:
+    """Row tile of a w8 launch: 2 up to M = 2 (no idle rows at M = 1),
+    else 4 (each weight byte serves 4 rows; no spill at 4)."""
+    return 2 if M <= 2 else 4
+
+
+def w8_plan(M: int, N: int, K: int, bm: int) -> Tuple[int, int, int]:
+    """(splits, warps, kchunk) of a w8 launch with row tile ``bm``: each of
+    ``warps`` warps of a block sums ``kchunk`` rows of the contraction, and
+    ``splits`` blocks per output tile cover K.  Split enough to give the
+    card about :data:`_WG_TARGET_BLOCKS` blocks, never below 16 rows a
+    warp, and at least as far as a block's x tile (8192 floats) demands."""
+    base = math.ceil(M / bm) * math.ceil(N / _WG_BN)
+    warps = _WG_WARPS
+    lo = math.ceil(K / (_WG_XTILE // bm))
+    hi = max(lo, math.ceil(K / (warps * 16)))
+    splits = min(max(math.ceil(_WG_TARGET_BLOCKS / base), lo), hi)
+    kchunk = math.ceil(K / (splits * warps))
+    return math.ceil(K / (warps * kchunk)), warps, kchunk
+
+
+def w4_plan(K: int, block: int) -> Tuple[int, int]:
+    """(splits, warps) of a w4 launch: one warp per packed block of
+    ``block`` rows (K / 2 / block of them), the most warps a block's x tile
+    allows that divide them evenly."""
+    npb = K // 2 // block
+    fits = [d for d in range(1, _WG_WARPS + 1) if npb % d == 0 and 2 * _W4_BM * d * block <= _WG_XTILE]
+    if not fits:
+        raise ValueError(f"w4 kernel: scale block {block} too large (at most {_WG_XTILE // (2 * _W4_BM)})")
+    return npb // fits[-1], fits[-1]
+
+
+def _w8_shapes(x, q, scale):
+    if q.dtype != torch.int8 or q.dim() != 2:
+        raise TypeError(f"w8: codes must be int8 [K, N], got {q.dtype} {tuple(q.shape)}")
+    K, N = q.shape
+    if x.shape[-1] != K or tuple(scale.shape) != (N,):
+        raise ValueError(f"w8: x [..., {K}] and scale [{N}] expected, got {tuple(x.shape)}, {tuple(scale.shape)}")
+    if len({x.device, q.device, scale.device}) != 1:
+        raise ValueError("w8: x, codes and scale must be on one device")
+    return K, N
 
 
 @torch.no_grad()
+def w8_dense_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain w8a16: x [..., K] @ int8 [K, N] * scale [N] -> [..., N] f32,
+    x and the codes widened exactly to f32, f32 accumulation."""
+    K, N = _w8_shapes(x, q, scale)
+    y = torch.mm(x.reshape(-1, K).float(), q.float()) * scale.float()
+    return y.reshape(*x.shape[:-1], N)
+
+
+def w8_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`w8_matmul` (``w8_matmul_jnp``: x cast to
+    bf16, f32 accumulation)."""
+    return w8_dense_torch(x.to(torch.bfloat16), q, scale)
+
+
+@torch.no_grad()
+def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`w8_dense_torch`, x f32 or bf16.  CUDA
+    tensors launch the w8 kernel, CPU tensors run the plain version."""
+    K, N = _w8_shapes(x, q, scale)
+    dev = x.device
+    if dev.type == "cpu":
+        return w8_dense_torch(x, q, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"w8_dense: unsupported device {dev}")
+    if x.dtype not in _X_DTYPES or scale.dtype != torch.float32:
+        raise TypeError(f"w8 kernel needs x in {_X_DTYPES} and f32 scales, got {x.dtype}, {scale.dtype}")
+    if not q.is_contiguous():
+        raise ValueError("w8 kernel needs a contiguous [K, N] weight")
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out.reshape(*x.shape[:-1], N)
+    bm = _w8_bm(M)
+    splits, warps, kchunk = w8_plan(M, N, K, bm)
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    scale = scale.contiguous()
+    code = _build.lib().norma_w8_matmul(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, M, N, K, splits, warps, kchunk, bm,
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.check(code, "w8 kernel")
+    w8_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
 def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """w8a16: [B, in] @ int8 [in, out] * scale -> [B, out] f32
-    (``w8_matmul_jnp``: bf16 operands, f32 accumulation)."""
-    y = mm_f32(x.to(torch.bfloat16), q.to(torch.bfloat16))
-    return y * scale.float()
+    """w8a16 with ``w8_matmul_jnp``'s contract: [..., in] (cast to bf16) @
+    int8 [in, out] * scale -> [..., out] f32, through :func:`w8_dense`."""
+    return w8_dense(x.to(torch.bfloat16), q, scale)
+
+
+w8_matmul.launches = 0
+
+
+def quantize_blockwise_int4(w: torch.Tensor, block: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[in, out] float -> (nibble-packed int8 [in/2, out], bf16 [in/block, out]).
+
+    Symmetric 4-bit grid (+-7) per (input block, output column): scale =
+    amax / 7 (1 for an all-zero block), codes = clip(round_half_even(w /
+    scale), -7, 7), in f32; the scales are then stored in bf16.  Byte i
+    holds row i in the low nibble and row i + in/2 in the high one (split
+    half).  The JAX package's numpy arithmetic, so bit-equal.  Both
+    results are contiguous whatever ``w``'s strides."""
+    wf = w.float()
+    IN, OUT = wf.shape
+    if IN % block or IN % 2:
+        raise ValueError(f"in={IN} must divide by block={block} and by 2")
+    wb = wf.reshape(IN // block, block, OUT)
+    amax = wb.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wb / scale[:, None, :]), -7, 7).to(torch.int32).reshape(IN, OUT)
+    packed = (q[: IN // 2] & 0xF) | ((q[IN // 2 :] & 0xF) << 4)
+    return packed.to(torch.uint8).view(torch.int8).contiguous(), scale.to(torch.bfloat16).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Nibble-packed int8 [in/2, out] -> int8 codes [in, out] (sign-extended)."""
+    v = packed.to(torch.int32)
+    lo, hi = v & 0xF, (v >> 4) & 0xF
+    return torch.cat([lo - ((lo & 8) << 1), hi - ((hi & 8) << 1)], dim=0).to(torch.int8)
+
+
+def _w4_shapes(x, q, scale):
+    if q.dtype != torch.int8 or q.dim() != 2 or scale.dim() != 2:
+        raise TypeError(f"w4: codes must be int8 [K/2, N], scales [nb, N], got {q.dtype} {tuple(q.shape)}")
+    K, N = 2 * q.shape[0], q.shape[1]
+    nb = scale.shape[0]
+    if x.shape[-1] != K or scale.shape[1] != N or K % nb:
+        raise ValueError(f"w4: x [..., {K}] and scale [nb, {N}] with nb | K expected, got "
+                         f"{tuple(x.shape)}, {tuple(scale.shape)}")
+    if len({x.device, q.device, scale.device}) != 1:
+        raise ValueError("w4: x, codes and scale must be on one device")
+    return K, N, K // nb
+
+
+@torch.no_grad()
+def w4_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain w4a16 (``w4_matmul_jnp`` off the TPU): x [..., in] @ packed
+    int4 [in/2, out] -> [..., out] f32.  Per block of rows, the x . code
+    partial in f32, times the block's f32 scale, summed over blocks."""
+    K, N, block = _w4_shapes(x, q, scale)
+    nb = K // block
+    w = unpack_int4(q).float().reshape(nb, block, N)
+    xb = x.reshape(-1, nb, block).float()
+    partial = torch.einsum("bnk,nko->bno", xb, w)
+    y = (partial * scale.float()[None]).sum(dim=1)
+    return y.reshape(*x.shape[:-1], N)
+
+
+@torch.no_grad()
+def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`w4_matmul_torch`, x f32 or bf16.  CUDA
+    tensors launch the w4 kernel (bf16 scales), CPU tensors run the plain
+    version."""
+    K, N, block = _w4_shapes(x, q, scale)
+    dev = x.device
+    if dev.type == "cpu":
+        return w4_matmul_torch(x, q, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"w4_matmul: unsupported device {dev}")
+    if x.dtype not in _X_DTYPES or scale.dtype != torch.bfloat16:
+        raise TypeError(f"w4 kernel needs x in {_X_DTYPES} and bf16 scales, got {x.dtype}, {scale.dtype}")
+    if not (q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("w4 kernel needs contiguous codes and scales")
+    if (K // 2) % block:
+        raise ValueError(f"w4 kernel needs the scale block ({block}) to divide K/2 ({K // 2})")
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if M == 0:
+        return out.reshape(*x.shape[:-1], N)
+    splits, warps = w4_plan(K, block)
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    code = _build.lib().norma_w4_matmul(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, M, N, K, block, splits, warps,
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+    )
+    _build.check(code, "w4 kernel")
+    w4_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+w4_matmul.launches = 0
 
 
 def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

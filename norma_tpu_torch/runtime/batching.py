@@ -191,6 +191,12 @@ class BatchedTranscriber:
         )
         self._thread.start()
 
+    @classmethod
+    def from_definition(cls, definition, max_streams: int = 8, **kwargs) -> "BatchedTranscriber":
+        """Build the model and the scheduler in one call; ``kwargs`` pass
+        through to the constructor."""
+        return cls(definition.blocking_try_to_model(), max_streams, **kwargs)
+
     # ------------------------------------------------------------------
 
     @instrument

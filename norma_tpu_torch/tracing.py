@@ -69,6 +69,21 @@ def instrument(
                         pass
             return fvals
 
+        if inspect.iscoroutinefunction(fn):  # the span covers the awaited call
+
+            @functools.wraps(fn)
+            async def awrapper(*args, **kwargs):
+                if not logger.isEnabledFor(level):
+                    try:
+                        return await fn(*args, **kwargs)
+                    except Exception as e:
+                        logger.error("%s error: %r", span_name, e)
+                        raise
+                with span(span_name, level=level, **extract(args, kwargs)):
+                    return await fn(*args, **kwargs)
+
+            return awrapper
+
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             if not logger.isEnabledFor(level):

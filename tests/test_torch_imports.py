@@ -1,9 +1,11 @@
-"""The port imports neither jax nor norma_tpu.
+"""The port imports neither jax nor norma_tpu, nor ``tokenizers``.
 
 A static scan of every import statement under norma_tpu_torch/ (a
 ``sys.modules`` check cannot show this: the test process has jax loaded
 already).  ``norma_tpu/__init__.py`` imports jax, so importing any
-``norma_tpu`` module would pull it in.
+``norma_tpu`` module would pull it in.  The port reads tokenizer.json
+itself, so it needs no ``tokenizers``; ``huggingface_hub`` (an optional
+download) is imported only inside the loader's hub-download function.
 """
 
 import ast
@@ -12,7 +14,8 @@ import os
 import pytest
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "norma_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "norma_tpu")
+FORBIDDEN = ("jax", "jaxlib", "norma_tpu", "tokenizers")
+LAZY = {"huggingface_hub": ("models/whisper/loader.py", "_hub_download")}
 
 
 def _py_files():
@@ -22,20 +25,37 @@ def _py_files():
     return sorted(out)
 
 
-def _imported_roots(path):
+def _imports(path):
+    """(root module, enclosing function name or None) of every absolute
+    import in the file."""
     tree = ast.parse(open(path).read(), path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                yield a.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module.split(".")[0]
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name.split(".")[0], fn
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module.split(".")[0], fn
+            yield from walk(child, fn)
+
+    yield from walk(tree, None)
+
+
+def _imported_roots(path):
+    for root, _ in _imports(path):
+        yield root
 
 
 def test_package_has_modules():
     names = {os.path.relpath(p, PKG) for p in _py_files()}
     for want in ("model/whisper.py", "ops/sample_step.py", "ops/self_decode.py",
-                 "decode/engine.py", "decode/longform.py", "models/whisper/model.py"):
+                 "decode/engine.py", "decode/longform.py", "models/whisper/model.py",
+                 "models/whisper/loader.py", "models/whisper/tokenizer.py", "runtime/transcriber.py",
+                 "ops/mel_pallas.py"):
         assert want in names
 
 
@@ -45,7 +65,17 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{os.path.relpath(path, PKG)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: os.path.relpath(p, PKG))
+def test_lazy_imports_stay_in_their_function(path):
+    rel = os.path.relpath(path, PKG)
+    for root, fn in _imports(path):
+        if root in LAZY:
+            assert (rel, fn) == LAZY[root], f"{rel} imports {root} in {fn or 'module scope'}"
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
-    p.write_text("def f():\n    from norma_tpu.model import encode\n    import jax.numpy as jnp\n")
-    assert set(_imported_roots(str(p))) == {"norma_tpu", "jax"}
+    p.write_text("def f():\n    from norma_tpu.model import encode\n    import jax.numpy as jnp\n"
+                 "import tokenizers\n")
+    assert set(_imported_roots(str(p))) == {"norma_tpu", "jax", "tokenizers"}
+    assert set(_imports(str(p))) == {("norma_tpu", "f"), ("jax", "f"), ("tokenizers", None)}

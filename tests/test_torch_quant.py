@@ -11,6 +11,7 @@ dispatch in model/whisper.py) vs the JAX package, on the CPU.
   - three repaired faults: bf16 products accumulate in f32 and round once
     (dense, qkv_proj, the logits head); the weight carry keeps int8 codes
     and f32 scales; (the config-knob test is test_torch_model.py's).
+    The int4 head is test_torch_w4_w8.py's.
 
 f32 tolerances are summation order (2e-4, the model tests' tier) plus, for
 w8a8, the odd activation code that sits on a rounding boundary in one
@@ -101,10 +102,16 @@ def test_quantize_logits_head_bit_equal(params):
 
 
 def test_int4_logits_head_not_ported(params):
-    with pytest.raises(NotImplementedError, match="queue 2 #7"):
-        pquant.quantize_decoder(params[1], logits="int4")
+    """(Named when the int4 head was not ported yet and this call raised.)
+    quantize_decoder(logits="int4") now builds the int4 head in place of
+    the int8 one, with JAX's codes; an unknown tier still raises."""
+    jp, pp = params
+    head = pquant.quantize_decoder(pp, logits="int4")["decoder"]
+    assert "tok_emb_q4" in head and "tok_emb_q8" not in head
+    want = jquant.quantize_decoder(jp, logits="int4")["decoder"]["tok_emb_q4"]
+    np.testing.assert_array_equal(n(head["tok_emb_q4"]["q"]), np.asarray(want["q"]))
     with pytest.raises(ValueError):
-        pquant.quantize_decoder(params[1], logits="int2")
+        pquant.quantize_decoder(pp, logits="int2")
 
 
 def _act_inputs():
