@@ -124,7 +124,85 @@ def turns(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# The H100 SXM's published peaks at 700 W (NVIDIA's data sheet, dense):
+# HBM bytes/s and operations/s by operand type.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float = 0.0, kind: str = "bf16"):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of HBM traffic
+    (each input read once, each output written once) and ``ops``
+    operations of ``kind`` on the card, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Each kernel's CUDA function names (substrings of the profiler's names).
+KERNEL_FUNCS = {
+    "sample_step": ("sample_step_kernel",), "self_decode": ("self_decode_kernel",),
+    "cross_decode": ("cross_decode_kernel",), "flash_encoder": ("flash_encoder",),
+    "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_kernel", "split_sum"),
+    "w4_matmul": ("w4_kernel", "split_sum"), "log_mel": ("log_mel_kernel",),
+}
+
+
+def device_profile(fn, names):
+    """Run ``fn`` once under torch.profiler; per kernel of ``names``:
+    device-only ms per launch of its main function, launches, and device ms
+    in all (its split-sum pass included).  None where the profiler shows no
+    device time ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    events = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()]
+    for name in names:
+        funcs = KERNEL_FUNCS[name]
+        main = [(c, us) for k, c, us in events if funcs[0] in k and us > 0]
+        rest = [us for k, c, us in events if any(f in k for f in funcs[1:]) and us > 0]
+        if not main:
+            out[name] = None
+            continue
+        n = sum(c for c, _ in main)
+        total = sum(us for _, us in main)
+        out[name] = dict(launches=n, ms_per_launch=total / n / 1e3, ms_total=(total + sum(rest)) / 1e3)
+    return out
+
+
+def profile_text(prof) -> str:
+    return "; ".join(
+        f"{k}: not measured" if v is None else
+        f"{k}: {v['ms_per_launch']:.4f} ms x {v['launches']} ({v['ms_total']:.1f} ms)"
+        for k, v in prof.items()
+    )
+
+
 # --------------------------------------------------------------------------
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name:
+    '_ZN12_GLOBAL__N_117q8a8_wgmma_kernelILi128EfEEv...' ->
+    'q8a8_wgmma_kernel<128,f>'."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = mangled
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    if rest.startswith("I"):
+        args = re.findall(r"Li(\d+)E|(?<=[IE])([fd])(?=[EL])|(__nv_bfloat16)", rest.split("EEv")[0] + "E")
+        name += "<" + ",".join("".join(a) for a in args) + ">"
+    return name
 
 
 def phase_build(rec):
@@ -132,10 +210,17 @@ def phase_build(rec):
 
     _build.lib()
     info = _build.build_info
-    ptx = [ln.strip() for ln in info.get("ptxas", "").splitlines() if "registers" in ln or "spill" in ln]
     log(f"phase 1 build: ok nvcc='{info.get('nvcc')}' seconds={info.get('seconds', 0.0):.1f}")
-    for ln in ptx:
-        log(f"  ptxas {ln}")
+    # ptxas -v, one line per entry function: registers, spills, static smem.
+    func, spill = "?", ""
+    for ln in info.get("ptxas", "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            func = _kernel_name(m.group(1))
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            log(f"  ptxas {func}: {ln.split(':', 1)[-1].strip()}; {spill}")
     rec["nvcc"] = info.get("nvcc")
     rec["smi"] = smi_line()
     log(f"  card {rec['smi']}")
@@ -237,10 +322,14 @@ def phase_sample_step(rec, dev):
         lambda: ss.sample_step_torch(*args, eot=eot, no_timestamps=nts),
         lambda: ss.sample_step(*args, eot=eot, no_timestamps=nts, seed=1),
     )
-    rec["sample_step"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms)
+    # Bound: the logits, masks and row state read once, three [B] outputs.
+    b_ms, b_by = bound(nbytes(ll, *masks, tp1, tp2, tlts, temp) + B * (8 + 4 + 1))
+    rec["sample_step"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=None)
     log(f"phase 2 sample_step: ok greedy exact at rows 6,48 (NaN, all-masked, step 0, per-row steps), "
         f"max_abs_err(prob)={max_err:.3g}; t>0 {draws} draws in support, Philox replay {replay_ok}/{replay_n}; "
-        f"u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows")
+        f"u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows "
+        f"(bound {b_ms:.4f} ms, {b_by})")
 
 
 def phase_self_decode(rec, dev):
@@ -289,10 +378,15 @@ def phase_self_decode(rec, dev):
         lambda: sd.self_attention_decode_torch(q, kn, vn, ck, cv, 1, pos, H),
         lambda: sd.self_attention_decode(q, kn, vn, ck, cv, 1, pos, H),
     )
-    rec["self_decode"] = dict(max_abs_err=worst[torch.float32], ms=k_ms, plain_ms=p_ms)
+    # Bound: q and the new row in, positions 0..pos of layer 1's K and V
+    # read, the new row written, the output out (f32).
+    b_ms, b_by = bound(4 * B * D * (3 + 2 * pos + 2 + 1))
+    rec["self_decode"] = dict(max_abs_err=worst[torch.float32], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None)
     log(f"phase 3 self_decode: ok {n_cases} cases (rows 6,48; T 128/256/448 and bucket views; pos 3/127/300); "
         f"max_abs_err f32={worst[torch.float32]:.3g} bf16={worst[torch.bfloat16]:.3g}; row write bit-equal, "
-        f"other rows untouched; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows pos {pos}")
+        f"other rows untouched; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows pos {pos} "
+        f"(bound {b_ms:.4f} ms, {b_by})")
 
 
 def phase_golden(rec, dev):
@@ -515,21 +609,27 @@ def phase_cross_decode(rec, dev):
                         lambda: pc.cross_attention_decode_torch(q, kp, vp, 1, H, G_t),
                         lambda: pc.cross_attention_q8_kernel_stacked(q, kp, vp, 1, H, G_t),
                     )
+                    if (int4, B_t) == (False, 8):  # bound: layer 1's codes and scales, q in, out
+                        layer1 = [t[1] for t in list(kp.values()) + list(vp.values())]
+                        cross_bound = bound(nbytes(*layer1) + 2 * nbytes(q))
     k_ms, p_ms = timed[(False, 8, 1)]
-    rec["cross_decode"] = dict(max_abs_err=worst[torch.bfloat16], ms=k_ms, plain_ms=p_ms)
+    rec["cross_decode"] = dict(max_abs_err=worst[torch.bfloat16], ms=k_ms, plain_ms=p_ms,
+                               bound_ms=cross_bound[0], bound_by=cross_bound[1], library_ms=None)
     rec["cross_decode_times"] = {f"int{4 if k[0] else 8} B={k[1]} G={k[2]}": v for k, v in timed.items()}
     times = "; ".join(f"{k}: kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms" for k, v in rec["cross_decode_times"].items())
     log(f"phase 6 cross_decode: ok {n_cases} cases (int8/int4, B 1/8/48, G 1/6, stacked li 0/1 and per-layer, "
         f"bf16/f32); max_abs_err bf16={worst[torch.bfloat16]:.3g} f32={worst[torch.float32]:.3g}; {times} "
-        f"(Ta=1500, D=1280, H=20, bf16 q)")
+        f"(Ta=1500, D=1280, H=20, bf16 q); int8 B=8 G=1 bound {cross_bound[0]:.4f} ms ({cross_bound[1]})")
 
 
-def phase_flash_encoder(rec, dev):
+def phase_flash_encoder(rec, dev, lengths=(1500, 200, 37)):
     import torch
+    import torch.nn.functional as F
 
     from norma_tpu_torch.ops import flash_encoder as fe
 
     H, D = SERVE_H, SERVE_D
+    dh = D // H
     g = torch.Generator(device=dev).manual_seed(7)
     # Tolerances: bf16 outputs round once and the online softmax rounds p
     # at running (not final) maxima: ~2 bf16 ulps at |out| <= 1; f32 is
@@ -539,67 +639,120 @@ def phase_flash_encoder(rec, dev):
     n_cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         for B in (1, 8):
-            for T in (1500, 200, 37):
-                qkv = torch.randn((B, T, 3, D), generator=g, device=dev).to(dtype)
-                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # fused-QKV slices
-                ko = fe.flash_self_attention(q, k, v, H)
-                po = fe.flash_attention_torch(q, k, v, H)
-                torch.cuda.synchronize()
-                if ko.dtype != dtype or ko.shape != (B, T, D) or not torch.isfinite(ko).all():
-                    raise AssertionError(f"flash {dtype} B={B} T={T}: bad output")
-                err = float((ko.float() - po.float()).abs().max())
-                if not err <= tol[dtype]:
-                    raise AssertionError(f"flash {dtype} B={B} T={T}: err {err}")
-                worst[dtype] = max(worst[dtype], err)
-                n_cases += 1
-    qkv = torch.randn((8, 1500, 3, D), generator=g, device=dev).to(torch.bfloat16)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    k_ms, p_ms = turns(lambda: fe.flash_attention_torch(q, k, v, H), lambda: fe.flash_self_attention(q, k, v, H))
-    rec["flash_encoder"] = dict(max_abs_err=worst[torch.bfloat16], ms=k_ms, plain_ms=p_ms)
-    log(f"phase 7 flash_encoder: ok {n_cases} cases (T 1500/200/37, B 1/8, bf16/f32, fused-QKV strides); "
-        f"max_abs_err bf16={worst[torch.bfloat16]:.3g} f32={worst[torch.float32]:.3g}; kernel {k_ms:.3f} ms vs "
-        f"plain {p_ms:.3f} ms at B=8 T=1500 bf16")
+            for T in lengths:
+                for fused in (True, False):
+                    if fused:
+                        qkv = torch.randn((B, T, 3, D), generator=g, device=dev).to(dtype)
+                        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # fused-QKV slices
+                    else:
+                        q, k, v = (torch.randn((B, T, D), generator=g, device=dev).to(dtype) for _ in range(3))
+                    ko = fe.flash_self_attention(q, k, v, H)
+                    po = fe.flash_attention_torch(q, k, v, H)
+                    torch.cuda.synchronize()
+                    if ko.dtype != dtype or ko.shape != (B, T, D) or not torch.isfinite(ko).all():
+                        raise AssertionError(f"flash {dtype} B={B} T={T} fused={fused}: bad output")
+                    err = float((ko.float() - po.float()).abs().max())
+                    if not err <= tol[dtype]:
+                        raise AssertionError(f"flash {dtype} B={B} T={T} fused={fused}: err {err}")
+                    worst[dtype] = max(worst[dtype], err)
+                    n_cases += 1
+    times = {}
+    T = lengths[0]
+    for B in (8, 1):
+        qkv = torch.randn((B, T, 3, D), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        heads = lambda x: x.unflatten(-1, (H, dh)).transpose(1, 2)  # [B, H, T, dh] views
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        k_ms, p_ms = turns(lambda: fe.flash_attention_torch(q, k, v, H), lambda: fe.flash_self_attention(q, k, v, H))
+        # The library yardstick (never called by the port): SDPA computes
+        # the same non-causal attention with scale dh**-0.5.
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        b_ms, b_by = bound(4 * B * T * D * 2, 4 * B * H * T * T * dh, "bf16")
+        times[B] = dict(ms=k_ms, plain_ms=p_ms, library_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
+    t8 = times[8]
+    rec["flash_encoder"] = dict(max_abs_err=worst[torch.bfloat16], ms=t8["ms"], plain_ms=t8["plain_ms"],
+                                bound_ms=t8["bound_ms"], bound_by=t8["bound_by"], library_ms=t8["library_ms"])
+    rec["flash_times"] = {f"B={B} T=1500 bf16": v for B, v in times.items()}
+    txt = "; ".join(f"B={B}: kernel {v['ms']:.4f} ms vs plain {v['plain_ms']:.3f} ms, SDPA {v['library_ms']:.4f} ms, "
+                    f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), {v['bound_ms'] / v['ms']:.1%} of bound"
+                    for B, v in times.items())
+    log(f"phase 7 flash_encoder: ok {n_cases} cases (T 1500/200/37, B 1/8, bf16/f32, fused-QKV slices and "
+        f"separate tensors); max_abs_err bf16={worst[torch.bfloat16]:.3g} f32={worst[torch.float32]:.3g}; "
+        f"at T=1500 bf16 H=20: {txt}")
 
 
-def phase_q8a8(rec, dev):
+Q8_SHAPES = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))
+
+
+def phase_q8a8(rec, dev, rows=(12000, 1500, 1507), shapes=Q8_SHAPES):
     import torch
 
     from norma_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(8)
-    M = 12000  # B=8 windows x 1500 encoder positions
-    times, cublas, worst = {}, {}, 0.0
-    for K, N in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)):
-        xq = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8, generator=g)
-        wq = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8, generator=g)
-        xs = torch.rand((M, 1), device=dev, generator=g) * 0.02
+    times, n_cases = {}, 0
+    for K, N in shapes:
+        # The weight codes as the encoder holds them: [K, N] values, K-major.
+        wq = qm.kmajor_codes(torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8, generator=g))
         ws = torch.rand((N,), device=dev, generator=g) * 0.02
         b = torch.randn((N,), device=dev, generator=g)
-        ones_m, ones_n = torch.ones((M, 1), device=dev), torch.ones((N,), device=dev)
-        # Unit scales, no bias: the output is float(acc) -- bit-equal iff the
-        # int32 accumulation is exact.
-        if not torch.equal(qm.q8a8_dense(xq, ones_m, wq, ones_n), qm.q8a8_dense_torch(xq, ones_m, wq, ones_n)):
-            raise AssertionError(f"q8a8 K={K} N={N}: int32 accumulation differs from the exact product")
-        # The f32 epilogue acc*xs*ws+b runs in the same order of correctly
-        # rounded f32 operations in both versions: stated tolerance 0.
-        ko = qm.q8a8_dense(xq, xs, wq, ws, b)
-        po = qm.q8a8_dense_torch(xq, xs, wq, ws, b)
-        torch.cuda.synchronize()
-        err = float((ko - po).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"q8a8 K={K} N={N}: epilogue err {err}")
-        worst = max(worst, err)
-        times[(K, N)] = turns(lambda: qm.q8a8_dense_torch(xq, xs, wq, ws, b), lambda: qm.q8a8_dense(xq, xs, wq, ws, b))
-        # For reference only (not the plain version): a bf16 cuBLAS product
-        # of the same shape, the tensor-core bound a redesign aims at.
-        xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
-        cublas[(K, N)] = cuda_ms(lambda: torch.matmul(xb, wb))
-    k_ms, p_ms = times[(1280, 3840)]
-    rec["q8a8"] = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms)
-    rec["q8a8_times"] = {f"K={k[0]} N={k[1]}": v + (cublas[k],) for k, v in times.items()}
-    t = "; ".join(f"{k}: kernel {v[0]:.3f} ms vs plain {v[1]:.3f} ms (bf16 cuBLAS {v[2]:.3f} ms)"
-                  for k, v in rec["q8a8_times"].items())
-    log(f"phase 8 q8a8: ok M={M}, int32 accumulation bit-exact and f32 epilogue bit-equal at all four shapes; {t}")
+        for M in rows:  # B=8 and B=1 windows, and a ragged M
+            xq = torch.randint(-127, 128, (M, K), device=dev, dtype=torch.int8, generator=g)
+            xs = torch.rand((M, 1), device=dev, generator=g) * 0.02
+            ones_m, ones_n = torch.ones((M, 1), device=dev), torch.ones((N,), device=dev)
+            # Unit scales, no bias: the output is float(acc) -- bit-equal iff
+            # the int32 accumulation is exact.
+            if not torch.equal(qm.q8a8_dense(xq, ones_m, wq, ones_n), qm.q8a8_dense_torch(xq, ones_m, wq, ones_n)):
+                raise AssertionError(f"q8a8 M={M} K={K} N={N}: int32 accumulation differs from the exact product")
+            # The f32 epilogue acc*xs*ws+b runs in the same order of correctly
+            # rounded f32 operations in both versions, and the bf16 output is
+            # one rounding of it: stated tolerance 0.
+            for out_dtype in (torch.float32, torch.bfloat16):
+                ko = qm.q8a8_dense(xq, xs, wq, ws, b, out_dtype=out_dtype)
+                po = qm.q8a8_dense_torch(xq, xs, wq, ws, b, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                if ko.dtype != out_dtype or not torch.equal(ko, po):
+                    err = float((ko.float() - po.float()).abs().max())
+                    raise AssertionError(f"q8a8 M={M} K={K} N={N} {out_dtype}: epilogue err {err}")
+            n_cases += 1
+            if M == rows[0]:
+                kt = turns(lambda: qm.q8a8_dense_torch(xq, xs, wq, ws, b), lambda: qm.q8a8_dense(xq, xs, wq, ws, b))
+                bf16_ms = cuda_ms(lambda: qm.q8a8_dense(xq, xs, wq, ws, b, out_dtype=torch.bfloat16))
+                # Yardsticks, never called by the port: torch._int_mm computes
+                # the kernel's int32 product (no epilogue); a bf16 cuBLAS
+                # product of the same shape.
+                int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq))
+                xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+                cublas_ms = cuda_ms(lambda: torch.matmul(xb, wb))
+                del xb, wb
+                b_ms, b_by = bound(nbytes(xq, xs, wq, ws, b) + 4 * M * N, 2 * M * N * K, "int8")
+                b16_ms, _ = bound(nbytes(xq, xs, wq, ws, b) + 2 * M * N, 2 * M * N * K, "int8")
+                times[(K, N)] = dict(ms=kt[0], plain_ms=kt[1], bf16_out_ms=bf16_ms, library_ms=int_mm_ms,
+                                     cublas_bf16_ms=cublas_ms, bound_ms=b_ms, bound_by=b_by,
+                                     bf16_out_bound_ms=b16_ms)
+            elif M == rows[1]:
+                times[(K, N, M)] = dict(ms=cuda_ms(lambda: qm.q8a8_dense(xq, xs, wq, ws, b)),
+                                        plan=qm.q8a8_plan(M, N, K)["bn"])
+    # A [K, N]-contiguous weight on the card is refused, never transposed.
+    try:
+        qm.q8a8_dense(xq, xs, wq.contiguous(), ws, b)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("q8a8 kernel took a [K, N]-contiguous weight")
+    t = times[shapes[0]]
+    rec["q8a8"] = dict(max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                       bound_by=t["bound_by"], library_ms=t["library_ms"])
+    rec["q8a8_times"] = {"K={} N={}".format(*k) + f" M={k[2] if len(k) > 2 else rows[0]}": v
+                         for k, v in times.items()}
+    txt = "; ".join(
+        f"{k}: kernel {v['ms']:.4f} ms (bf16 out {v['bf16_out_ms']:.4f}) vs plain {v['plain_ms']:.3f}, _int_mm "
+        f"{v['library_ms']:.4f}, bf16 cuBLAS {v['cublas_bf16_ms']:.4f}, bound {v['bound_ms']:.4f} ({v['bound_by']}; "
+        f"bf16 out {v['bf16_out_bound_ms']:.4f}), {v['bound_ms'] / v['ms']:.1%} of bound"
+        if "plain_ms" in v else f"{k}: kernel {v['ms']:.4f} ms (tile 128x{v['plan']})"
+        for k, v in rec["q8a8_times"].items())
+    log(f"phase 8 q8a8: ok {n_cases} cases ({len(shapes)} shapes x M {'/'.join(map(str, rows))}): int32 accumulation bit-exact, f32 "
+        f"and bf16 epilogues bit-equal, [K, N]-contiguous weight refused; {txt}")
 
 
 def _serving_params(cfg, dev):
@@ -942,6 +1095,15 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         engine.transcribe_window(torch.from_numpy(rows).to(dev), [lang_ids[0]] * 8, seed=1)
         sync()
         direct_ms.append((time.perf_counter() - w0) * 1e3)
+    # One more B=8 window under torch.profiler: device-only ms per launch of
+    # each kernel on this path.
+    prof = {}
+    if cuda:
+        prof = device_profile(
+            lambda: engine.transcribe_window(torch.from_numpy(rows).to(dev), [lang_ids[0]] * 8, seed=1),
+            ["sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul"],
+        )
+        rec.setdefault("profile", {}).update(prof)
     b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
     b8_ms = dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8)) if b8 else None
     rec["serving"].update(int4_ms=int4_ms, int4_steps=int4_steps, int4_launches=int4_launches,
@@ -958,7 +1120,8 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         f"{rep['stream_rounds']}; no audio or transcript drops; every receiver closed; "
         f"peak_mem={rep['peak'] / 2**30:.2f} GiB; launches={rep['launches']}; text chars={chars}; "
         f"int4 B=1 window(s) {int4_ms:.1f} ms, {int4_steps} steps, {int4_launches} cross launches, "
-        f"{len(text4)} chars; B=8 encode {enc_ms:.1f} ms; bf16 step kernel-vs-plain logit err "
+        f"{len(text4)} chars; B=8 encode {enc_ms:.1f} ms; profiled B=8 window: {profile_text(prof)}; "
+        f"bf16 step kernel-vs-plain logit err "
         f"B=1 {step_b1[0]:.3g} (|z| <= {step_b1[1]:.3g}), B=8 n_active=5 {step_b8[0]:.3g} "
         f"(|z| <= {step_b8[1]:.3g})")
 
@@ -1008,13 +1171,18 @@ def phase_w4(rec, dev):
     bf16_ms = cuda_ms(lambda: qm.mm_f32(x, wb))
     x1 = x[:1].contiguous()
     k1_ms = cuda_ms(lambda: qm.w4_matmul(x1, q4, s4))
-    nbytes = dict(int4=q4.numel() + 2 * s4.numel(), int8=q8.numel() + 4 * s8.numel(), bf16=2 * wb.numel())
-    rec["w4_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms)
-    rec["w4_detail"] = dict(rel_err=worst, int8_head_ms=w8_ms, bf16_head_ms=bf16_ms, rows1_ms=k1_ms, bytes=nbytes)
+    head_bytes = dict(int4=q4.numel() + 2 * s4.numel(), int8=q8.numel() + 4 * s8.numel(), bf16=2 * wb.numel())
+    b_ms, b_by = bound(nbytes(q4, s4, x) + 4 * 6 * HEAD_N)
+    prof = device_profile(lambda: [qm.w4_matmul(x, q4, s4) for _ in range(20)], ["w4_matmul"])
+    rec.setdefault("profile", {}).update(prof)
+    rec["w4_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=bf16_ms)
+    rec["w4_detail"] = dict(rel_err=worst, int8_head_ms=w8_ms, bf16_head_ms=bf16_ms, rows1_ms=k1_ms, bytes=head_bytes)
     log(f"phase 10 w4_matmul: ok {n_cases} cases ([1280 -> 51866], rows 1/6/8/48, bf16/f32 x); max err "
         f"{worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms; "
         f"int8 head (w8 kernel) {w8_ms:.4f} ms; bf16 cuBLAS head {bf16_ms:.4f} ms; w4 at 1 row {k1_ms:.4f} ms; "
-        f"head bytes int4 {nbytes['int4']} int8 {nbytes['int8']} bf16 {nbytes['bf16']}")
+        f"head bytes int4 {head_bytes['int4']} int8 {head_bytes['int8']} bf16 {head_bytes['bf16']}; bound "
+        f"{b_ms:.4f} ms ({b_by}); profiler {profile_text(prof)}")
 
 
 def phase_w8(rec, dev):
@@ -1043,13 +1211,20 @@ def phase_w8(rec, dev):
         # then cuBLAS), for reference.
         times[(K, N)] = turns(lambda: qm.w8_dense_torch(x, q, s), lambda: qm.w8_dense(x, q, s)) + (
             cuda_ms(lambda: qm.mm_f32(x, q.to(torch.bfloat16)) * s),)
+        if (K, N) == (1280, 3840):
+            # Library yardstick: one bf16 cuBLAS product over a bf16 weight.
+            wb = q.to(torch.bfloat16)
+            w8_lib = cuda_ms(lambda: qm.mm_f32(x, wb))
+            w8_bound = bound(nbytes(q, s, x) + 4 * 6 * N)
     k_ms, p_ms, _ = times[(1280, 3840)]
-    rec["w8_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms)
+    rec["w8_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms, bound_ms=w8_bound[0],
+                            bound_by=w8_bound[1], library_ms=w8_lib)
     rec["w8_times"] = {f"K={k[0]} N={k[1]}": v for k, v in times.items()}
     t = "; ".join(f"{k}: kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms (bf16 widen + cuBLAS {v[2]:.4f} ms)"
                   for k, v in rec["w8_times"].items())
     log(f"phase 11 w8_matmul: ok {n_cases} cases (4 decoder shapes + head, rows 1/6/8/48/200, bf16/f32 x); "
-        f"max err {worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: {t}")
+        f"max err {worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: {t}; 1280x3840: bf16 cuBLAS on a bf16 "
+        f"weight {w8_lib:.4f} ms, bound {w8_bound[0]:.4f} ms ({w8_bound[1]})")
 
 
 def phase_log_mel(rec, dev):
@@ -1096,12 +1271,22 @@ def phase_log_mel(rec, dev):
     b1 = batch[:1].contiguous()
     k1_ms, p1_ms = turns(lambda: mp.log_mel_dft(b1, n_mels=128), lambda: mp.log_mel_pallas(b1, n_mels=128))
     rfft_ms = cuda_ms(lambda: log_mel_spectrogram(batch[:, : (3000 - 1) * 160 + 400], n_mels=128))
-    rec["log_mel"] = dict(launches=launches, max_abs_err=worst["dft"], ms=k_ms, plain_ms=p_ms)
+    # Bound: the Hann-folded DFT (cos and sin, 400 x 201) and the mel
+    # projection as exact f32 operations on the CUDA cores, against the PCM
+    # in, the matrices and the [8, 128, 3000] output.
+    B8, n_fft, n_freq, frames = batch.shape[0], 400, 201, 3000
+    ops = B8 * frames * (2 * n_fft * n_freq * 2 + n_freq * 128 * 2)
+    b_ms, b_by = bound(nbytes(batch) + 4 * (2 * n_fft * n_freq + n_freq * 128) + 4 * B8 * 128 * frames, ops, "f32")
+    prof = device_profile(lambda: [mp.log_mel_pallas(batch, n_mels=128) for _ in range(5)], ["log_mel"])
+    rec.setdefault("profile", {}).update(prof)
+    rec["log_mel"] = dict(launches=launches, max_abs_err=worst["dft"], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
     rec["log_mel_detail"] = dict(err_vs_rfft=worst["rfft"], b1_ms=k1_ms, b1_plain_ms=p1_ms, rfft_b8_ms=rfft_ms)
     log(f"phase 12 log_mel: ok path B=8 x 30 s at 80 and 128 mels ({launches} launches); {n_cases} cases "
         f"(B 1/8, 80/128 mels): max err vs log_mel_dft {worst['dft']:.3g}, vs frontend/mel.py rFFT "
         f"{worst['rfft']:.3g}; B=8 128 mels: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms (rFFT frontend "
-        f"{rfft_ms:.3f} ms); B=1: kernel {k1_ms:.3f} ms vs plain {p1_ms:.3f} ms")
+        f"{rfft_ms:.3f} ms); B=1: kernel {k1_ms:.3f} ms vs plain {p1_ms:.3f} ms; B=8 bound {b_ms:.4f} ms ({b_by}); "
+        f"profiler {profile_text(prof)}")
 
 
 # large-v3's special-token names beyond the text ids, in id order from the
@@ -1357,9 +1542,15 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
         f"{len(mtext)} chars")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the norma_tpu_torch port on one CUDA card.")
+    ap.add_argument("--phases", default="", help="comma-separated phase names to run (default: all); "
+                    "a partial run checks those phases and prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
@@ -1375,8 +1566,7 @@ def main() -> int:
 
     rec: dict = {}
     failed = []
-    t_all = time.perf_counter()
-    for name, fn in (
+    phases = (
         ("build", lambda: phase_build(rec)),
         ("sample_step", lambda: phase_sample_step(rec, dev)),
         ("self_decode", lambda: phase_self_decode(rec, dev)),
@@ -1390,7 +1580,16 @@ def main() -> int:
         ("w8_matmul", lambda: phase_w8(rec, dev)),
         ("log_mel", lambda: phase_log_mel(rec, dev)),
         ("definition", lambda: phase_definition(rec, dev)),
-    ):
+    )
+    only = [x for x in args.phases.split(",") if x]
+    unknown = set(only) - {name for name, _ in phases}
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    for name, fn in phases:
+        if only and name not in only and name != "build":
+            continue
         if failed and failed[0] == "build":
             break
         t0 = time.perf_counter()
@@ -1405,6 +1604,9 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: phases {only} passed (partial run: no result line)", file=sys.stderr)
+        return 0
 
     kernels = [
         dict(name="sample_step", route="cuda", source="norma_tpu_torch/csrc/sample_step.cu",
@@ -1427,8 +1629,13 @@ def main() -> int:
     served = rec["serving"]["launches"]
     for k, fn in zip(kernels[2:], ("cross_attention_q8_kernel_stacked", "flash_self_attention", "q8a8_dense")):
         k["launches"] = served[fn]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:  # the contract's key order
-        k.update({key: k.pop(key) for key in ("launches", "max_abs_err", "ms", "plain_ms")})
+        k.update({key: k.pop(key) for key in keys})
+    prof = rec.get("profile", {})
+    log("device-only ms per launch (torch.profiler; phase 9's B=8 window, phases 10 and 12): " + "; ".join(
+        f"{k['name']}: {'not measured' if prof.get(k['name']) is None else format(prof[k['name']]['ms_per_launch'], '.4f')}"
+        for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(rec["smi"])
     print(json.dumps({"ok": True, "device": {

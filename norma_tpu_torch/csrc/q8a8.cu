@@ -2,135 +2,181 @@
 //
 // Replaces the TPU kernel norma_tpu/ops/quant_matmul.py::q8a8_dense_pallas
 // (pl.pallas_call at :180, body _q8a8_kernel at :140): out[m, n] =
-// float(sum_k xq[m, k] * wq[k, n]) * xs[m] * ws[n] (+ b[n]), f32 out, in
-// that order of f32 operations (__fmul_rn / __fadd_rn keep nvcc from
-// contracting them into an FMA, so the epilogue is bit-equal to the plain
-// PyTorch version ops/quant_matmul.py::q8a8_dense_torch).  The int32
+// float(sum_k xq[m, k] * wq[k, n]) * xs[m] * ws[n] (+ b[n]), in that order
+// of f32 operations (__fmul_rn / __fadd_rn keep nvcc from contracting them
+// into an FMA, so the epilogue is bit-equal to the plain PyTorch version
+// ops/quant_matmul.py::q8a8_dense_torch), then stored as f32 or rounded
+// once to bf16 (bit-equal to the f32 result's .to(bf16)).  The int32
 // accumulation is exact: |acc| <= K * 127^2 < 2^31 for K < 133,000.
 //
 // What bounds it on the H100: at the w8a8 encoder's shapes (M = B * 1500
 // rows, K x N in {1280 x 3840, 1280 x 1280, 1280 x 5120, 5120 x 1280}) the
-// product is compute-bound (~120 GOP for the fused QKV at B=8 against
-// ~21 MB of operands), so tensor-core int8 throughput bounds it.
+// f32 output's bytes and the int8 tensor-core rate are of one size (M =
+// 12000, 1280 x 3840: 205 MB, 0.061 ms at 3.35 TB/s; 118 GOP, 0.060 ms at
+// 1979 TOP/s); a bf16 output halves the bytes.
 //
-// Design: WMMA s8 16x16x16 fragments (mma.sync under the hood, int32
-// accumulators), a 128 x 128 output tile per CTA of 8 warps (4 along M x 2
-// along N, each warp 32 x 64 = 2 x 4 fragments), K in steps of 32.  WMMA
-// loads need 32-byte aligned fragment pointers, so the shared tiles are
-// kept as 16-byte-wide slabs: A as [k-half][row][16], B as
-// [16-column block][k][16]; each thread stages exactly one 16-byte slab
-// row of A and one of B per step, two buffers deep, with the next step's
-// global loads issued before the current step's MMAs.  Rows beyond M and
-// columns beyond N load zeros and are not stored.  The epilogue goes
-// through a per-warp 16 x 16 int32 scratch in shared memory.  No wgmma or
-// TMA yet: that is the later speed-up.
-#include <cuda_runtime.h>
-#include <mma.h>
+// Design (Hopper): s8 wgmma needs BOTH operands K-major, so the weight
+// codes arrive as [N, K] storage (the [K, N] view the model holds has
+// strides (1, K); model/quant.py::prep_encoder_q8_kernel makes it once when
+// the encoder's weights reach the card).  A CTA of 288 threads computes a
+// 128 x BN output tile (BN = 128, or 64 when 128-wide tiles give the card
+// fewer than two waves): two consumer warpgroups of 64 rows and one
+// producer warp.  The producer streams 128-byte-deep K slices of A
+// (activation codes [M, K]) and B (weight codes [N, K]) by TMA (128B
+// swizzle; rows >= M read as zeros) into a 4-stage ring with full / empty
+// mbarriers; each consumer runs four wgmma m64nBNk32 .s32.s8.s8 per slice,
+// keeping one slice's group in flight while it releases the previous
+// slice.  The epilogue runs on the accumulator registers: each thread
+// scales its pairs of columns and stores them as float2 (or bf16x2).
+#include <cuda_bf16.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int kThreads = 256;
+using namespace norma::hopper;
 
-__global__ void __launch_bounds__(kThreads) q8a8_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ xs,
-    const int8_t* __restrict__ wq, const float* __restrict__ ws,
-    const float* __restrict__ bias, float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) int8_t As[2][2][BM][16];       // [buf][k half][row][16]
-  __shared__ __align__(128) int8_t Bs[2][BN / 16][BK][16];  // [buf][col block][k][16]
-  __shared__ __align__(128) int scratch[kThreads / 32][16 * 16];
+constexpr int BM = 128, BKB = 128, STAGES = 4, kConsumers = 256, kThreads = kConsumers + 32;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // warp tile: rows wm*32, cols wn*64
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+template <int BN>
+constexpr size_t smem_bytes() {
+  return 1024 + (size_t)STAGES * (BM + BN) * BKB + 2 * STAGES * sizeof(uint64_t);
+}
 
-  // This thread's slab rows: A row a_row, k half a_half; B k row b_k,
-  // column block b_blk.
-  const int a_row = tid >> 1, a_half = tid & 1;
-  const int b_k = tid >> 3, b_blk = tid & 7;
-  const bool a_ok = m0 + a_row < M;
-  const bool b_ok = n0 + b_blk * 16 < N;
-  const int8_t* a_src = xq + (size_t)(m0 + a_row) * K + a_half * 16;
-  const int8_t* b_src = wq + (size_t)b_k * N + n0 + b_blk * 16;
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128)
+    wgmma_m64n128k32_s8_ss(acc, da, db, 1);
+  else
+    wgmma_m64n64k32_s8_ss(acc, da, db, 1);
+}
 
-  const int4 zero = make_int4(0, 0, 0, 0);
-  int4 ra = a_ok ? *reinterpret_cast<const int4*>(a_src) : zero;
-  int4 rb = b_ok ? *reinterpret_cast<const int4*>(b_src) : zero;
-  *reinterpret_cast<int4*>(&As[0][a_half][a_row][0]) = ra;
-  *reinterpret_cast<int4*>(&Bs[0][b_blk][b_k][0]) = rb;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1) q8a8_wgmma_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+    const float* __restrict__ xs, const float* __restrict__ ws, const float* __restrict__ bias,
+    OutT* __restrict__ out, int M, int N, int K) {
+  constexpr int kABytes = BM * BKB, kBBytes = BN * BKB, kStageBytes = kABytes + kBBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * kStageBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, nk = K / BKB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int nk = K / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {
-      const size_t k1 = (size_t)(kt + 1) * BK;
-      ra = a_ok ? *reinterpret_cast<const int4*>(a_src + k1) : zero;
-      rb = b_ok ? *reinterpret_cast<const int4*>(b_src + k1 * N) : zero;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[buf][kk][wm * 32 + i * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[buf][wn * 4 + j][kk * 16][0], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (more) {
-      *reinterpret_cast<int4*>(&As[buf ^ 1][a_half][a_row][0]) = ra;
-      *reinterpret_cast<int4*>(&Bs[buf ^ 1][b_blk][b_k][0]) = rb;
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: acc * xs[m] * ws[n] (+ b[n]) in f32, one fragment at a time.
-  int* sc = scratch[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int mb = m0 + wm * 32 + i * 16, nb = n0 + wn * 64 + j * 16;
-#pragma unroll
-      for (int e = lane; e < 256; e += 32) {
-        const int m = mb + (e >> 4), n = nb + (e & 15);
-        if (m < M && n < N) {
-          float y = __fmul_rn(__fmul_rn(__int2float_rn(sc[e]), xs[m]), ws[n]);
-          if (bias != nullptr) y = __fadd_rn(y, bias[n]);
-          out[(size_t)m * N + n] = y;
-        }
+  if (warp == kConsumers / 32) {
+    // Producer warp: one thread keeps up to STAGES slices in flight.
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load_2d(st, &amap, &full[s], kt * BKB, m0);
+        tma_load_2d(st + kABytes, &bmap, &full[s], kt * BKB, n0);
       }
-      __syncwarp();
     }
+    return;
   }
+
+  // Consumer warpgroup wg: output rows wg*64 .. +63 of the tile.
+  const int wg = warp >> 2;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* st = smem + s * kStageBytes;
+    const uint64_t da = smem_desc(st + wg * 64 * BKB, 16, 1024);
+    const uint64_t db = smem_desc(st + kABytes, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKB / 32; ++kk) wgmma_s8<BN>(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slice's products are done: release it
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+
+  // acc[4j + e]: row ra (+ 8 for e >= 2), column 8j + 2 (lane % 4) + (e & 1).
+  const int ra = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), rb = ra + 8;
+  const float xa = ra < M ? xs[ra] : 0.f, xb = rb < M ? xs[rb] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    const float w0 = ws[n], w1 = ws[n + 1];
+    float y[4] = {__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j]), xa), w0),
+                  __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 1]), xa), w1),
+                  __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2]), xb), w0),
+                  __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 3]), xb), w1)};
+    if (bias != nullptr) {
+      const float b0 = bias[n], b1 = bias[n + 1];
+      y[0] = __fadd_rn(y[0], b0);
+      y[1] = __fadd_rn(y[1], b1);
+      y[2] = __fadd_rn(y[2], b0);
+      y[3] = __fadd_rn(y[3], b1);
+    }
+    if (ra < M) store2(out + (size_t)ra * N + n, y[0], y[1]);
+    if (rb < M) store2(out + (size_t)rb * N + n, y[2], y[3]);
+  }
+}
+
+template <int BN, typename OutT>
+int launch(const void* xq, const void* xs, const void* wq, const void* ws, const void* bias, void* out,
+           int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap amap, bmap;
+  const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M}, b_dims[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t stride[1] = {(uint64_t)K};
+  const uint32_t a_box[2] = {BKB, BM}, b_box[2] = {BKB, BN};
+  int e = encode_tensor_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, a_dims, stride, a_box);
+  if (e) return e;
+  e = encode_tensor_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, b_dims, stride, b_box);
+  if (e) return e;
+  auto kern = q8a8_wgmma_kernel<BN, OutT>;
+  const cudaError_t c =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<BN>());
+  if (c != cudaSuccess) return (int)c;
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  kern<<<grid, kThreads, smem_bytes<BN>(), stream>>>(amap, bmap, (const float*)xs, (const float*)ws,
+                                                     (const float*)bias, (OutT*)out, M, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// wq: the weight codes as [N, K] storage (K-major).  bn: the output tile's
+// width (128 or 64; ops/quant_matmul.py::q8a8_plan picks it).
 extern "C" int norma_q8a8(const void* xq, const void* xs, const void* wq, const void* ws,
-                          const void* bias, void* out, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK || N % 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  q8a8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)xq, (const float*)xs, (const int8_t*)wq, (const float*)ws,
-      (const float*)bias, (float*)out, M, N, K);
-  return (int)cudaGetLastError();
+                          const void* bias, void* out, int M, int N, int K, int bn, int out_bf16,
+                          void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % BKB || (bn != 64 && bn != 128) || N % bn)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bn == 128)
+    return out_bf16 ? launch<128, __nv_bfloat16>(xq, xs, wq, ws, bias, out, M, N, K, s)
+                    : launch<128, float>(xq, xs, wq, ws, bias, out, M, N, K, s);
+  return out_bf16 ? launch<64, __nv_bfloat16>(xq, xs, wq, ws, bias, out, M, N, K, s)
+                  : launch<64, float>(xq, xs, wq, ws, bias, out, M, N, K, s);
 }

@@ -50,6 +50,7 @@ from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD, TEMPERATURES
 from ..frontend.mel import log_mel_spectrogram
 from ..model.config import WhisperConfig
 from ..model.load import Params
+from ..model.quant import prep_encoder_q8_kernel
 from ..model.whisper import (
     cross_kv,
     decoder_prefill,
@@ -131,6 +132,14 @@ class DecodeEngine:
             # ~3 decimal digits.  These are process-wide torch settings.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        if (
+            self.device.type == "cuda"
+            and cfg.encoder_q8_mode in ("w8a8", "w8a8_pallas")
+            and "fc1_w_q" in params["encoder"]["layers"]
+        ):
+            # The int8 GEMM kernel reads K-major weight codes: convert the
+            # encoder's once, in place (same values; a no-op when done).
+            prep_encoder_q8_kernel(params)
         # False = reference (whisper.cpp/candle) framing; True = OpenAI/HF
         # centered STFT.
         self.mel_center = bool(mel_center)

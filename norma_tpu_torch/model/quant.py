@@ -14,7 +14,11 @@
     so only the stored bytes matter;
   - :func:`quantize_encoder` — the encoder-layer weights in the same
     storage; the encoder computes w8a8 through the int8 GEMM
-    (``encoder_q8_mode``), changing numerics by the activation grid.
+    (``encoder_q8_mode``), changing numerics by the activation grid;
+  - :func:`prep_encoder_q8_kernel` — the encoder's codes restored K-major
+    (the same [in, ...out] values over [...out, in] storage), in place and
+    once, for the int8 GEMM kernel; ``DecodeEngine`` applies it on the
+    card.
 
 Codes and scales are bit-equal to the JAX package's (f32 arithmetic,
 round half to even).
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from ..ops.quant_matmul import quantize_axis, quantize_blockwise_int4, quantize_per_channel
+from ..ops.quant_matmul import kmajor_codes, quantize_axis, quantize_blockwise_int4, quantize_per_channel
 from .load import Params
 
 # Decoder-layer weight matrices eligible for int8 (stacked [L, in, ...out]).
@@ -103,3 +107,21 @@ def quantize_encoder(params: Params) -> Params:
     tree = _tree(params)
     tree["encoder"]["layers"] = _quantize_layer_stack(tree["encoder"]["layers"], ENCODER_W8_KEYS)
     return Params(tree)
+
+
+def prep_encoder_q8_kernel(params: Params) -> Params:
+    """Store every encoder ``name_q`` code stack K-major, in place: [L, in,
+    *out] keeps its shape and values but lies as [L, *out, in]
+    (:func:`~norma_tpu_torch.ops.quant_matmul.kmajor_codes`), so each
+    layer's [in, out] weight -- and the fused [in, 3, out] one reshaped to
+    [in, 3*out] -- is a view with strides (1, in), the layout the int8 GEMM
+    kernel reads.  One copy at a time: each stack is replaced as it is
+    converted; stacks already K-major stay as they are.  The w8a16 kernel
+    reads [in, out]-contiguous codes, so prepped params serve the w8a8
+    modes only."""
+    layers = params["encoder"]["layers"]
+    for name in ENCODER_W8_KEYS:
+        key = name + "_q"
+        if key in layers and layers[key].stride(1) != 1:
+            layers._buffers[key] = kmajor_codes(layers[key], axis=1)
+    return params

@@ -219,24 +219,23 @@ def _q8_dense(lp: Layer, name: str, x: torch.Tensor, bias=None) -> torch.Tensor:
     """w8a8 dense (``quantize_encoder``): per-row dynamic int8 activations
     x stored int8 weights through the int8 GEMM."""
     xq, xs = quantize_activations(x)
-    return q8a8_dense(xq, xs, lp[name + "_q"], lp[name + "_s"], bias).to(x.dtype)
+    return q8a8_dense(xq, xs, lp[name + "_q"], lp[name + "_s"], bias, out_dtype=x.dtype)
 
 
 def _qkv_proj_q8(lp: Layer, x: torch.Tensor):
     """Q/K/V on the w8a8 path: the activation row is quantized ONCE and
     shared by the three projections; a fused [in, 3, out] weight runs as
     one [in, 3*out] product (:func:`~norma_tpu_torch.ops.quant_matmul.
-    q8a8_qkv`, ``norma_tpu/model/whisper.py:281-290``)."""
+    q8a8_qkv`, ``norma_tpu/model/whisper.py:281-290``).  Each result is
+    rounded once from f32 to the activation dtype, in the GEMM's epilogue."""
     xq, xs = quantize_activations(x)
     if "qkv_w_q" in lp:
-        y = q8a8_qkv(xq, xs, lp["qkv_w_q"], lp["qkv_w_s"], lp["qkv_b"])
-    else:
-        y = (
-            q8a8_dense(xq, xs, lp["q_w_q"], lp["q_w_s"], lp["q_b"]),
-            q8a8_dense(xq, xs, lp["k_w_q"], lp["k_w_s"], None),
-            q8a8_dense(xq, xs, lp["v_w_q"], lp["v_w_s"], lp["v_b"]),
-        )
-    return tuple(t.to(x.dtype) for t in y)
+        return q8a8_qkv(xq, xs, lp["qkv_w_q"], lp["qkv_w_s"], lp["qkv_b"], out_dtype=x.dtype)
+    return (
+        q8a8_dense(xq, xs, lp["q_w_q"], lp["q_w_s"], lp["q_b"], out_dtype=x.dtype),
+        q8a8_dense(xq, xs, lp["k_w_q"], lp["k_w_s"], None, out_dtype=x.dtype),
+        q8a8_dense(xq, xs, lp["v_w_q"], lp["v_w_s"], lp["v_b"], out_dtype=x.dtype),
+    )
 
 
 def _mlp_q8(lp: Layer, x: torch.Tensor) -> torch.Tensor:
@@ -244,7 +243,7 @@ def _mlp_q8(lp: Layer, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu(q8a8_dense(xq, xs, lp["fc1_w_q"], lp["fc1_w_s"], lp["fc1_b"]), approximate="none")
     h = h.to(x.dtype)
     hq, hs = quantize_activations(h)
-    return q8a8_dense(hq, hs, lp["fc2_w_q"], lp["fc2_w_s"], lp["fc2_b"]).to(x.dtype)
+    return q8a8_dense(hq, hs, lp["fc2_w_q"], lp["fc2_w_s"], lp["fc2_b"], out_dtype=x.dtype)
 
 
 def encoder_layer(

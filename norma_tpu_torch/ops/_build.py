@@ -3,9 +3,12 @@
 Each source compiles in its own ``nvcc`` process, all started together,
 and one more ``nvcc`` links the objects into a shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds, not minutes).  The library lands in ``build/norma_tpu_torch/``
-beside the package, named by a hash of the sources and flags: it is built
-on first use and again whenever a source changes.  Every C entry point
+seconds, not minutes).  The TMA kernels encode their tensor maps through
+the CUDA runtime's driver entry point (``csrc/hopper.cuh``), so nothing
+links libcuda itself and no CUTLASS headers are needed.  The library
+lands in ``build/norma_tpu_torch/`` beside the package, named by a hash
+of the sources and flags: it is built on first use and again whenever a
+source changes.  Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
 non-zero code.  Nothing here runs at import time.
 """
@@ -70,8 +73,9 @@ SIGNATURES = {
         P,  # stream
     ],
     "norma_q8a8": [
-        P, P, P, P, P, P,  # xq, xs, wq, ws, bias (or NULL), out
+        P, P, P, P, P, P,  # xq, xs, wq ([N, K] storage), ws, bias (or NULL), out
         I, I, I,  # M, N, K
+        I, I,  # output tile width (64 or 128), bf16 output
         P,  # stream
     ],
     "norma_w8_matmul": [

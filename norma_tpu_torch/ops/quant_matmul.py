@@ -23,15 +23,20 @@
     accumulation exact (float64 on every device: every partial sum of
     int8 x int8 products stays far below 2**53);
   - :func:`q8a8_dense` — the wrapper: the CUDA kernel (``csrc/q8a8.cu``,
-    the port of ``q8a8_dense_pallas``) for CUDA tensors, the plain version
-    for CPU tensors; any other device raises.  ``q8a8_dense.launches``
-    counts kernel launches.  Both of the JAX package's w8a8 modes
+    the port of ``q8a8_dense_pallas``: s8 wgmma fed by TMA, tile chosen by
+    :func:`q8a8_plan`) for CUDA tensors, the plain version for CPU
+    tensors; any other device raises.  ``q8a8_dense.launches`` counts
+    kernel launches.  Both of the JAX package's w8a8 modes
     (``encoder_q8_mode`` "w8a8" and "w8a8_pallas") run it: on the card it
-    is the int8 GEMM;
+    is the int8 GEMM.  The kernel reads the weight codes K-major: a [K, N]
+    view with strides (1, K) (:func:`kmajor_codes`, applied once to the
+    encoder by ``model/quant.py::prep_encoder_q8_kernel``); a CUDA weight
+    in any other layout raises, and no weight is copied per call;
   - :func:`q8a8_qkv` — the fused-QKV form over [in, 3, out] weights.
 
 The w8a8 epilogue is ``acc * xs[m] * ws[n] (+ b[n])`` in f32, in that
-order, in every version.  Any device other than the CPU or CUDA raises.
+order, in every version, then (``out_dtype``) one rounding to bf16 where
+asked.  Any device other than the CPU or CUDA raises.
 """
 
 from __future__ import annotations
@@ -308,6 +313,53 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / scale).to(torch.int8), scale
 
 
+# csrc/q8a8.cu's tiles: output rows per CTA, contraction bytes per TMA
+# slice, ring stages, threads (two consumer warpgroups and a producer warp).
+_Q8_BM, _Q8_BK, _Q8_STAGES, _Q8_THREADS = 128, 128, 4, 288
+_H100_SMS = 132
+_Q8_OUT = (torch.float32, torch.bfloat16)
+
+
+def q8a8_plan(M: int, N: int, K: int) -> dict:
+    """Launch shape of the int8 GEMM kernel for [M, K] x [K, N]: 128 x 128
+    output tiles, or 128 x 64 where 128-wide tiles would give the card's
+    132 SMs fewer than two waves (M = 1500 at N = 1280: 120 tiles become
+    240).  K and N must be multiples of 128."""
+    if K <= 0 or N <= 0 or K % _Q8_BK or N % 128:
+        raise ValueError(f"q8a8 kernel needs K and N multiples of 128, got K={K} N={N}")
+    m_tiles = math.ceil(M / _Q8_BM)
+    bn = 128 if m_tiles * (N // 128) >= 2 * _H100_SMS else 64
+    smem = 1024 + _Q8_STAGES * (_Q8_BM + bn) * _Q8_BK + 2 * _Q8_STAGES * 8
+    return dict(bm=_Q8_BM, bn=bn, bk=_Q8_BK, stages=_Q8_STAGES, threads=_Q8_THREADS,
+                grid=(N // bn, m_tiles), smem_bytes=smem)
+
+
+def kmajor_codes(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """The same values as ``q`` with the contraction ``axis`` stored
+    innermost: a view of one new [..., K]-contiguous tensor (e.g. stacked
+    [L, K, N] codes come back as a [L, K, N] view with strides (N*K, 1,
+    K), fused [L, K, 3, O] ones as strides (3*O*K, 1, O*K, K)).  The int8
+    GEMM kernel needs its weight K-major."""
+    return torch.movedim(torch.movedim(q, axis, -1).contiguous(), -1, axis)
+
+
+def is_kmajor(wq: torch.Tensor) -> bool:
+    """Whether [K, N] codes lie K-major (strides (1, K)): the layout the
+    int8 GEMM kernel reads."""
+    K, N = wq.shape
+    return wq.stride(0) == 1 and (wq.stride(1) == K or N == 1)
+
+
+def check_kernel_weight(wq: torch.Tensor) -> None:
+    """Raise unless ``wq`` suits the kernel: K-major, so that no call
+    transposes or copies a weight."""
+    if not is_kmajor(wq):
+        raise ValueError(
+            f"q8a8 kernel needs K-major weight codes (a [K, N] view with strides (1, K), "
+            f"model/quant.py::prep_encoder_q8_kernel), got strides {tuple(wq.stride())}"
+        )
+
+
 def _flatten(xq, xs, wq, ws, b):
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"q8a8: codes must be int8, got {xq.dtype} and {wq.dtype}")
@@ -332,15 +384,17 @@ def q8a8_dense_torch(
     wq: torch.Tensor,  # [K, N] int8
     ws: torch.Tensor,  # [N] f32
     b: Optional[torch.Tensor] = None,  # [N]
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version: int8 x int8 accumulated exactly, then
-    ``acc * xs * ws (+ b)`` in f32 -> [..., N] f32."""
+    ``acc * xs * ws (+ b)`` in f32 -> [..., N], rounded once to
+    ``out_dtype``."""
     x2, s2, N = _flatten(xq, xs, wq, ws, b)
     acc = torch.matmul(x2.double(), wq.double()).to(torch.int32)
     y = acc.float() * s2.float() * ws.float()
     if b is not None:
         y = y + b.float()
-    return y.reshape(*xq.shape[:-1], N)
+    return y.to(out_dtype).reshape(*xq.shape[:-1], N)
 
 
 @torch.no_grad()
@@ -350,29 +404,35 @@ def q8a8_dense(
     wq: torch.Tensor,
     ws: torch.Tensor,
     b: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Same contract as :func:`q8a8_dense_torch`.  CUDA tensors launch the
-    int8 GEMM kernel, CPU tensors run the plain version."""
+    int8 GEMM kernel (K-major weight codes only), CPU tensors run the plain
+    version."""
     x2, s2, N = _flatten(xq, xs, wq, ws, b)
+    if out_dtype not in _Q8_OUT:
+        raise TypeError(f"q8a8: out_dtype must be one of {_Q8_OUT}, got {out_dtype}")
     dev = xq.device
     if dev.type == "cpu":
-        return q8a8_dense_torch(xq, xs, wq, ws, b)
+        return q8a8_dense_torch(xq, xs, wq, ws, b, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"q8a8_dense: unsupported device {dev}")
     M, K = x2.shape
-    if K % 32 or N % 16:
-        raise ValueError(f"q8a8 kernel needs K % 32 == 0 and N % 16 == 0, got K={K} N={N}")
-    if not (x2.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("q8a8 kernel needs contiguous [M, K] codes and a contiguous [K, N] weight")
+    plan = q8a8_plan(M, N, K)
+    check_kernel_weight(wq)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        raise ValueError("q8a8 kernel needs contiguous, 16-byte aligned [M, K] activation codes")
     if s2.dtype != torch.float32 or ws.dtype != torch.float32:
         raise TypeError("q8a8 kernel needs f32 scales")
     s2, ws = s2.contiguous(), ws.contiguous()
     bias = b.float().contiguous() if b is not None else None  # added in f32, as in the plain version
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if M == 0:
+        return out.reshape(*xq.shape[:-1], N)
     code = _build.lib().norma_q8a8(
         x2.data_ptr(), s2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        M, N, K, _build.stream_ptr(dev),
+        M, N, K, plan["bn"], int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.check(code, "q8a8 kernel")
     q8a8_dense.launches += 1
@@ -384,12 +444,19 @@ q8a8_dense.launches = 0
 
 @torch.no_grad()
 def q8a8_qkv(
-    xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor
+    xq: torch.Tensor,
+    xs: torch.Tensor,
+    wq: torch.Tensor,
+    ws: torch.Tensor,
+    b: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused-QKV w8a8: xq [..., in] @ wq [in, 3, out] -> three [..., out]
-    f32, ws/b [3, out] (zero bias in the K slot).  One product over the
-    flattened [in, 3*out] weight, through :func:`q8a8_dense`."""
+    of ``out_dtype`` (slices of one [..., 3, out] result), ws/b [3, out]
+    (zero bias in the K slot).  One product over the flattened [in, 3*out]
+    weight, through :func:`q8a8_dense`; for K-major codes (strides (1,
+    out*in, in)) the flattening is a view."""
     K, three, O = wq.shape
-    y = q8a8_dense(xq, xs, wq.reshape(K, three * O), ws.reshape(-1), b.reshape(-1))
+    y = q8a8_dense(xq, xs, wq.reshape(K, three * O), ws.reshape(-1), b.reshape(-1), out_dtype)
     y = y.unflatten(-1, (three, O))
     return y[..., 0, :], y[..., 1, :], y[..., 2, :]
