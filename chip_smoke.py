@@ -14,12 +14,17 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      Philox uniforms, uniformity of those uniforms, per-row independence);
   3. self_decode kernel vs its plain version at distil-large-v3 widths
      (f32 and bf16, bucket views, in-place row write);
-  4. the golden config (tests/golden/engine_small.json) on the card;
+  4. the golden config (tests/golden/engine_small.json) on the card,
+     through the graph loop and the per-step eager loop alike;
   5. the single-stream slice: distil-large-v3 at mtp=448, buckets
      (128, 256), self_kv_impl="kernel", f32, seeded random weights:
      WhisperModel over 30 s of audio in three chunks (constant language,
      then detect mode) and a padded B=8 window.  Both kernels' launch
-     counters must move;
+     counters must move.  Then the token loop's CUDA graphs against the
+     per-step eager loop (``DecodeEngine._token_loop_eager``) on a B=1 and
+     the B=8 window (tokens equal; walls, medians, host syncs), warm B=1
+     walls at chunk lengths 8/16/32, and the B=1 idle share under
+     torch.profiler, graph and eager;
   6. cross_decode kernel vs its plain version (int8 and int4, G 1/6,
      B 1/8/48, stacked layers 0/1 and the per-layer form);
   7. flash_encoder kernel vs its plain version (T 1500/200/37, B 1/8, bf16
@@ -35,15 +40,20 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      or transcript drops, >= 3 rounds per stream, a round with all 8
      active, and every one of the six kernels' launch counters (the five
      above and w8, which the int8 decoder layers and head run) must move
-     during the served rounds.  Then one B=1 window with int4 cross-K/V,
-     and a full-width decoder_step through the kernel routes against the
-     plain routes on the prefill of the engine's padded window, at B=1 and
-     at B=8 (5 active);
+     during the served rounds.  The engine leaves the caller's params as
+     they were: a bare encode on them equals the engine's, and a second
+     engine with the w8a16 encoder runs.  Then one B=1 window with int4
+     cross-K/V, a full-width decoder_step through the kernel routes against
+     the plain routes on the prefill of the engine's padded window, at B=1
+     and at B=8 (5 active), the B=8 window graph against eager (tokens
+     equal) with its idle share, and one eager B=8 window profiled;
  10. w4_matmul kernel vs its plain version at the int4 head's shape
      [1280 -> 51866], rows 1/6/8/48, bf16 and f32 x, timed beside the int8
      head (w8 kernel) and a bf16 cuBLAS head;
  11. w8_matmul kernel vs its plain version at the int8 decoder's four
-     shapes and the head, rows 1/6/8/48/200, bf16 and f32 x;
+     shapes and the head, rows 1/6/8/16/24/48/200, bf16 and f32 x, one
+     launch per product; device times from CUDA graphs over cold weights
+     at 6/8/16 rows against bf16 cuBLAS on a bf16 weight, with the bound;
  12. log_mel kernel: a B=8 batch of 30 s windows through log_mel_pallas
      (its own path; the kernel is on no serving path, as in the JAX
      package), then kernel vs log_mel_dft and vs frontend/mel.py at B 1/8,
@@ -56,7 +66,8 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      Transcriber.blocking_spawn streaming >= 35 s of real-time synthetic
      audio, stop(), close(), join(): no audio dropped, no error, and the
      seven on-path kernels' counters (sample_step, self_decode,
-     cross_decode, flash_encoder, q8a8, w8, w4) all move; then one window
+     cross_decode, flash_encoder, q8a8, w8, w4) all move; the first
+     window again, graph against eager (tokens equal); then one window
      of multilingual.Definition in detect mode with quantize_self_kv and
      the int4 head (the self-decode kernel stays off on the int8 cache).
 
@@ -146,7 +157,7 @@ def nbytes(*tensors) -> int:
 KERNEL_FUNCS = {
     "sample_step": ("sample_step_kernel",), "self_decode": ("self_decode_kernel",),
     "cross_decode": ("cross_decode_kernel",), "flash_encoder": ("flash_encoder",),
-    "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_kernel", "split_sum"),
+    "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_mma_kernel",),
     "w4_matmul": ("w4_kernel", "split_sum"), "log_mel": ("log_mel_kernel",),
 }
 
@@ -184,6 +195,58 @@ def profile_text(prof) -> str:
         f"{k}: {v['ms_per_launch']:.4f} ms x {v['launches']} ({v['ms_total']:.1f} ms)"
         for k, v in prof.items()
     )
+
+
+def idle_share(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, device-busy ms, idle
+    share, kernels seen).  Busy is the sum of the CUDA kernels', copies'
+    and fills' device time; the idle share is 1 - busy / wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) / 1e3
+    return wall, busy, 1.0 - busy / wall, len(dev)
+
+
+def window_modes(engine, audio, langs, seed, n_active=None):
+    """The same window through the graph loop and through the per-step
+    eager loop (``_token_loop_eager``: a host read before every step, no
+    graphs), in turns graph, eager, eager, graph.  Tokens must be equal;
+    returns per mode the walls (ms, host clock after a sync), their median,
+    host syncs and steps per window."""
+    import numpy as np
+    import torch
+
+    res, tokens = {"graph": [], "eager": []}, []
+    for mode in ("graph", "eager", "eager", "graph"):
+        if mode == "eager":
+            engine._token_loop = engine._token_loop_eager
+        try:
+            torch.cuda.synchronize()
+            h0, s0, t0 = engine.host_syncs, engine.decode_steps, time.perf_counter()
+            drs, _ = engine.transcribe_window(audio, langs, seed, n_active)
+            torch.cuda.synchronize()
+            res[mode].append(((time.perf_counter() - t0) * 1e3, engine.host_syncs - h0, engine.decode_steps - s0))
+            tokens.append([d and d.tokens for d in drs])
+        finally:
+            engine.__dict__.pop("_token_loop", None)
+    if any(tk != tokens[0] for tk in tokens):
+        raise AssertionError("graph-loop tokens differ from the per-step loop's")
+    return {k: dict(ms=[r[0] for r in v], median_ms=float(np.median([r[0] for r in v])), syncs=v[0][1],
+                    steps=v[0][2]) for k, v in res.items()}
+
+
+def modes_text(res) -> str:
+    return "; ".join(f"{k} {[round(x, 1) for x in v['ms']]} ms (median {v['median_ms']:.1f}), {v['syncs']} syncs, "
+                     f"{v['steps']} steps" for k, v in res.items())
 
 
 # --------------------------------------------------------------------------
@@ -423,6 +486,14 @@ def phase_golden(rec, dev):
             torch.from_numpy(prepare_audio(audio, n_frames=2 * msp))[None].to(dev), n_mels=80, n_frames=2 * msp
         )
         dr = engine.run_loop(engine.prefill(engine.encode(mel), 50259), 0.0, seed=0)[0]
+        # The same window through the per-step eager loop (no graphs).
+        engine._token_loop = engine._token_loop_eager
+        try:
+            dr_eager = engine.run_loop(engine.prefill(engine.encode(mel), 50259), 0.0, seed=0)[0]
+        finally:
+            engine.__dict__.pop("_token_loop", None)
+        if dr_eager.tokens != dr.tokens:
+            raise AssertionError(f"golden {kind}: graph-loop tokens differ from the per-step loop's")
         got[kind] = dr.tokens == golden["windows"][kind]["tokens"]
         if not got[kind]:
             want = golden["windows"][kind]["tokens"]
@@ -430,7 +501,8 @@ def phase_golden(rec, dev):
             log(f"  golden {kind}: first difference at token {first} of {len(want)}")
     if not all(got.values()):
         raise AssertionError(f"golden windows differ: {got}")
-    log("phase 4 golden: ok windows tone/noise/mix token-exact vs tests/golden/engine_small.json")
+    log("phase 4 golden: ok windows tone/noise/mix token-exact vs tests/golden/engine_small.json, through "
+        "the graph loop and the per-step eager loop alike")
 
 
 def phase_slice(rec, dev):
@@ -533,7 +605,35 @@ def phase_slice(rec, dev):
 
     b1 = windows[:b1_windows]
     b8 = windows[b1_windows:]
-    rec["slice"] = dict(windows_b1=b1, window_b8=b8, peak_bytes=peak, launches=launches, step_logit_err=step_err)
+    # The graph loop against the per-step eager loop on the same windows
+    # (f32: tokens equal), then the chunk length: one warm B=1 window at
+    # k = 8, 16, 32 (each k's graphs captured by a window before), and the
+    # device's idle share under torch.profiler, graph and eager.
+    one = torch.from_numpy(batch[:1])
+    lang1 = [LANG_IDS_V3[0]]
+    modes_b1 = window_modes(engine, one, lang1, 5)
+    modes_b8 = window_modes(engine, torch.from_numpy(batch), lang1 * 8, 11, n_active=5)
+    chunk_ms, k0 = {}, engine._loop_chunk
+    for k in (8, 16, 32):
+        engine._loop_chunk = k
+        engine.transcribe_window(one, lang1, 5)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            engine.transcribe_window(one, lang1, 5)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - w0) * 1e3)
+        chunk_ms[k] = walls
+    engine._loop_chunk = k0
+    idle = {"graph": idle_share(lambda: engine.transcribe_window(one, lang1, 5))}
+    engine._token_loop = engine._token_loop_eager
+    try:
+        idle["eager"] = idle_share(lambda: engine.transcribe_window(one, lang1, 5))
+    finally:
+        engine.__dict__.pop("_token_loop", None)
+    rec["slice"] = dict(windows_b1=b1, window_b8=b8, peak_bytes=peak, launches=launches, step_logit_err=step_err,
+                        modes_b1=modes_b1, modes_b8=modes_b8, chunk_ms=chunk_ms, idle_b1=idle)
     ms_b1 = [round(w["ms"], 1) for w in b1]
     log(f"phase 5 slice: ok distil-large-v3 mtp=448 buckets=(128,256) kernel f32; "
         f"B=1 windows={len(b1)} wall_ms={ms_b1} steps={[w['steps'] for w in b1]} "
@@ -541,6 +641,13 @@ def phase_slice(rec, dev):
         f"steps={b8[0]['steps']} host_syncs={b8[0]['syncs']}; peak_mem={peak / 2**30:.2f} GiB; "
         f"launches={launches}; kernel-vs-plain step logit err={step_err:.3g}; "
         f"texts const={[len(x) for x in texts['const']]} detect={[len(x) for x in texts['detect']]} chars")
+    log(f"  slice B=1 window, graph vs per-step eager loop (tokens equal): {modes_text(modes_b1)}")
+    log(f"  slice B=8 window (n_active=5), graph vs eager (tokens equal): {modes_text(modes_b8)}")
+    log(f"  slice chunk length (warm B=1 window walls, ms): " + "; ".join(
+        f"k={k}: {[round(x, 1) for x in v]}" for k, v in chunk_ms.items()))
+    log(f"  slice B=1 idle share under torch.profiler: " + "; ".join(
+        f"{m}: wall {v[0]:.1f} ms, device busy {v[1]:.1f} ms, idle {v[2]:.1%} ({v[3]} device events)"
+        for m, v in idle.items()))
 
 
 # --------------------------------------------------------------------------
@@ -733,13 +840,10 @@ def phase_q8a8(rec, dev, rows=(12000, 1500, 1507), shapes=Q8_SHAPES):
             elif M == rows[1]:
                 times[(K, N, M)] = dict(ms=cuda_ms(lambda: qm.q8a8_dense(xq, xs, wq, ws, b)),
                                         plan=qm.q8a8_plan(M, N, K)["bn"])
-    # A [K, N]-contiguous weight on the card is refused, never transposed.
-    try:
-        qm.q8a8_dense(xq, xs, wq.contiguous(), ws, b)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("q8a8 kernel took a [K, N]-contiguous weight")
+    # A [K, N]-contiguous weight (params no engine prepped) runs through a
+    # K-major copy, with the same result.
+    if not torch.equal(qm.q8a8_dense(xq, xs, wq.contiguous(), ws, b), qm.q8a8_dense(xq, xs, wq, ws, b)):
+        raise AssertionError("q8a8 kernel on [K, N]-contiguous codes differs from K-major codes")
     t = times[shapes[0]]
     rec["q8a8"] = dict(max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                        bound_by=t["bound_by"], library_ms=t["library_ms"])
@@ -752,7 +856,7 @@ def phase_q8a8(rec, dev, rows=(12000, 1500, 1507), shapes=Q8_SHAPES):
         if "plain_ms" in v else f"{k}: kernel {v['ms']:.4f} ms (tile 128x{v['plan']})"
         for k, v in rec["q8a8_times"].items())
     log(f"phase 8 q8a8: ok {n_cases} cases ({len(shapes)} shapes x M {'/'.join(map(str, rows))}): int32 accumulation bit-exact, f32 "
-        f"and bf16 epilogues bit-equal, [K, N]-contiguous weight refused; {txt}")
+        f"and bf16 epilogues bit-equal, [K, N]-contiguous codes copied K-major with the same result; {txt}")
 
 
 def _serving_params(cfg, dev):
@@ -986,7 +1090,7 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
     from norma_tpu_torch.decode import DecodeEngine, LanguageState, SpecialTokens
     from norma_tpu_torch.frontend.mel import log_mel_spectrogram, prepare_audio
     from norma_tpu_torch.model import PRESETS
-    from norma_tpu_torch.model.whisper import decoder_step, quantize_cross_kv
+    from norma_tpu_torch.model.whisper import decoder_step, encode, quantize_cross_kv
     from norma_tpu_torch.models.whisper import WhisperModel
     from norma_tpu_torch.ops import paged_cross
 
@@ -1010,7 +1114,11 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         def decode(self, ids, skip_special_tokens=True):
             return " ".join(str(int(i)) for i in ids)
 
+    codes0 = {k: (v.data_ptr(), v.stride()) for k, v in params["encoder"]["layers"].items() if k.endswith("_q")}
     engine = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    codes1 = {k: (v.data_ptr(), v.stride()) for k, v in params["encoder"]["layers"].items() if k.endswith("_q")}
+    if codes1 != codes0:
+        raise AssertionError("the engine changed the caller's encoder codes")
     model = WhisperModel(engine, IdsTokenizer(), LanguageState(const=lang_ids[0]), language_tokens=lang_ids)
     n_streams = 8
     rep = serve_streams(model, n_streams, seconds)
@@ -1026,7 +1134,12 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         f"{rep['metrics']['round_cost_ema_ms']}")
     log(f"  drop accounting per stream (produced, fed, dropped samples, dropped chunks): {rep['accounting']}")
 
-    # One B=1 window with int4 cross-K/V through the same kernel.
+    # One B=1 window with int4 cross-K/V through the same kernel.  A second
+    # engine on the same params with the w8a16 encoder: the first engine's
+    # K-major prep left the caller's codes as they were.
+    e16 = DecodeEngine(params, cfg.with_(encoder_q8_mode="w8a16"), st, language_token_ids=lang_ids)
+    if e16.params is not params:
+        raise AssertionError("a w8a16 engine copied the params")
     e4 = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv="int4")
     if e4.quantize_cross_kv != "int4":
         raise AssertionError("the int4 tier fell back")
@@ -1085,6 +1198,15 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         n_mels=cfg.num_mel_bins, n_frames=2 * cfg.max_source_positions,
     )
     enc_ms = cuda_ms(lambda: engine.encode(mel.expand(8, -1, -1)), n=3) if cuda else float("nan")
+    # The caller's params, which no engine prepped: a bare encode (w8a8, the
+    # int8 GEMM over K-major copies made per call) equals the engine's, and
+    # the w8a16 engine's encoder runs the w8 kernel over the same codes.
+    with torch.no_grad():
+        bare = encode(params, cfg, mel)
+        prepped = engine.encode(mel)
+        w8a16 = e16.encode(mel)
+    if not torch.equal(bare, prepped) or not torch.isfinite(w8a16).all() or w8a16.shape != prepped.shape:
+        raise AssertionError("a bare encode or the w8a16 engine's encode on the caller's params failed")
     # The same engine's B=8 window (8 active) called directly, twice, with
     # no audio being fed: the served rounds' wall against it.
     rows = np.stack([prepare_audio(np.roll(audio, sr * i), 2 * cfg.max_source_positions) for i in range(8)])
@@ -1095,20 +1217,31 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         engine.transcribe_window(torch.from_numpy(rows).to(dev), [lang_ids[0]] * 8, seed=1)
         sync()
         direct_ms.append((time.perf_counter() - w0) * 1e3)
-    # One more B=8 window under torch.profiler: device-only ms per launch of
-    # each kernel on this path.
-    prof = {}
+    # The graph loop against the per-step eager loop on this B=8 window
+    # (bf16: tokens equal), the device's idle share under torch.profiler,
+    # and one B=8 window of the eager loop profiled: device-only ms per
+    # launch of each kernel on this path (the same kernels the graphs
+    # replay, each launched from the host).
+    prof, modes, idle = {}, {}, {}
     if cuda:
-        prof = device_profile(
-            lambda: engine.transcribe_window(torch.from_numpy(rows).to(dev), [lang_ids[0]] * 8, seed=1),
-            ["sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul"],
-        )
+        rows_t = torch.from_numpy(rows).to(dev)
+        modes = window_modes(engine, rows_t, [lang_ids[0]] * 8, 1)
+        idle["graph"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1))
+        engine._token_loop = engine._token_loop_eager
+        try:
+            idle["eager"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1))
+            prof = device_profile(
+                lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1),
+                ["sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul"],
+            )
+        finally:
+            engine.__dict__.pop("_token_loop", None)
         rec.setdefault("profile", {}).update(prof)
     b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
     b8_ms = dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8)) if b8 else None
     rec["serving"].update(int4_ms=int4_ms, int4_steps=int4_steps, int4_launches=int4_launches,
                           step_b1=step_b1, step_b8=step_b8, encode_b8_ms=enc_ms, round_b8_ms=b8_ms,
-                          direct_b8_ms=direct_ms)
+                          direct_b8_ms=direct_ms, modes_b8=modes, idle_b8=idle)
     chars = [len("".join(rep["texts"][i])) for i in range(n_streams)]
     b8_txt = (f"B=8 rounds n={b8_ms['n']} median {b8_ms['median']:.1f} ms (min {b8_ms['min']:.1f}, "
               f"max {b8_ms['max']:.1f}); direct B=8 windows {[round(x, 1) for x in direct_ms]} ms"
@@ -1124,6 +1257,11 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         f"bf16 step kernel-vs-plain logit err "
         f"B=1 {step_b1[0]:.3g} (|z| <= {step_b1[1]:.3g}), B=8 n_active=5 {step_b8[0]:.3g} "
         f"(|z| <= {step_b8[1]:.3g})")
+    if cuda:
+        log(f"  serving B=8 window, graph vs per-step eager loop (tokens equal): {modes_text(modes)}")
+        log(f"  serving B=8 idle share under torch.profiler: " + "; ".join(
+            f"{m}: wall {v[0]:.1f} ms, device busy {v[1]:.1f} ms, idle {v[2]:.1%} ({v[3]} device events)"
+            for m, v in idle.items()))
 
 
 # --------------------------------------------------------------------------
@@ -1149,6 +1287,7 @@ def phase_w4(rec, dev):
     w = torch.randn((HEAD_K, HEAD_N), generator=g, device=dev) * 0.02  # the tied embedding, transposed
     q4, s4 = qm.quantize_blockwise_int4(w)
     q8, s8 = qm.quantize_per_channel(w)
+    q8 = qm.pitched_codes(q8)  # the int8 head's layout (model/quant.py)
     wb = w.to(torch.bfloat16)
     # Tolerance: both sum f32 products of the same exact operands (bf16 or
     # f32 x, integer codes, bf16 scales widened) in other orders: 1e-5 of
@@ -1185,46 +1324,110 @@ def phase_w4(rec, dev):
         f"{b_ms:.4f} ms ({b_by}); profiler {profile_text(prof)}")
 
 
+def graph_ms(calls, reps: int = 10) -> float:
+    """Device ms per call of ``calls`` (a list of thunks), all captured in
+    one CUDA graph and replayed ``reps`` times: the device's time without
+    the host's launch cost."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / (reps * len(calls))
+
+
+W8_SHAPES = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (HEAD_K, HEAD_N))
+W8_ROWS = (6, 8, 16)
+
+
 def phase_w8(rec, dev):
+    import math
+
     import torch
 
     from norma_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(11)
     worst, worst_abs, n_cases, times = 0.0, 0.0, 0, {}
-    for K, N in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (HEAD_K, HEAD_N)):
+    for K, N in W8_SHAPES:
         q, s = qm.quantize_per_channel(torch.randn((K, N), generator=g, device=dev) * K**-0.5)
-        for rows in (1, 6, 8, 48, 200):
+        q = qm.pitched_codes(q)
+        for rows in (1,) + W8_ROWS + (24, 48, 200):
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn((rows, K), generator=g, device=dev).to(dtype)
-                ko, po = qm.w8_dense(x, q, s), qm.w8_dense_torch(x, q, s)
+                before = qm.w8_matmul.launches
+                ko = qm.w8_dense(x, q, s)
+                launched = qm.w8_matmul.launches - before
+                po = qm.w8_dense_torch(x, q, s)
                 torch.cuda.synchronize()
+                if launched != 1:
+                    raise AssertionError(f"w8 K={K} N={N} rows={rows}: {launched} launches for one product")
                 if ko.shape != (rows, N) or not torch.isfinite(ko).all():
                     raise AssertionError(f"w8 K={K} N={N} rows={rows} {dtype}: bad output")
                 err, rel = _rel_err(ko, po)
                 if not rel <= 1e-5:  # f32 summation order of exact products, as phase 10
                     raise AssertionError(f"w8 K={K} N={N} rows={rows} {dtype}: err {err} ({rel:.3g} of max|y|)")
                 worst, worst_abs, n_cases = max(worst, rel), max(worst_abs, err), n_cases + 1
+        # Device times from CUDA graphs over enough weight copies to exceed
+        # the 50 MB L2 (each call reads its weight cold, as a decode step
+        # does): the kernel against one bf16 cuBLAS product over a bf16
+        # copy of the weight, in turns cuBLAS, kernel, kernel, cuBLAS.
+        copies = min(64, max(2, math.ceil(120e6 / (K * N))))
+        qs = [q] + [qm.pitched_codes(q.clone()) for _ in range(copies - 1)]
+        wbs = [qq.to(torch.bfloat16) for qq in qs]
+        for rows in W8_ROWS:
+            x = torch.randn((rows, K), generator=g, device=dev).to(torch.bfloat16)
+            kern = [lambda qq=qq: qm.w8_dense(x, qq, s) for qq in qs]
+            lib = [lambda wb=wb: qm.mm_f32(x, wb) for wb in wbs]
+            l1, k1, k2, l2 = graph_ms(lib), graph_ms(kern), graph_ms(kern), graph_ms(lib)
+            plain_ms = graph_ms([lambda qq=qq: qm.w8_dense_torch(x, qq, s) for qq in qs[:4]])
+            b_ms, b_by = bound(K * N + nbytes(s, x) + 4 * rows * N)
+            times[(K, N, rows)] = dict(ms=(k1 + k2) / 2, cublas_ms=(l1 + l2) / 2, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+        # The cluster size (the K split across blocks) against the plan's
+        # choice, at 6 rows, the same way.
+        x6, plan_w8, sweep = torch.randn((6, K), generator=g, device=dev).to(torch.bfloat16), qm.w8_plan, {}
+        try:
+            for c in (1, 2, 4, 8):
+                if c == 1 or 4 * c <= math.ceil(K / 32):
+                    qm.w8_plan = lambda M_, N_, K_, c=c: dict(plan_w8(M_, N_, K_), cluster=c)
+                    sweep[c] = graph_ms([lambda qq=qq: qm.w8_dense(x6, qq, s) for qq in qs])
+        finally:
+            qm.w8_plan = plan_w8
+        times[(K, N, 6)].update(cluster_ms=sweep, plan_cluster=plan_w8(6, N, K)["cluster"])
+        del qs, wbs
+        # Host-launched back-to-back calls (the wrapper's Python included).
         x = torch.randn((6, K), generator=g, device=dev).to(torch.bfloat16)
-        # Plain: exact widening to f32 and an f32 product; and the route the
-        # int8 layers took before this kernel (a bf16 copy of the codes,
-        # then cuBLAS), for reference.
-        times[(K, N)] = turns(lambda: qm.w8_dense_torch(x, q, s), lambda: qm.w8_dense(x, q, s)) + (
-            cuda_ms(lambda: qm.mm_f32(x, q.to(torch.bfloat16)) * s),)
-        if (K, N) == (1280, 3840):
-            # Library yardstick: one bf16 cuBLAS product over a bf16 weight.
-            wb = q.to(torch.bfloat16)
-            w8_lib = cuda_ms(lambda: qm.mm_f32(x, wb))
-            w8_bound = bound(nbytes(q, s, x) + 4 * 6 * N)
-    k_ms, p_ms, _ = times[(1280, 3840)]
-    rec["w8_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms, bound_ms=w8_bound[0],
-                            bound_by=w8_bound[1], library_ms=w8_lib)
-    rec["w8_times"] = {f"K={k[0]} N={k[1]}": v for k, v in times.items()}
-    t = "; ".join(f"{k}: kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms (bf16 widen + cuBLAS {v[2]:.4f} ms)"
-                  for k, v in rec["w8_times"].items())
-    log(f"phase 11 w8_matmul: ok {n_cases} cases (4 decoder shapes + head, rows 1/6/8/48/200, bf16/f32 x); "
-        f"max err {worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: {t}; 1280x3840: bf16 cuBLAS on a bf16 "
-        f"weight {w8_lib:.4f} ms, bound {w8_bound[0]:.4f} ms ({w8_bound[1]})")
+        kt = turns(lambda: qm.w8_dense_torch(x, q, s), lambda: qm.w8_dense(x, q, s))
+        times[(K, N, 6)].update(host_ms=kt[0], host_plain_ms=kt[1])
+    t = times[(1280, 3840, 6)]
+    rec["w8_matmul"] = dict(max_abs_err=worst_abs, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                            bound_by=t["bound_by"], library_ms=t["cublas_ms"])
+    rec["w8_times"] = {f"K={k[0]} N={k[1]} M={k[2]}": v for k, v in times.items()}
+    slow = [k for k, v in rec["w8_times"].items() if v["ms"] > v["cublas_ms"]]
+    sweep_txt = "; ".join(f"K={k[0]} N={k[1]} (plan {v['plan_cluster']}): " + ", ".join(
+        f"{c}: {ms:.4f}" for c, ms in v["cluster_ms"].items()) for k, v in times.items() if "cluster_ms" in v)
+    txt = "; ".join(f"{k}: {v['ms']:.4f} vs cuBLAS {v['cublas_ms']:.4f}, plain {v['plain_ms']:.4f} ms, bound "
+                    f"{v['bound_ms']:.4f} ({v['bound_ms'] / v['ms']:.0%})" for k, v in rec["w8_times"].items())
+    log(f"phase 11 w8_matmul: ok {n_cases} cases (4 decoder shapes + head, rows 1/6/8/16/24/48/200, bf16/f32 x), "
+        f"one launch each; max err {worst_abs:.3g} ({worst:.3g} of max|y|); device ms from CUDA graphs, cold "
+        f"weights, bf16 x: {txt}; slower than cuBLAS at: {slow or 'none'}; host-launched at 6 rows 1280x3840 "
+        f"{t['host_ms']:.4f} ms vs plain {t['host_plain_ms']:.4f} ms; device ms by cluster size at 6 rows: {sweep_txt}")
 
 
 def phase_log_mel(rec, dev):
@@ -1441,10 +1644,11 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
 
         def timed_window(audio, langs, seed, n_active=None):
             sync()
-            s0, w0 = engine.decode_steps, time.perf_counter()
+            s0, h0, w0 = engine.decode_steps, engine.host_syncs, time.perf_counter()
             out = inner_window(audio, langs, seed, n_active)
             sync()
-            windows.append(dict(ms=(time.perf_counter() - w0) * 1e3, steps=engine.decode_steps - s0))
+            windows.append(dict(ms=(time.perf_counter() - w0) * 1e3, steps=engine.decode_steps - s0,
+                                syncs=engine.host_syncs - h0, audio=audio, langs=langs))
             return out
 
         def counted_transcribe(data, final_chunk):
@@ -1506,6 +1710,11 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
                 raise AssertionError(f"streamed text is not WordLevel text: {text[:80]!r}")
         for k in ("w8_matmul", "w4_matmul"):
             rec.setdefault(k, {})["launches"] = launches[k]
+        # The first streamed window again, graph loop against the per-step
+        # eager loop (bf16, int4 head: tokens equal).
+        first = windows[0]
+        modes13 = window_modes(engine, first["audio"], first["langs"], 0) if cuda else {}
+        windows = [{k: v for k, v in w.items() if k not in ("audio", "langs")} for w in windows]
 
         # Multilingual detect mode with the int8 self-KV cache: one window.
         mdef = multilingual.Definition(
@@ -1530,16 +1739,19 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
             raise AssertionError("the self-decode kernel ran on an int8 self-KV cache")
         if mmodel.longform.buf.size or mmodel.longform.lang.detected is not None:
             raise AssertionError("detect-mode window did not drain or did not clear its language")
-    rec["definition"] = dict(windows=windows, wall_s=wall_s, fed_s=fed[0] / 16000, peak_bytes=peak,
+    rec["definition"] = dict(windows=windows, modes=modes13, wall_s=wall_s, fed_s=fed[0] / 16000, peak_bytes=peak,
                              launches=launches, head_bytes=head_bytes, ckpt_bytes=nbytes, write_s=write_s,
                              load_s=load_s, multi_ms=multi_ms, multi_steps=multi_steps)
     log(f"phase 13 definition: ok distil-large-v3 BF16 checkpoint {nbytes / 2**30:.2f} GiB written in {write_s:.1f} s, "
         f"Definition + Transcriber.blocking_spawn {load_s:.1f} s; streamed {fed[0] / 16000:.1f} s real time in "
         f"{wall_s:.1f} s, no drops, stop/close/join clean; windows wall_ms={[round(w['ms'], 1) for w in windows]} "
-        f"steps={[w['steps'] for w in windows]}; {len(texts)} strings; peak_mem={peak / 2**30:.2f} GiB; "
+        f"steps={[w['steps'] for w in windows]} host_syncs={[w['syncs'] for w in windows]}; {len(texts)} strings; "
+        f"peak_mem={peak / 2**30:.2f} GiB; "
         f"launches={launches}; head bytes int4 {head_bytes['int4']} vs int8 {head_bytes['int8']}; multilingual "
         f"detect + int8 self-KV window {multi_ms:.1f} ms, {multi_steps} steps, self-decode launches 0, "
         f"{len(mtext)} chars")
+    if modes13:
+        log(f"  definition window, graph vs per-step eager loop (tokens equal): {modes_text(modes13)}")
 
 
 def main(argv=None) -> int:

@@ -17,8 +17,9 @@
 //
 // Design (Hopper): s8 wgmma needs BOTH operands K-major, so the weight
 // codes arrive as [N, K] storage (the [K, N] view the model holds has
-// strides (1, K); model/quant.py::prep_encoder_q8_kernel makes it once when
-// the encoder's weights reach the card).  A CTA of 288 threads computes a
+// strides (1, K); DecodeEngine holds such copies of the encoder's codes,
+// model/quant.py::prep_encoder_q8_kernel, and the wrapper copies codes in
+// another layout for the call).  A CTA of 288 threads computes a
 // 128 x BN output tile (BN = 128, or 64 when 128-wide tiles give the card
 // fewer than two waves): two consumer warpgroups of 64 rows and one
 // producer warp.  The producer streams 128-byte-deep K slices of A

@@ -9,7 +9,9 @@
 // chosen token's masked probability.  Same contract as the plain PyTorch
 // version ops/sample_step.py::sample_step_torch, except that t>0 draws
 // come from Philox4x32-10 keyed by (seed) with counter (group, row, step),
-// so only the sampling law matches other generators.
+// so only the sampling law matches other generators.  The step (step_rows)
+// and the seed (seed_ptr) may come from device memory, so that a captured
+// CUDA graph replays one launch at successive steps and for other windows.
 //
 // What bounds it on the H100: not bytes (a 51866-entry f32 row is 207 KB;
 // 6-48 rows are 1-10 MB, a few microseconds of HBM time) but launch
@@ -64,12 +66,14 @@ __global__ void __launch_bounds__(kThreads) sample_step_kernel(
     const float* __restrict__ mfirst, const int* __restrict__ prev1,
     const int* __restrict__ prev2, const int* __restrict__ last_ts, int step,
     const int* __restrict__ step_rows, const float* __restrict__ temp,
-    unsigned long long seed, int V, int eot, int no_ts, int greedy_only,
+    unsigned long long seed_val, const unsigned long long* __restrict__ seed_ptr, int V,
+    int eot, int no_ts, int greedy_only,
     int* __restrict__ nxt, float* __restrict__ prob,
     unsigned char* __restrict__ deadlock) {
   __shared__ float shf[32];
   __shared__ int shi[32];
   const int r = blockIdx.x, tid = threadIdx.x;
+  const unsigned long long seed = seed_ptr != nullptr ? *seed_ptr : seed_val;
 
   Row row;
   row.x = ll + (size_t)r * V;
@@ -193,11 +197,11 @@ extern "C" int norma_sample_step(
     const float* ll, const float* msup, const float* mnts, const float* mts,
     const float* mfirst, const int* prev1, const int* prev2, const int* last_ts,
     int step, const int* step_rows, const float* temp, unsigned long long seed,
-    int B, int V, int eot, int no_ts, int greedy_only, int* nxt, float* prob,
-    unsigned char* deadlock, void* stream) {
+    const unsigned long long* seed_ptr, int B, int V, int eot, int no_ts, int greedy_only,
+    int* nxt, float* prob, unsigned char* deadlock, void* stream) {
   sample_step_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       ll, msup, mnts, mts, mfirst, prev1, prev2, last_ts, step, step_rows, temp,
-      seed, V, eot, no_ts, greedy_only, nxt, prob, deadlock);
+      seed, seed_ptr, V, eot, no_ts, greedy_only, nxt, prob, deadlock);
   return (int)cudaGetLastError();
 }
 

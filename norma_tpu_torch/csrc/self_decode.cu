@@ -15,6 +15,9 @@
 // 1280 f32 -- microseconds of HBM time, so at decode sizes launch latency
 // and the grid's parallelism bound it, not bandwidth.
 //
+// The position comes by value or, for a captured CUDA graph that replays
+// one launch at successive positions, from device memory (pos_ptr).
+//
 // Design: grid (B, H), one CTA of 4 warps per (row, head).  A warp owns
 // cache rows t = warp, warp+4, ...; its lanes split head_dim (2 values per
 // lane at dh=64), so each row's head slice is one contiguous, coalesced
@@ -56,13 +59,18 @@ __global__ void __launch_bounds__(kWarps * 32) self_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
     T* cache_k, T* cache_v, T* __restrict__ out, long long q_sb, long long kn_sb,
     long long vn_sb, long long ck_sl, long long ck_sb, long long cv_sl, long long cv_sb,
-    int li, int pos, int H, float scale) {
+    int li, int pos_val, const long long* __restrict__ pos_ptr, int t_len, int H, float scale) {
   constexpr int VPL = DH / 32;  // head values per lane
-  extern __shared__ float logits[];  // [pos + 1]
+  extern __shared__ float logits[];  // [t_len + 1], of which [pos + 1] are used
   __shared__ float red[32];
   __shared__ float partial[kWarps][DH];
   __shared__ float qs[DH];
 
+  // A device position (a replayed CUDA graph's) is checked here, where
+  // its value is known: out of [0, t_len) the launch traps, it never reads
+  // or writes outside the crop.
+  const int pos = pos_ptr != nullptr ? (int)*pos_ptr : pos_val;
+  if (pos < 0 || pos >= t_len) __trap();
   const int b = blockIdx.x, h = blockIdx.y, D = H * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t out_off = (size_t)b * D + (size_t)h * DH;
@@ -140,14 +148,17 @@ __global__ void __launch_bounds__(kWarps * 32) self_decode_kernel(
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* ck, void* cv,
            void* out, long long q_sb, long long kn_sb, long long vn_sb, long long ck_sl,
-           long long ck_sb, long long cv_sl, long long cv_sb,
-           int li, int pos, int B, int H, int dh, float scale, cudaStream_t stream) {
+           long long ck_sb, long long cv_sl, long long cv_sb, int li, int pos,
+           const long long* pos_ptr, int t_len, int B, int H, int dh, float scale,
+           cudaStream_t stream) {
   const dim3 grid(B, H);
-  const size_t smem = (size_t)(pos + 1) * sizeof(float);
+  // Sized from the crop, not the position, so that one launch shape serves
+  // every position of a captured graph's chunk.
+  const size_t smem = (size_t)(t_len + 1) * sizeof(float);
 #define NORMA_SELF_DECODE(DH)                                                        \
   self_decode_kernel<T, DH><<<grid, kWarps * 32, smem, stream>>>(                    \
       (const T*)q, (const T*)k_new, (const T*)v_new, (T*)ck, (T*)cv, (T*)out, q_sb,  \
-      kn_sb, vn_sb, ck_sl, ck_sb, cv_sl, cv_sb, li, pos, H, scale)
+      kn_sb, vn_sb, ck_sl, ck_sb, cv_sl, cv_sb, li, pos, pos_ptr, t_len, H, scale)
   switch (dh) {
     case 32: NORMA_SELF_DECODE(32); break;
     case 64: NORMA_SELF_DECODE(64); break;
@@ -164,13 +175,16 @@ extern "C" int norma_self_decode(const void* q, const void* k_new, const void* v
                                  void* cache_k, void* cache_v, void* out,
                                  long long q_sb, long long kn_sb, long long vn_sb,
                                  long long ck_sl, long long ck_sb, long long cv_sl,
-                                 long long cv_sb, int li, int pos, int B, int H, int dh,
-                                 int T, int is_bf16, float scale, void* stream) {
-  if (pos < 0 || pos >= T) return (int)cudaErrorInvalidValue;
+                                 long long cv_sb, int li, int pos, const long long* pos_ptr,
+                                 int B, int H, int dh, int T, int is_bf16, float scale,
+                                 void* stream) {
+  // A host position is checked here; a device one (pos_ptr) in the kernel.
+  if (T < 1 || (pos_ptr == nullptr && (pos < 0 || pos >= T))) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k_new, v_new, cache_k, cache_v, out, q_sb, kn_sb,
-                                 vn_sb, ck_sl, ck_sb, cv_sl, cv_sb, li, pos, B, H, dh,
-                                 scale, (cudaStream_t)stream);
+                                 vn_sb, ck_sl, ck_sb, cv_sl, cv_sb, li, pos, pos_ptr, T, B, H,
+                                 dh, scale, (cudaStream_t)stream);
   return launch<float>(q, k_new, v_new, cache_k, cache_v, out, q_sb, kn_sb, vn_sb, ck_sl,
-                       ck_sb, cv_sl, cv_sb, li, pos, B, H, dh, scale, (cudaStream_t)stream);
+                       ck_sb, cv_sl, cv_sb, li, pos, pos_ptr, T, B, H, dh, scale,
+                       (cudaStream_t)stream);
 }

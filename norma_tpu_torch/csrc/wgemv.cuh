@@ -1,6 +1,6 @@
-// Shared pieces of the weight-streaming matmuls (w8_matmul.cu and
-// w4_matmul.cu): y[M, N] = x[M, K] @ W[K, N] with few rows M and a large
-// integer weight that is read from device memory once.
+// The weight-streaming pieces of w4_matmul.cu: y[M, N] = x[M, K] @ W[K, N]
+// with few rows M and a large integer weight that is read from device
+// memory once per row tile.
 //
 // Block shape: BM rows of x (a template parameter of the kernels, at most
 // MAX_BM) by BN = 31 * CPT output columns; lane l < 31
@@ -71,13 +71,6 @@ __device__ __forceinline__ uint4 align_chunk(const uint4& v, const int8_t* seg) 
 
 // Exact int -> float without the (quarter-rate) I2F: 2^23 + m as bits
 // 0x4B0000mm, minus 2^23 + bias, in one PRMT and one FADD per value.
-// Four int8 in w: m = byte ^ 0x80, bias 128.
-__device__ __forceinline__ void s8x4(uint32_t w, float (&f)[4]) {
-  const uint32_t t = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + i)) - 8388736.0f;
-}
-
 // Eight signed 4-bit codes in w: the low nibbles of its bytes to lo, the
 // high nibbles to hi; m = nibble ^ 8, bias 8.
 __device__ __forceinline__ void s4x8(uint32_t w, float (&lo)[4], float (&hi)[4]) {

@@ -20,11 +20,14 @@ Semantics preserved from the reference, in prob space (post first softmax):
   - compression_ratio never computed (NaN): the fallback is logprob-only
                                                              (model.rs:313,387)
 
-Eager execution: all per-step state (tokens, n, prev tokens, last
-timestamp, sum of logprobs, finished flags) stays on the device, but the
-loop condition "any row unfinished" is read on the host once per step
-(the JAX package runs the loop as one ``lax.while_loop``).  Every host
-read is counted in :attr:`DecodeEngine.host_syncs`.
+The token loop: all per-step state (tokens, n, prev tokens, last
+timestamp, sum of logprobs, finished flags, step, position, draw key)
+stays on the device.  The loop advances in chunks of ``LOOP_CHUNK``
+steps at one cache crop and reads "any row unfinished" on the host once
+per chunk (the JAX package runs one ``lax.while_loop`` per crop).  On
+CUDA each chunk is a captured CUDA graph, replayed; on the CPU the same
+steps run eagerly.  Every host read is counted in
+:attr:`DecodeEngine.host_syncs`.
 
 ``quantize_cross_kv`` (int8, or int4 under ``cross_kv_impl="kernel"``)
 quantizes the cross-K/V the token loop reads, per window after prefill;
@@ -60,6 +63,7 @@ from ..model.whisper import (
     quantize_cross_kv4,
     quantize_self_kv_cache,
 )
+from ..ops import flash_encoder, mel_pallas, paged_cross, quant_matmul, self_decode
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.sample_step import sample_step
 from ..tracing import decode_telemetry, instrument
@@ -100,6 +104,102 @@ def _rung_seed(seed: int, rung: int) -> int:
     return (int(seed) & 0xFFFFFFFF) | (int(rung) << 32)
 
 
+# Steps per chunk of the token loop: one host read of the finished flags,
+# and on CUDA one graph replay, per chunk (PERF.md: chosen on the H100).
+LOOP_CHUNK = 16
+
+
+def _kernel_counters():
+    """Every kernel wrapper's launch counter (a function with ``.launches``)."""
+    return (
+        sample_step, self_decode.self_attention_decode,
+        paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
+        quant_matmul.q8a8_dense, quant_matmul.w8_matmul, quant_matmul.w4_matmul,
+        mel_pallas.log_mel_pallas,
+    )
+
+
+def _signature(x):
+    """Shapes, strides, dtypes and devices of a tensor or a tree of them."""
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return (tuple(x.shape), x.stride(), x.dtype, str(x.device))
+
+
+def _like(x):
+    """An uninitialised tensor (or tree) with ``x``'s shape, strides and dtype."""
+    if isinstance(x, dict):
+        return {k: _like(v) for k, v in x.items()}
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k].copy_(src[k])
+    else:
+        dst.copy_(src)
+
+
+class _LoopBuffers:
+    """The token loop's tensors: its inputs (cross-K/V, self-attention
+    caches) and its state (logits, tokens, lengths, previous tokens, last
+    timestamp, sum of logprobs, finished flags, step, position, seed), all
+    on the device.
+
+    A ``static`` one (CUDA) owns every tensor, at addresses its captured
+    graphs hold: :meth:`start` copies a loop's inputs in, so the caller's
+    caches are only read.  Otherwise (the CPU) the loop works on the
+    caller's cross-K/V and caches, writing rows >= n0 of the caches in place
+    (they are rewritten before any read, so a caller may reuse them)."""
+
+    def __init__(self, ins, static: bool = False):
+        next_logits, tokens_init = ins[4], ins[5]
+        B, Tmax = tokens_init.shape
+        dev = tokens_init.device
+        self.static = static
+        self.xk, self.xv, self.cache_k, self.cache_v = (_like(t) for t in ins[:4]) if static else ins[:4]
+        self.ll = torch.empty_like(next_logits)
+        self.tokens = torch.empty((B, Tmax), dtype=torch.int32, device=dev)
+        i32 = lambda: torch.empty(B, dtype=torch.int32, device=dev)
+        self.n, self.p1, self.p2, self.last_ts, self.step = i32(), i32(), i32(), i32(), i32()
+        self.slp = torch.empty(B, dtype=torch.float32, device=dev)
+        self.temp = torch.empty(B, dtype=torch.float32, device=dev)
+        self.fin = torch.empty(B, dtype=torch.bool, device=dev)
+        self.use_sampling = torch.empty(B, dtype=torch.bool, device=dev)
+        self.pos = torch.empty(1, dtype=torch.int64, device=dev)
+        self.seed = torch.empty(1, dtype=torch.int64, device=dev)  # the 64-bit key's bits
+        self.slots = torch.arange(Tmax, device=dev)[None]
+        self.graphs: dict = {}  # (S, k, n_rungs, greedy_only) -> CUDAGraph
+        self.launches: dict = {}  # the same key -> {counter: launches per replay}
+
+    def start(self, ins, n0: int, prev1, prev2, temp, seed: int, fin_init) -> None:
+        if self.static:
+            for dst, src in zip((self.xk, self.xv, self.cache_k, self.cache_v), ins[:4]):
+                _copy_into(dst, src)
+        else:
+            self.xk, self.xv, self.cache_k, self.cache_v = ins[:4]
+        self.ll.copy_(ins[4])
+        self.tokens.copy_(ins[5])
+        self.n.fill_(n0)
+        self.p1.copy_(prev1)
+        self.p2.copy_(prev2)
+        self.last_ts.zero_()
+        self.slp.zero_()
+        self.step.zero_()
+        self.temp.copy_(temp)
+        self.use_sampling.copy_(temp > 0.0)
+        if fin_init is None:
+            self.fin.zero_()
+        else:
+            self.fin.copy_(fin_init)
+        self.pos.fill_(n0)
+        key = int(seed) & 0xFFFFFFFFFFFFFFFF
+        self.seed.fill_(key - (1 << 64) if key >= 1 << 63 else key)
+
+
 class DecodeEngine:
     """Encode / prefill / decode-loop bundle for one model on one device.
 
@@ -122,7 +222,6 @@ class DecodeEngine:
         quantize_cross_kv: "bool | str" = False,
         quantize_self_kv: bool = False,
     ):
-        self.params = params
         self.cfg = cfg
         self.st = st
         self.device = params.device
@@ -132,14 +231,7 @@ class DecodeEngine:
             # ~3 decimal digits.  These are process-wide torch settings.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if (
-            self.device.type == "cuda"
-            and cfg.encoder_q8_mode in ("w8a8", "w8a8_pallas")
-            and "fc1_w_q" in params["encoder"]["layers"]
-        ):
-            # The int8 GEMM kernel reads K-major weight codes: convert the
-            # encoder's once, in place (same values; a no-op when done).
-            prep_encoder_q8_kernel(params)
+        self.params = self._kernel_params(params, cfg, self.device)
         # False = reference (whisper.cpp/candle) framing; True = OpenAI/HF
         # centered STFT.
         self.mel_center = bool(mel_center)
@@ -180,6 +272,26 @@ class DecodeEngine:
         # Counters: device->host reads, and decode steps run.
         self.host_syncs = 0
         self.decode_steps = 0
+        # The token loop: steps per chunk, and on CUDA its static buffers
+        # (by input signature) with their captured graphs.
+        self._loop_chunk = LOOP_CHUNK
+        self._graph_buffers: dict = {}
+        self._graph_pool = None
+        self._side_stream = None
+
+    @staticmethod
+    def _kernel_params(params: Params, cfg: WhisperConfig, device: torch.device) -> Params:
+        """The tree the engine runs on: on CUDA with the w8a8 encoder, its
+        own tree with K-major copies of the encoder's codes (the int8 GEMM
+        kernel's layout, same values); else ``params`` itself.  The
+        caller's params are never changed."""
+        if (
+            device.type == "cuda"
+            and cfg.encoder_q8_mode in ("w8a8", "w8a8_pallas")
+            and "fc1_w_q" in params["encoder"]["layers"]
+        ):
+            return prep_encoder_q8_kernel(params)
+        return params
 
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """One counted device->host read."""
@@ -222,6 +334,50 @@ class DecodeEngine:
         nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, self.st.no_speech]
         return cache_k, cache_v, logits[:, -1, :].contiguous(), nsp
 
+    def _loop_plan(self, n0: int) -> List[Tuple[int, int]]:
+        """The token loop's chunks, as (crop S, steps k).
+
+        The loop runs at most ``mtp - 1 - n0`` steps: a live row's length
+        grows by at least one a step, so by then the ``mtp - 1`` guard has
+        finished every row (the forward of the last step writes row
+        ``mtp - 2``).  Chunks follow the ``decode_buckets`` segments, as the
+        JAX package's one ``lax.while_loop`` per cache crop does: a chunk
+        never crosses a bucket boundary, so its crop S is fixed, and the
+        last chunk of a segment may be shorter than ``_loop_chunk``."""
+        cfg = self.cfg
+        mtp = cfg.max_target_positions
+        buckets = sorted({int(b) for b in cfg.decode_buckets if 0 < int(b) < mtp})
+        short = [b for b in buckets if b <= n0]
+        if short:
+            raise ValueError(
+                f"decode_buckets {short} do not exceed the prefix length {n0}: "
+                "cropping to them would drop prefill rows"
+            )
+        sizes = buckets + [mtp]
+        budget = mtp - 1 - n0
+        plan, s = [], 0
+        while s < budget:
+            pos = n0 + s
+            S = next(x for x in sizes if pos < x)
+            k = min(self._loop_chunk, budget - s, S - pos)
+            plan.append((S, k))
+            s += k
+        return plan
+
+    def _loop_buffers(self, xk, xv, cache_k, cache_v, next_logits, tokens_init):
+        """The token loop's state and inputs as one :class:`_LoopBuffers`.
+        On the CPU a fresh one per loop; on CUDA the engine's static one for
+        these inputs' shapes, dtypes and strides (the quant tier and rows
+        among them), whose addresses its captured graphs hold."""
+        ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
+        if tokens_init.device.type != "cuda":
+            return _LoopBuffers(ins)
+        key = _signature(ins)
+        buf = self._graph_buffers.get(key)
+        if buf is None:
+            buf = self._graph_buffers[key] = _LoopBuffers(ins, static=True)
+        return buf
+
     def _token_loop(
         self,
         xk,
@@ -242,86 +398,148 @@ class DecodeEngine:
         """The autoregressive loop.  Returns (tokens [B, Tmax] int32, n [B]
         int32, sum_logprob [B] f32) on the device.
 
-        Writes rows >= n0 of ``cache_k``/``cache_v`` in place; rows are
-        rewritten before any read, so callers may reuse the caches for
-        another loop over the same prefix.  ``cfg.decode_buckets`` runs
-        each step against the smallest cache crop ``cache[:, :, :S]`` that
-        holds its row (a view of the one [L, B, Tmax, D] allocation — of each
-        of an int8 cache's tensors — so a
-        bucket boundary copies nothing; rows beyond the fill are masked out
-        whatever they hold, as the JAX chain's zero padding is).
+        The loop advances in chunks of up to ``_loop_chunk`` steps at one
+        cache crop (:meth:`_loop_plan`) and reads the finished flags on the
+        host once per chunk, before it.  On CUDA each chunk is a CUDA graph,
+        captured on its first use per (buffers, crop, steps, rungs,
+        ``greedy_only``) and replayed after; on the CPU the same steps run
+        eagerly.  Steps after every row has finished change no state.
+
+        On CUDA the inputs are copied into the loop's static buffers and the
+        caller's caches are only read; on the CPU rows >= n0 of the caller's
+        caches are written in place (rewritten before any read): either way
+        callers may reuse them for another loop over the same prefix.
+        ``cfg.decode_buckets`` runs each step against the
+        smallest cache crop ``cache[:, :, :S]`` that holds its row (a view,
+        so a bucket boundary copies nothing; rows beyond the fill are masked
+        out whatever they hold, as the JAX chain's zero padding is).
         """
-        cfg, st = self.cfg, self.st
-        B, Tmax = tokens_init.shape
-        mtp = cfg.max_target_positions
-        dev = tokens_init.device
-        buckets = sorted({int(b) for b in cfg.decode_buckets if 0 < int(b) < mtp})
-        short = [b for b in buckets if b <= n0]
-        if short:
-            raise ValueError(
-                f"decode_buckets {short} do not exceed the prefix length {n0}: "
-                "cropping to them would drop prefill rows"
-            )
-        sizes = buckets + [mtp]
-        generator = None
-        if dev.type == "cpu" and not greedy_only:
-            generator = torch.Generator(device="cpu").manual_seed(int(seed))
-
-        tokens = tokens_init.clone()
-        n = torch.full((B,), n0, dtype=torch.int32, device=dev)
-        p1, p2 = prev1.to(torch.int32).clone(), prev2.to(torch.int32).clone()
-        last_ts = torch.zeros(B, dtype=torch.int32, device=dev)
-        slp = torch.zeros(B, dtype=torch.float32, device=dev)
-        fin = (
-            torch.zeros(B, dtype=torch.bool, device=dev)
-            if fin_init is None
-            else fin_init.clone()
+        ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
+        plan, buf, generator = self._loop_start(
+            ins, self._loop_buffers(*ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
         )
-        temp = temp.to(torch.float32).contiguous()
-        use_sampling = temp > 0.0
-        slots = torch.arange(Tmax, device=dev)[None]
-        ll = next_logits
-
-        step = 0
-        while step < mtp:
+        for S, k in plan:
             self.host_syncs += 1
-            if not bool((~fin).any()):
+            if not bool((~buf.fin).any()):
                 break
-            nxt, prob_chosen, all_nan = sample_step(
-                ll, self._m_suppress, self._m_non_ts, self._m_ts, self._m_first,
-                p1, p2, last_ts, step, temp,
-                eot=st.eot, no_timestamps=st.no_timestamps,
-                seed=seed, generator=generator, greedy_only=greedy_only,
-            )
-            forced_nan_eot = use_sampling & all_nan
-            live = ~fin
-            # Push at per-stream position n.
-            tokens = torch.where((slots == n[:, None]) & live[:, None], nxt[:, None], tokens)
-            slp = slp + torch.where(fin | forced_nan_eot, 0.0, torch.log(prob_chosen))
-            hit_eot = nxt == st.eot
-            # The reference pushes an extra EOT when len >= mtp - 1
-            # (model.rs:367-370).
-            len_limit = ((n + 1) >= (mtp - 1)) & ~hit_eot & ~forced_nan_eot
-            tokens = torch.where(
-                (slots == (n + 1)[:, None]) & (len_limit & live)[:, None], st.eot, tokens
-            )
-            n = torch.where(fin, n, n + 1 + len_limit.to(torch.int32))
-            p2 = torch.where(fin, p2, p1)
-            p1 = torch.where(fin, p1, nxt)
-            last_ts = torch.where(live & (nxt > st.no_timestamps), nxt, last_ts)
-            fin = fin | hit_eot | forced_nan_eot | len_limit
+            self._run_chunk(buf, S, k, n_rungs, greedy_only, generator)
+            self.decode_steps += k
+        return buf.tokens.clone(), buf.n.clone(), buf.slp.clone()
 
-            # Forward the just-pushed token (unconditionally: the final
-            # forward's row is never read).
-            pos = n0 + step
-            S = next((s for s in sizes if pos < s), mtp)
-            ll, _, _ = decoder_step(
-                self.params, cfg, nxt, pos, _crop(cache_k, S), _crop(cache_v, S),
-                xk, xv, n_rungs=n_rungs,
-            )
-            step += 1
-            self.decode_steps += 1
-        return tokens, n, slp
+    def _loop_start(self, ins, buf, n0, prev1, prev2, temp, seed, fin_init, greedy_only):
+        """(plan, ``buf`` started on ``ins``, the CPU's t>0 generator or None)."""
+        plan = self._loop_plan(n0)
+        buf.start(ins, n0, prev1, prev2, temp, seed, fin_init)
+        generator = None
+        if buf.fin.device.type == "cpu" and not greedy_only:
+            generator = torch.Generator(device="cpu").manual_seed(int(seed))
+        return plan, buf, generator
+
+    def _run_chunk(self, buf, S: int, k: int, n_rungs: int, greedy_only: bool, generator) -> None:
+        """Advance ``buf`` by ``k`` steps at crop ``S``: eagerly on the CPU;
+        on CUDA by replaying the chunk's graph.  A chunk met for the first
+        time runs eagerly on a side stream (the warm-up: the kernel library,
+        cuBLAS and the allocator are ready before the capture), then is
+        captured there.  A capture or replay error raises."""
+
+        def chunk():
+            for _ in range(k):
+                self._loop_step(buf, S, n_rungs, greedy_only, generator)
+
+        if buf.fin.device.type != "cuda":
+            chunk()
+            return
+        key = (S, k, n_rungs, bool(greedy_only))
+        graph = buf.graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            for c, d in buf.launches[key].items():
+                c.launches += d
+            return
+        cur = torch.cuda.current_stream()
+        side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            chunk()  # the warm-up is this chunk's real run
+        before = {c: c.launches for c in _kernel_counters()}
+        # One memory pool for all the engine's graphs: a chunk's temporaries
+        # are dead when it ends (its results are copied into ``buf``) and
+        # chunks run one at a time on one stream, so they can share blocks.
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+            try:
+                chunk()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        # The wrappers counted launches while they were captured; they count
+        # them again at each replay.
+        buf.launches[key] = {c: c.launches - n for c, n in before.items() if c.launches != n}
+        for c, n in before.items():
+            c.launches = n
+        buf.graphs[key] = graph
+
+    def _loop_step(self, buf, S: int, n_rungs: int, greedy_only: bool, generator) -> None:
+        """One step of the token loop on ``buf``'s tensors, in place: the
+        fused grammar/sampling step, the row updates, the forward of the
+        just-pushed token (unconditionally: the final forward's row is never
+        read), then step and position advance on the device."""
+        cfg, st = self.cfg, self.st
+        mtp = cfg.max_target_positions
+        nxt, prob_chosen, all_nan = sample_step(
+            buf.ll, self._m_suppress, self._m_non_ts, self._m_ts, self._m_first,
+            buf.p1, buf.p2, buf.last_ts, buf.step, buf.temp,
+            eot=st.eot, no_timestamps=st.no_timestamps,
+            seed=buf.seed, generator=generator, greedy_only=greedy_only,
+        )
+        fin, n = buf.fin, buf.n
+        forced_nan_eot = buf.use_sampling & all_nan
+        live = ~fin
+        # Push at per-stream position n.
+        tokens = torch.where((buf.slots == n[:, None]) & live[:, None], nxt[:, None], buf.tokens)
+        buf.slp.add_(torch.where(fin | forced_nan_eot, 0.0, torch.log(prob_chosen)))
+        hit_eot = nxt == st.eot
+        # The reference pushes an extra EOT when len >= mtp - 1
+        # (model.rs:367-370).
+        len_limit = ((n + 1) >= (mtp - 1)) & ~hit_eot & ~forced_nan_eot
+        buf.tokens.copy_(torch.where(
+            (buf.slots == (n + 1)[:, None]) & (len_limit & live)[:, None], st.eot, tokens
+        ))
+        buf.n.copy_(torch.where(fin, n, n + 1 + len_limit.to(torch.int32)))
+        buf.p2.copy_(torch.where(fin, buf.p2, buf.p1))
+        buf.p1.copy_(torch.where(fin, buf.p1, nxt))
+        buf.last_ts.copy_(torch.where(live & (nxt > st.no_timestamps), nxt, buf.last_ts))
+        buf.fin.copy_(fin | hit_eot | forced_nan_eot | len_limit)
+        ll, _, _ = decoder_step(
+            self.params, cfg, nxt, buf.pos, _crop(buf.cache_k, S), _crop(buf.cache_v, S),
+            buf.xk, buf.xv, n_rungs=n_rungs,
+        )
+        buf.ll.copy_(ll)
+        buf.step.add_(1)
+        buf.pos.add_(1)
+
+    def _token_loop_eager(
+        self, xk, xv, cache_k, cache_v, next_logits, tokens_init, n0: int, prev1, prev2, temp,
+        seed: int, n_rungs: int = 1, fin_init=None, greedy_only: bool = False,
+    ):
+        """The loop step by step with a host read of the finished flags
+        before each step and no graphs: :meth:`_token_loop`'s results from
+        the same steps, for comparisons on the card."""
+        ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
+        plan, buf, generator = self._loop_start(
+            ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
+        )
+        for S, k in plan:
+            for _ in range(k):
+                self.host_syncs += 1
+                if not bool((~buf.fin).any()):
+                    return buf.tokens, buf.n, buf.slp
+                self._loop_step(buf, S, n_rungs, greedy_only, generator)
+                self.decode_steps += 1
+        return buf.tokens, buf.n, buf.slp
 
     def _window_front(self, audio, langs, *, detect: bool):
         """mel -> encoder -> cross-K/V -> optional language detection ->
@@ -514,10 +732,10 @@ class DecodeEngine:
         )
 
     # The window splits into dispatch and fetch (the batching scheduler
-    # pipelines rounds on it).  The eager token loop reads its stop
-    # condition on the host each step, so the window's device work is
-    # finished or nearly so when the dispatch returns: the split overlaps
-    # only the final copy and the host unpack.
+    # pipelines rounds on it).  The token loop reads its stop condition on
+    # the host once per chunk, so the window's device work is finished or
+    # nearly so when the dispatch returns: the split overlaps only the last
+    # chunk, the final copy and the host unpack.
     supports_async_window = True
 
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):

@@ -9,8 +9,10 @@ package reads:
     flash kernel (``ops/flash_encoder.py``); "xla", "auto" and "chunked"
     run the plain attention (the same math on this hardware);
   - ``encoder_q8_mode`` (with ``quantize_encoder`` params): "w8a8" and
-    "w8a8_pallas" run the int8 GEMM (``ops/quant_matmul.py``), "w8a16"
-    dequantizes and runs the bf16/f32 product;
+    "w8a8_pallas" run the int8 GEMM (``ops/quant_matmul.py::q8a8_dense``),
+    "w8a16" runs the w8 product over the int8 codes (``model/whisper.py::
+    ldense`` -> ``ops/quant_matmul.py::w8_dense``, the w8 kernel on the
+    card), with no dequantized weight;
   - ``cross_kv_impl`` (with an engine's ``quantize_cross_kv``): "kernel"
     lays the codes out for the cross-decode kernel
     (``ops/paged_cross.py``); "einsum", "chunked" and "a8" run the plain

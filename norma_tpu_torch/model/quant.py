@@ -1,7 +1,9 @@
 """Quantization of model params (``norma_tpu/model/quant.py``).
 
   - :func:`quantize_logits_head` — an int8 tied-embedding head
-    (``tok_emb_q8``: codes [D, V] int8, scales [V] f32) beside ``tok_emb``,
+    (``tok_emb_q8``: codes [D, V] int8 whose rows start 16-byte aligned,
+    :func:`~norma_tpu_torch.ops.quant_matmul.pitched_codes`; scales [V]
+    f32) beside ``tok_emb``,
     which the token embedding keeps using;
   - :func:`quantize_logits_head_int4` — a blockwise-int4 head
     (``tok_emb_q4``: nibble-packed codes [D/2, V] int8, scales [D/64, V]
@@ -15,10 +17,10 @@
   - :func:`quantize_encoder` — the encoder-layer weights in the same
     storage; the encoder computes w8a8 through the int8 GEMM
     (``encoder_q8_mode``), changing numerics by the activation grid;
-  - :func:`prep_encoder_q8_kernel` — the encoder's codes restored K-major
-    (the same [in, ...out] values over [...out, in] storage), in place and
-    once, for the int8 GEMM kernel; ``DecodeEngine`` applies it on the
-    card.
+  - :func:`prep_encoder_q8_kernel` — params whose encoder codes are
+    K-major copies (the same [in, ...out] values over [...out, in]
+    storage) for the int8 GEMM kernel; ``DecodeEngine`` builds them on the
+    card and leaves the caller's params as they are.
 
 Codes and scales are bit-equal to the JAX package's (f32 arithmetic,
 round half to even).
@@ -28,7 +30,13 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from ..ops.quant_matmul import kmajor_codes, quantize_axis, quantize_blockwise_int4, quantize_per_channel
+from ..ops.quant_matmul import (
+    kmajor_codes,
+    pitched_codes,
+    quantize_axis,
+    quantize_blockwise_int4,
+    quantize_per_channel,
+)
 from .load import Params
 
 # Decoder-layer weight matrices eligible for int8 (stacked [L, in, ...out]).
@@ -70,7 +78,8 @@ def quantize_logits_head(params: Params) -> Params:
     one would override this request)."""
     tree = _tree(params)
     q, s = quantize_per_channel(tree["decoder"]["tok_emb"].t())  # [D, V]
-    tree["decoder"]["tok_emb_q8"] = {"q": q, "s": s}
+    # Rows padded to 16 bytes (the same [D, V] values): the w8 kernel's copies.
+    tree["decoder"]["tok_emb_q8"] = {"q": pitched_codes(q), "s": s}
     tree["decoder"].pop("tok_emb_q4", None)
     return Params(tree)
 
@@ -110,18 +119,22 @@ def quantize_encoder(params: Params) -> Params:
 
 
 def prep_encoder_q8_kernel(params: Params) -> Params:
-    """Store every encoder ``name_q`` code stack K-major, in place: [L, in,
-    *out] keeps its shape and values but lies as [L, *out, in]
-    (:func:`~norma_tpu_torch.ops.quant_matmul.kmajor_codes`), so each
+    """Return params whose encoder ``name_q`` code stacks lie K-major: each
+    [L, in, *out] stack keeps its shape and values but lies as [L, *out,
+    in] (:func:`~norma_tpu_torch.ops.quant_matmul.kmajor_codes`), so each
     layer's [in, out] weight -- and the fused [in, 3, out] one reshaped to
     [in, 3*out] -- is a view with strides (1, in), the layout the int8 GEMM
-    kernel reads.  One copy at a time: each stack is replaced as it is
-    converted; stacks already K-major stay as they are.  The w8a16 kernel
-    reads [in, out]-contiguous codes, so prepped params serve the w8a8
-    modes only."""
-    layers = params["encoder"]["layers"]
+    kernel reads.
+
+    The caller's params are not touched (JAX's params are immutable): the
+    result shares every tensor but the encoder's codes, which are new
+    tensors; stacks already K-major are shared as they are.  While the
+    caller still holds the originals, the encoder's codes exist twice
+    (~630 MB more at distil-large-v3 width)."""
+    tree = _tree(params)
+    layers = tree["encoder"]["layers"]
     for name in ENCODER_W8_KEYS:
         key = name + "_q"
         if key in layers and layers[key].stride(1) != 1:
-            layers._buffers[key] = kmajor_codes(layers[key], axis=1)
-    return params
+            layers[key] = kmajor_codes(layers[key], axis=1)
+    return Params(tree)

@@ -251,8 +251,9 @@ def encoder_layer(
 ) -> torch.Tensor:
     """One encoder layer.  ``flash`` runs the self-attention through the
     flash kernel; ``quantize_encoder`` weights (``fc1_w_q`` present) run
-    the w8a8 int8 GEMM unless ``q8_mode`` is "w8a16" (dequantize, then the
-    bf16/f32 product)."""
+    the w8a8 int8 GEMM unless ``q8_mode`` is "w8a16", which runs
+    :func:`ldense` (:func:`~norma_tpu_torch.ops.quant_matmul.w8_dense`, the
+    w8 kernel on the card) over the int8 codes."""
     w8a8 = "fc1_w_q" in lp and q8_mode in ("w8a8", "w8a8_pallas")
     h = layer_norm(x, lp["attn_ln_g"], lp["attn_ln_b"])
     q, k, v = _qkv_proj_q8(lp, h) if w8a8 else qkv_proj(lp, h)
@@ -503,7 +504,7 @@ def decoder_step(
     params: Params,
     cfg: WhisperConfig,
     tok: torch.Tensor,  # [B] int — token at position ``pos``
-    pos: int,
+    pos: "int | torch.Tensor",  # or one int64 on the device
     cache_k: torch.Tensor,  # [L, B, T, D] (T may be a bucket crop)
     cache_v: torch.Tensor,
     xk,  # [L, B', Ta, D] with B' = B // n_rungs, or a quantized dict
@@ -514,6 +515,12 @@ def decoder_step(
     cache_v), the caches being the SAME tensors with row ``pos`` of every
     layer written in place.
 
+    ``pos`` may be an ``int`` or a one-element int64 tensor on the
+    device: the position embedding, the key mask and the row writes all
+    read it as a tensor (a gather, a compare, ``index_copy_``), so a
+    captured CUDA graph replays one step at successive positions.  An
+    ``int`` is checked against the cache here; a device position is the
+    caller's to keep inside it (the self-decode kernel traps outside).
     The key mask ``idx <= pos`` is taken from the cache's own length, so a
     cropped cache (``cache[:, :, :S]``, the bucketed decode chain) works.
     ``n_rungs > 1`` (speculative temperature ladder): rows are laid out
@@ -533,17 +540,24 @@ def decoder_step(
     n_heads = cfg.decoder_attention_heads
     q8_cache = isinstance(cache_k, dict)
     T = (cache_k["q"] if q8_cache else cache_k).shape[2]
-    if not 0 <= pos < T:
-        raise ValueError(f"position {pos} outside the cache's {T} rows")
+    dev = tok.device
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int64 or pos.numel() != 1 or pos.device != dev:
+            raise ValueError(f"a device position must be one int64 on {dev}")
+        pos_t = pos.reshape(1)
+    else:
+        if not 0 <= pos < T:
+            raise ValueError(f"position {pos} outside the cache's {T} rows")
+        pos_t = torch.full((1,), int(pos), dtype=torch.int64, device=dev)
     if cfg.self_kv_impl not in ("xla", "kernel"):
         raise ValueError(f"unknown self_kv_impl {cfg.self_kv_impl!r}")
     use_kernel = cfg.self_kv_impl == "kernel" and not q8_cache
 
-    x = (dec["tok_emb"][tok.long()] + dec["pos_emb"][pos])[:, None, :]
+    x = (dec["tok_emb"][tok.long()] + dec["pos_emb"].index_select(0, pos_t))[:, None, :]
     key_mask = None
     if not use_kernel:
-        idx = torch.arange(T, device=tok.device)
-        key_mask = torch.where(idx <= pos, 0.0, float("-inf"))
+        idx = torch.arange(T, device=dev)
+        key_mask = torch.where(idx <= pos_t, 0.0, float("-inf"))
 
     if isinstance(xk, dict):
         _cross_impl(cfg)  # validated even on the stacked layout
@@ -571,14 +585,16 @@ def decoder_step(
             a, _, _ = self_attention_decode(q, k, v, cache_k, cache_v, li, pos, n_heads)
         elif q8_cache:
             for c, row in ((cache_k, k), (cache_v, v)):
-                c["q"][li, :, pos], c["s"][li, :, pos] = (t[:, 0] for t in quantize_kv_row(row))
+                rq, rs = quantize_kv_row(row)  # [B, 1, D], [B, 1, 1]
+                c["q"][li].index_copy_(1, pos_t, rq)
+                c["s"][li].index_copy_(1, pos_t, rs)
             a = attention_self_q8(
                 q, {n: t[li] for n, t in cache_k.items()}, {n: t[li] for n, t in cache_v.items()},
                 n_heads, key_mask,
             )
         else:
-            cache_k[li, :, pos] = k[:, 0]
-            cache_v[li, :, pos] = v[:, 0]
+            cache_k[li].index_copy_(1, pos_t, k)
+            cache_v[li].index_copy_(1, pos_t, v)
             a = attention(q, cache_k[li], cache_v[li], n_heads, key_mask)
         x = x + ldense(lp, "o_w", a, lp["o_b"])
         x = _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li))

@@ -42,7 +42,7 @@ SIGNATURES = {
         P, P, P, P, P,  # ll, m_suppress, m_non_ts, m_ts, m_first
         P, P, P,  # prev1, prev2, last_ts
         I, P,  # step (shared), step_rows (per-row or NULL)
-        P, U64,  # temp, seed
+        P, U64, P,  # temp, seed (by value), seed (device 64-bit, or NULL)
         I, I, I, I, I,  # B, V, eot, no_timestamps, greedy_only
         P, P, P,  # nxt, prob, deadlock
         P,  # stream
@@ -52,7 +52,8 @@ SIGNATURES = {
         P, P, P, P, P, P,  # q, k_new, v_new, cache_k, cache_v, out
         I64, I64, I64,  # row strides of q, k_new, v_new
         I64, I64, I64, I64,  # cache_k strides (layer, batch), cache_v strides
-        I, I, I, I, I, I,  # li, pos, B, H, dh, T
+        I, I, P,  # li, pos (by value), pos (device int64, or NULL)
+        I, I, I, I,  # B, H, dh, T
         I, F32,  # is_bf16, scale (dh**-0.5)
         P,  # stream
     ],
@@ -79,9 +80,9 @@ SIGNATURES = {
         P,  # stream
     ],
     "norma_w8_matmul": [
-        P, P, P, P, P,  # x, q, scale, out, workspace (or NULL)
-        I, I, I,  # M, N, K
-        I, I, I, I, I,  # splits, warps, kchunk, row tile (2 or 4), is_bf16
+        P, P, P, P,  # x, q, scale, out
+        I, I, I, I64,  # M, N, K, code row pitch
+        I, I, I,  # row tiles of 8, cluster size, is_bf16
         P,  # stream
     ],
     "norma_w4_matmul": [

@@ -6,7 +6,9 @@
     to bf16; the int8 logits head) and :func:`w8_dense` — the same product
     with x in the model dtype (the int8 decoder layers).  Both route
     through one wrapper: the CUDA kernel (``csrc/w8_matmul.cu``, the port
-    of ``w8_matmul_pallas``) for CUDA tensors, the plain version
+    of ``w8_matmul_pallas``: one launch, bf16 tensor cores, launch shape
+    from :func:`w8_plan`; code rows 16-byte aligned, :func:`pitched_codes`)
+    for CUDA tensors, the plain version
     (:func:`w8_matmul_torch` / :func:`w8_dense_torch`: exact widening, f32
     accumulation, times the scale) for CPU tensors; ``w8_matmul.launches``
     counts the kernel's launches through either;
@@ -29,9 +31,10 @@
     kernel launches.  Both of the JAX package's w8a8 modes
     (``encoder_q8_mode`` "w8a8" and "w8a8_pallas") run it: on the card it
     is the int8 GEMM.  The kernel reads the weight codes K-major: a [K, N]
-    view with strides (1, K) (:func:`kmajor_codes`, applied once to the
-    encoder by ``model/quant.py::prep_encoder_q8_kernel``); a CUDA weight
-    in any other layout raises, and no weight is copied per call;
+    view with strides (1, K) (:func:`kmajor_codes`; ``DecodeEngine`` holds
+    such copies of the encoder's, ``model/quant.py::
+    prep_encoder_q8_kernel``); a CUDA weight in another layout is copied
+    K-major for the call (a bare ``encode`` on unprepped params);
   - :func:`q8a8_qkv` — the fused-QKV form over [in, 3, out] weights.
 
 The w8a8 epilogue is ``acc * xs[m] * ws[n] (+ b[n])`` in f32, in that
@@ -97,11 +100,10 @@ def quantize_axis(w: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tenso
 
 # -- weight-streaming kernels (csrc/wgemv.cuh) --------------------------------
 
-# Block shape of csrc/wgemv.cuh: columns per block, most warps per block,
+# Block shape of csrc/wgemv.cuh (the w4 kernel): most warps per block,
 # floats of x a block stages.
-_WG_BN, _WG_WARPS, _WG_XTILE = 496, 8, 8192
-# Blocks to aim for: two per SM of the H100's 132.
-_WG_TARGET_BLOCKS = 264
+_WG_WARPS, _WG_XTILE = 8, 8192
+_H100_SMS = 132
 _X_DTYPES = (torch.float32, torch.bfloat16)
 # Row tile of the w4 kernel (x rows per block).  At 4 rows its 2 x 4 x 16
 # f32 accumulators per thread spill, and it ran 1.4-2x slower than at 2
@@ -109,25 +111,42 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 _W4_BM = 2
 
 
-def _w8_bm(M: int) -> int:
-    """Row tile of a w8 launch: 2 up to M = 2 (no idle rows at M = 1),
-    else 4 (each weight byte serves 4 rows; no spill at 4)."""
-    return 2 if M <= 2 else 4
+# Tiles of csrc/w8_matmul.cu: output columns per block, warps per block,
+# contraction rows per ring stage, largest cluster along K.
+_W8_BN, _W8_WARPS, _W8_KB, _W8_CLUSTER = 128, 4, 32, 8
 
 
-def w8_plan(M: int, N: int, K: int, bm: int) -> Tuple[int, int, int]:
-    """(splits, warps, kchunk) of a w8 launch with row tile ``bm``: each of
-    ``warps`` warps of a block sums ``kchunk`` rows of the contraction, and
-    ``splits`` blocks per output tile cover K.  Split enough to give the
-    card about :data:`_WG_TARGET_BLOCKS` blocks, never below 16 rows a
-    warp, and at least as far as a block's x tile (8192 floats) demands."""
-    base = math.ceil(M / bm) * math.ceil(N / _WG_BN)
-    warps = _WG_WARPS
-    lo = math.ceil(K / (_WG_XTILE // bm))
-    hi = max(lo, math.ceil(K / (warps * 16)))
-    splits = min(max(math.ceil(_WG_TARGET_BLOCKS / base), lo), hi)
-    kchunk = math.ceil(K / (splits * warps))
-    return math.ceil(K / (warps * kchunk)), warps, kchunk
+def w8_plan(M: int, N: int, K: int) -> dict:
+    """Launch shape of the w8 kernel: ``rt`` row tiles of 8 (1 up to 8
+    rows, 2 up to 16, else 4: up to 32 rows every code byte is read once),
+    ``row_blocks`` x ``tiles`` blocks of 128 columns, each split along K
+    over a cluster of ``cluster`` blocks of 4 warps that share the
+    contraction's 32-row stages evenly.  The cluster doubles while the
+    blocks still fit one per SM of the H100 and every warp keeps a stage:
+    the fastest cluster size at 6 rows on each of the decoder's shapes and
+    the head (PERF.md)."""
+    rt = 1 if M <= 8 else 2 if M <= 16 else 4
+    row_blocks, tiles = math.ceil(M / (8 * rt)), math.ceil(N / _W8_BN)
+    nst = math.ceil(K / _W8_KB)
+    cluster = 1
+    while (cluster < _W8_CLUSTER and row_blocks * tiles * 2 * cluster <= _H100_SMS
+           and _W8_WARPS * 2 * cluster <= nst):
+        cluster *= 2
+    return dict(rt=rt, row_blocks=row_blocks, tiles=tiles, cluster=cluster)
+
+
+def pitched_codes(q: torch.Tensor) -> torch.Tensor:
+    """The same [K, N] int8 codes with each row starting 16-byte aligned: a
+    [K, N] view of a zero-padded [K, round_up(N, 16)] tensor (``q`` itself
+    when its rows already are).  The w8 kernel streams code rows with
+    16-byte copies; the int8 head (N = 51866) needs the padding."""
+    K, N = q.shape
+    if q.stride(1) == 1 and q.stride(0) % 16 == 0 and q.stride(0) >= N:
+        return q
+    P = -(-N // 16) * 16
+    buf = torch.zeros((K, P), dtype=q.dtype, device=q.device)
+    buf[:, :N] = q
+    return buf[:, :N]
 
 
 def w4_plan(K: int, block: int) -> Tuple[int, int]:
@@ -179,21 +198,25 @@ def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
         raise ValueError(f"w8_dense: unsupported device {dev}")
     if x.dtype not in _X_DTYPES or scale.dtype != torch.float32:
         raise TypeError(f"w8 kernel needs x in {_X_DTYPES} and f32 scales, got {x.dtype}, {scale.dtype}")
-    if not q.is_contiguous():
-        raise ValueError("w8 kernel needs a contiguous [K, N] weight")
-    x2 = x.reshape(-1, K).contiguous()
+    if q.stride(1) != 1 or q.stride(0) % 16 or q.stride(0) < N or q.data_ptr() % 16:
+        raise ValueError(
+            "w8 kernel needs [K, N] codes whose rows start 16-byte aligned (unit column stride, "
+            f"a row pitch that is a multiple of 16: ops/quant_matmul.py::pitched_codes), got strides {q.stride()}"
+        )
+    if K % 16:
+        raise ValueError(f"w8 kernel needs K a multiple of 16, got {K}")
+    x2 = x.reshape(-1, K)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
-    bm = _w8_bm(M)
-    splits, warps, kchunk = w8_plan(M, N, K, bm)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    plan = w8_plan(M, N, K)
     scale = scale.contiguous()
     code = _build.lib().norma_w8_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, M, N, K, splits, warps, kchunk, bm,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, q.stride(0),
+        plan["rt"], plan["cluster"], int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.check(code, "w8 kernel")
     w8_matmul.launches += 1
@@ -316,7 +339,6 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # csrc/q8a8.cu's tiles: output rows per CTA, contraction bytes per TMA
 # slice, ring stages, threads (two consumer warpgroups and a producer warp).
 _Q8_BM, _Q8_BK, _Q8_STAGES, _Q8_THREADS = 128, 128, 4, 288
-_H100_SMS = 132
 _Q8_OUT = (torch.float32, torch.bfloat16)
 
 
@@ -345,19 +367,9 @@ def kmajor_codes(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
 
 def is_kmajor(wq: torch.Tensor) -> bool:
     """Whether [K, N] codes lie K-major (strides (1, K)): the layout the
-    int8 GEMM kernel reads."""
+    int8 GEMM kernel reads (the wrapper copies other layouts)."""
     K, N = wq.shape
     return wq.stride(0) == 1 and (wq.stride(1) == K or N == 1)
-
-
-def check_kernel_weight(wq: torch.Tensor) -> None:
-    """Raise unless ``wq`` suits the kernel: K-major, so that no call
-    transposes or copies a weight."""
-    if not is_kmajor(wq):
-        raise ValueError(
-            f"q8a8 kernel needs K-major weight codes (a [K, N] view with strides (1, K), "
-            f"model/quant.py::prep_encoder_q8_kernel), got strides {tuple(wq.stride())}"
-        )
 
 
 def _flatten(xq, xs, wq, ws, b):
@@ -419,7 +431,9 @@ def q8a8_dense(
         raise ValueError(f"q8a8_dense: unsupported device {dev}")
     M, K = x2.shape
     plan = q8a8_plan(M, N, K)
-    check_kernel_weight(wq)
+    if not is_kmajor(wq):
+        # Unprepped codes (a bare ``encode``): a K-major copy for this call.
+        wq = kmajor_codes(wq)
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         raise ValueError("q8a8 kernel needs contiguous, 16-byte aligned [M, K] activation codes")
     if s2.dtype != torch.float32 or ws.dtype != torch.float32:

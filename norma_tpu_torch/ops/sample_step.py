@@ -147,14 +147,15 @@ def sample_step(
     *,
     eot: int,
     no_timestamps: int,
-    seed: int = 0,
+    seed: "int | torch.Tensor" = 0,
     generator: Optional[torch.Generator] = None,
     greedy_only: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused step; same contract as :func:`sample_step_torch`.  CUDA tensors
-    launch the kernel (t>0 draws from Philox keyed by the 64-bit ``seed``;
-    ``generator`` is unused), CPU tensors run the plain version (t>0 draws
-    from ``generator``; ``seed`` is unused)."""
+    launch the kernel (t>0 draws from Philox keyed by the 64-bit ``seed``,
+    an ``int`` or one int64 on the device holding its bits; ``generator``
+    is unused), CPU tensors run the plain version (t>0 draws from
+    ``generator``; ``seed`` is unused)."""
     masks = (m_suppress, m_non_ts, m_ts, m_first)
     _validate(ll, masks, (prev1, prev2, last_ts), temp, step)
     dev = ll.device
@@ -171,11 +172,15 @@ def sample_step(
     prob = torch.empty(B, dtype=torch.float32, device=dev)
     dead = torch.empty(B, dtype=torch.bool, device=dev)
     per_row = isinstance(step, torch.Tensor)
+    dev_seed = isinstance(seed, torch.Tensor)
+    if dev_seed and (seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != dev):
+        raise ValueError(f"a device seed must be one int64 on {dev}")
     code = _build.lib().norma_sample_step(
         ll.data_ptr(), *(mk.data_ptr() for mk in masks),
         prev1.data_ptr(), prev2.data_ptr(), last_ts.data_ptr(),
         0 if per_row else int(step), step.data_ptr() if per_row else None,
-        temp.data_ptr(), seed & 0xFFFFFFFFFFFFFFFF,
+        temp.data_ptr(), 0 if dev_seed else seed & 0xFFFFFFFFFFFFFFFF,
+        seed.data_ptr() if dev_seed else None,
         B, V, eot, no_timestamps, int(greedy_only),
         nxt.data_ptr(), prob.data_ptr(), dead.data_ptr(),
         _build.stream_ptr(dev),

@@ -14,6 +14,11 @@ in f32 (then q is rounded to the cache dtype, as the TPU kernel does).
     what the kernel does not take; it never falls back.
     ``self_attention_decode.launches`` counts kernel launches.
 
+``pos`` is an ``int`` or a one-element int64 tensor on the caches'
+device (the engine's captured token loop advances it on the device).  An
+``int`` is checked against the crop here; a device position is checked by
+the kernel, which traps on one outside ``[0, T)``.
+
 Reading only rows < ``pos`` is exact: the masked rows contribute zero.  So
 a bucket view ``cache[:, :, :S]`` (non-contiguous in the layer and batch
 axes) is taken as it is, and rows at or beyond ``pos`` are never read.
@@ -29,7 +34,7 @@ from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-# The kernel keeps pos + 1 f32 logits in (non-opt-in) shared memory.
+# The kernel keeps T + 1 f32 logits in (non-opt-in) shared memory.
 _KERNEL_MAX_T = 8192
 
 
@@ -61,7 +66,10 @@ def _validate(q, k_new, v_new, cache_k, cache_v, li, pos, n_heads) -> None:
         raise ValueError(f"d_model {D} not divisible by n_heads {n_heads}")
     if not 0 <= li < L:
         raise ValueError(f"layer {li} outside [0, {L})")
-    if not 0 <= pos < T:
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int64 or pos.numel() != 1 or pos.device != cache_k.device:
+            raise ValueError(f"a device position must be one int64 on {cache_k.device}")
+    elif not 0 <= pos < T:
         raise ValueError(f"position {pos} outside the cache's {T} rows")
 
 
@@ -73,11 +81,14 @@ def self_attention_decode_torch(
     cache_k: torch.Tensor,  # [L, B, T, D]
     cache_v: torch.Tensor,
     li: int,
-    pos: int,
+    pos: "int | torch.Tensor",
     n_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version.  Returns (attn_out [B, 1, D] in q.dtype,
-    cache_k, cache_v) with row ``(li, :, pos)`` written in place."""
+    cache_k, cache_v) with row ``(li, :, pos)`` written in place.  A tensor
+    ``pos`` is read to the host (free on the CPU, where the engine runs this
+    version)."""
+    pos = int(pos)
     _, B, _, D = cache_k.shape
     H, dh = n_heads, D // n_heads
     cdt = cache_k.dtype
@@ -107,13 +118,15 @@ def self_attention_decode(
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
     li: int,
-    pos: int,
+    pos: "int | torch.Tensor",
     n_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused write-row + self-attention; same contract as
     :func:`self_attention_decode_torch`.  CUDA tensors launch the kernel,
     CPU tensors run the plain version; any other device raises."""
-    li, pos = int(li), int(pos)
+    li = int(li)
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     _validate(q, k_new, v_new, cache_k, cache_v, li, pos, n_heads)
     dev = cache_k.device
     if dev.type == "cpu":
@@ -127,12 +140,13 @@ def self_attention_decode(
     if T > _KERNEL_MAX_T:
         raise ValueError(f"kernel cache length must be <= {_KERNEL_MAX_T}, got {T}")
     out = torch.empty((B, 1, D), dtype=q.dtype, device=dev)
+    dev_pos = isinstance(pos, torch.Tensor)
     code = _build.lib().norma_self_decode(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
         q.stride(0), k_new.stride(0), v_new.stride(0),
         cache_k.stride(0), cache_k.stride(1), cache_v.stride(0), cache_v.stride(1),
-        li, pos, B, n_heads, dh, T,
+        li, 0 if dev_pos else pos, pos.data_ptr() if dev_pos else None, B, n_heads, dh, T,
         int(cache_k.dtype == torch.bfloat16), dh**-0.5,
         _build.stream_ptr(dev),
     )

@@ -5,11 +5,12 @@ The wgmma flash attention (csrc/flash_encoder.cu) and the s8 wgmma GEMM
 reaches:
 
   - the K-major weight prep (model/quant.py::prep_encoder_q8_kernel): the
-    same values as quantize_encoder's codes, one copy, the fused QKV's
+    same values as quantize_encoder's codes in a new tree (the caller's
+    params untouched), one copy, the fused QKV's
     [in, 3*out] reshape a view with strides (1, in), and encode on the
     prepped params still matching the JAX package's encode;
-  - the wrapper's refusal of a [K, N]-contiguous weight (the stride check
-    the card path runs before any launch);
+  - the layout check the card path runs before a launch (codes that are
+    not K-major are copied K-major for the call);
   - the bf16 epilogue (``out_dtype``): one rounding of the f32 result;
   - the kernels' plan functions at Whisper's widths and batch sizes, and
     the bf16 flash kernel's TMA operand check.
@@ -58,39 +59,40 @@ def test_prep_keeps_codes_and_makes_them_kmajor(params, fused):
     keys = [k + "_q" for k in pquant.ENCODER_W8_KEYS if k + "_q" in layers]
     before = {k: layers[k].clone() for k in keys}
     assert all(layers[k].is_contiguous() for k in keys)
-    pquant.prep_encoder_q8_kernel(pqp)
+    prepped = pquant.prep_encoder_q8_kernel(pqp)["encoder"]["layers"]
     assert len(keys) == (4 if fused else 6)
     for k in keys:
-        w = layers[k]
+        assert layers[k].is_contiguous(), k  # the caller's stacks are untouched
+        w = prepped[k]
         assert w.shape == before[k].shape and w.dtype == torch.int8
         assert torch.equal(w, before[k]), k
         assert w.stride(1) == 1, k  # the contraction axis is innermost
         for i in range(CFG.encoder_layers):
-            wi = layers.layer(i)[k]
+            wi = prepped.layer(i)[k]
             w2 = wi.reshape(wi.shape[0], -1)
             assert pq.is_kmajor(w2), (k, i, w2.stride())
 
 
 def test_prepped_fused_qkv_reshape_copies_nothing(params):
     _, pqp = _quantized(params, True)
-    pquant.prep_encoder_q8_kernel(pqp)
+    pqp = pquant.prep_encoder_q8_kernel(pqp)
     w = pqp["encoder"]["layers"].layer(1)["qkv_w_q"]  # [in, 3, out]
     K, three, O = w.shape
     assert w.stride() == (1, O * K, K)
     flat = w.reshape(K, three * O)  # what q8a8_qkv hands the kernel
     assert flat.data_ptr() == w.data_ptr()
     assert flat.stride() == (1, K)
-    pq.check_kernel_weight(flat)
+    assert pq.is_kmajor(flat)
 
 
 def test_prep_is_one_copy_and_idempotent(params):
     _, pqp = _quantized(params, True)
-    layers = pqp["encoder"]["layers"]
-    pquant.prep_encoder_q8_kernel(pqp)
+    prepped = pquant.prep_encoder_q8_kernel(pqp)
+    layers = prepped["encoder"]["layers"]
     ptrs = {k: layers[k].data_ptr() for k, _ in layers.items() if k.endswith("_q")}
     int8_bytes = sum(v.numel() for k, v in layers.items() if k.endswith("_q"))
-    pquant.prep_encoder_q8_kernel(pqp)
-    assert {k: layers[k].data_ptr() for k in ptrs} == ptrs
+    again = pquant.prep_encoder_q8_kernel(prepped)["encoder"]["layers"]
+    assert {k: again[k].data_ptr() for k in ptrs} == ptrs
     # Each stack owns exactly its own bytes: no second copy hangs on.
     assert sum(layers[k].untyped_storage().nbytes() for k in ptrs) == int8_bytes
 
@@ -104,24 +106,22 @@ def test_encode_prepped_matches_jax(params, mode, fused):
     mel = np.random.default_rng(0).standard_normal(
         (2, CFG.num_mel_bins, 2 * CFG.max_source_positions)).astype(np.float32)
     plain = pw.encode(pqp, PCFG.with_(encoder_q8_mode=mode), t(mel))
-    pquant.prep_encoder_q8_kernel(pqp)
-    got = pw.encode(pqp, PCFG.with_(encoder_q8_mode=mode), t(mel))
+    got = pw.encode(pquant.prep_encoder_q8_kernel(pqp), PCFG.with_(encoder_q8_mode=mode), t(mel))
     want = np.asarray(jw.encode(jqp, CFG.with_(encoder_q8_mode=mode), jnp.asarray(mel)))
     np.testing.assert_allclose(n(got), want, rtol=2e-2, atol=2e-2)
     assert torch.equal(got, plain)  # the layout changes no value
 
 
 def test_kernel_weight_check_refuses_kn_contiguous():
+    """The layout check the q8a8 wrapper runs before a launch: [K, N]-
+    contiguous codes (and a strided view) are not K-major, so the card's
+    wrapper copies them K-major for the call; kmajor_codes' copy is."""
     K, N = 256, 384
     w = torch.randint(-127, 128, (K, N), dtype=torch.int8)
     assert not pq.is_kmajor(w)
-    with pytest.raises(ValueError, match="K-major"):
-        pq.check_kernel_weight(w)
     wk = pq.kmajor_codes(w)
     assert torch.equal(wk, w) and wk.stride() == (1, K) and pq.is_kmajor(wk)
-    pq.check_kernel_weight(wk)
-    with pytest.raises(ValueError, match="K-major"):
-        pq.check_kernel_weight(wk[:, ::2])
+    assert not pq.is_kmajor(wk[:, ::2])
 
 
 @pytest.mark.parametrize("bias", [False, True])

@@ -11,7 +11,8 @@ package, on the CPU (where each wrapper runs its plain version).
     (fault: a leftover int4 head would win logits_head's dispatch);
   - the weight carry keeps the int4 head's codes int8 and scales bf16;
   - logits_head with q4 and an int4-head engine match JAX at f32;
-  - the kernel launch plans cover the contraction.
+  - the kernel launch plans cover the contraction and, for w8, read the
+    codes once for up to 32 rows.
 """
 
 import jax.numpy as jnp
@@ -122,14 +123,21 @@ def test_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.parametrize("M,N,K", [(1, 51866, 1280), (6, 3840, 1280), (8, 1280, 5120), (48, 51866, 1280),
-                                   (200, 5120, 1280), (12000, 1280, 5120), (3, 700, 64)])
+                                   (200, 5120, 1280), (12000, 1280, 5120), (3, 700, 64), (16, 1280, 1280)])
 def test_w8_plan_covers_the_contraction(M, N, K):
-    bm = pq._w8_bm(M)  # the row tile the wrapper launches with
-    assert bm in (2, 4)
-    splits, warps, kchunk = pq.w8_plan(M, N, K, bm)
-    assert 1 <= warps <= 8 and kchunk >= 1
-    assert splits * warps * kchunk >= K > (splits - 1) * warps * kchunk  # no empty split
-    assert bm * warps * kchunk <= 8192  # the block's x tile fits
+    plan = pq.w8_plan(M, N, K)
+    rows = 8 * plan["rt"]
+    assert plan["rt"] in (1, 2, 4) and plan["row_blocks"] * rows >= M > (plan["row_blocks"] - 1) * rows
+    assert plan["tiles"] * 128 >= N > (plan["tiles"] - 1) * 128
+    c = plan["cluster"]
+    nst = -(-K // 32)  # stages of 32 rows, shared evenly by the cluster's 4 * c warps
+    assert c in (1, 2, 4, 8) and (c == 1 or 4 * c <= nst)  # every warp has a stage
+    if c < 8 and 8 * c <= nst:  # it stopped growing because twice the blocks pass one per SM
+        assert plan["row_blocks"] * plan["tiles"] * 2 * c > 132
+    if (M, N, K) in ((6, 3840, 1280), (16, 1280, 1280), (1, 51866, 1280)):
+        assert c == {3840: 4, 1280: 8, 51866: 1}[N]  # the fastest sizes on the H100 (PERF.md)
+    if M <= 32:
+        assert plan["row_blocks"] == 1  # every code byte read once for all rows
 
 
 @pytest.mark.parametrize("K,block", [(1280, 64), (1280, 32), (256, 64), (5120, 64)])
@@ -159,12 +167,19 @@ def test_quantize_decoder_int4_head(params):
 
 def test_head_codes_are_contiguous(params):
     """Fault: the heads quantize the transposed embedding view; their codes
-    and scales must come out contiguous, or the kernels (which read [K, N]
-    row-major and refuse other strides) cannot take them."""
+    and scales must come out in the layout the kernels read, or the kernels
+    (which refuse other strides) cannot take them: the int4 head
+    contiguous, the int8 head's code rows 16-byte aligned (unit column
+    stride, a row pitch of round_up(V, 16)) with the same values."""
     _, pp = params
-    for tree, key in ((pquant.quantize_logits_head(pp), "tok_emb_q8"), (pquant.quantize_logits_head_int4(pp), "tok_emb_q4")):
-        head = tree["decoder"][key]
-        assert head["q"].is_contiguous() and head["s"].is_contiguous(), key
+    head = pquant.quantize_logits_head_int4(pp)["decoder"]["tok_emb_q4"]
+    assert head["q"].is_contiguous() and head["s"].is_contiguous()
+    head = pquant.quantize_logits_head(pp)["decoder"]["tok_emb_q8"]
+    D, V = head["q"].shape
+    assert head["q"].stride() == (-(-V // 16) * 16, 1) and head["s"].is_contiguous()
+    q, s = pq.quantize_per_channel(pp["decoder"]["tok_emb"].t())
+    assert torch.equal(head["q"], q) and torch.equal(head["s"], s)
+    assert pq.pitched_codes(head["q"]) is head["q"]
 
 
 def test_head_tiers_drop_each_other(params):
