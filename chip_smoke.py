@@ -9,9 +9,13 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
   1. build: compile csrc/*.cu with nvcc, one process per source
      (ops/_build.py); print the nvcc version, build seconds, ptxas' resource
      lines and the card's name and power limit;
-  2. sample_step kernel vs its plain PyTorch version at V=51866 (greedy
-     exactness, t>0 mask support and exact replay from the kernel's own
-     Philox uniforms, uniformity of those uniforms, per-row independence);
+  2. sample_step kernel vs its plain PyTorch version at rows 1/6/8/48 x
+     V=51866 and 8 x an odd V (greedy exactness with NaN, all-masked,
+     step-0 and per-row-step rows; t>0 mask support and exact replay from
+     the kernel's own Philox uniforms; uniformity of those uniforms,
+     per-row independence); times at 6 and 8 rows host-launched and from
+     CUDA graphs, by cluster size against the plan's, and the Philox probe
+     (philox_uniform) with its bound;
   3. self_decode kernel vs its plain version at distil-large-v3 widths
      (f32 and bf16, bucket views, in-place row write);
   4. the golden config (tests/golden/engine_small.json) on the card,
@@ -47,9 +51,15 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      the plain routes on the prefill of the engine's padded window, at B=1
      and at B=8 (5 active), the B=8 window graph against eager (tokens
      equal) with its idle share, and one eager B=8 window profiled;
- 10. w4_matmul kernel vs its plain version at the int4 head's shape
-     [1280 -> 51866], rows 1/6/8/48, bf16 and f32 x, timed beside the int8
-     head (w8 kernel) and a bf16 cuBLAS head;
+ 10. w4_matmul kernel vs its plain version at the int4 head's pitched
+     codes [1280 -> 51866] and at 1280x1280, rows 1/6/8/16/48/200, bf16 and
+     f32 x, one launch per product; contiguous codes (copied pitched for the
+     call) give the same product; JAX-layout head trees (int4 and int8)
+     carried by params_from_numpy get the engine's head layout and run
+     logits_head through the kernels; device times from CUDA graphs over
+     cold weights at 1/6/8/16 rows beside the int8 head (w8 kernel) and a
+     bf16 cuBLAS head, by (cluster, warps) against the plan's, and w4
+     beside w8 by the number of 128-column tiles;
  11. w8_matmul kernel vs its plain version at the int8 decoder's four
      shapes and the head, rows 1/6/8/16/24/48/200, bf16 and f32 x, one
      launch per product; device times from CUDA graphs over cold weights
@@ -158,7 +168,7 @@ KERNEL_FUNCS = {
     "sample_step": ("sample_step_kernel",), "self_decode": ("self_decode_kernel",),
     "cross_decode": ("cross_decode_kernel",), "flash_encoder": ("flash_encoder",),
     "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_mma_kernel",),
-    "w4_matmul": ("w4_kernel", "split_sum"), "log_mel": ("log_mel_kernel",),
+    "w4_matmul": ("w4_mma_kernel",), "log_mel": ("log_mel_kernel",),
 }
 
 
@@ -289,14 +299,18 @@ def phase_build(rec):
     log(f"  card {rec['smi']}")
 
 
-def _v3_masks(dev):
+def _v3_masks(dev, V=V3):
     import torch
 
     from norma_tpu_torch.decode.masks import SpecialTokens, build_masks
     from norma_tpu_torch.model.config import PRESETS
 
-    m = build_masks(V3, PRESETS["distil-large-v3"].suppress_tokens, SpecialTokens(**ST_V3))
+    m = build_masks(V, PRESETS["distil-large-v3"].suppress_tokens, SpecialTokens(**ST_V3))
     return tuple(torch.from_numpy(a).to(dev) for a in (m.suppress, m.non_timestamps, m.timestamps, m.first_token))
+
+
+SS_ROWS = (1, 6, 8, 48)
+SS_ODD_V = V3 + 3  # odd: no cluster size divides it
 
 
 def phase_sample_step(rec, dev):
@@ -305,14 +319,13 @@ def phase_sample_step(rec, dev):
 
     from norma_tpu_torch.ops import sample_step as ss
 
-    masks = _v3_masks(dev)
     eot, nts = ST_V3["eot"], ST_V3["no_timestamps"]
     g = torch.Generator(device=dev).manual_seed(0)
     i32 = lambda x, B: torch.full((B,), x, dtype=torch.int32, device=dev) if np.isscalar(x) else torch.as_tensor(x, dtype=torch.int32, device=dev)
     max_err = 0.0
 
-    def case_inputs(B, p1, p2, lts):
-        ll = torch.randn((B, V3), generator=g, device=dev) * 2.0
+    def case_inputs(B, V, p1, p2, lts):
+        ll = torch.randn((B, V), generator=g, device=dev) * 2.0
         return ll, i32(p1, B), i32(p2, B), i32(lts, B)
 
     cases = [  # (p1, p2, last_ts, step)
@@ -323,49 +336,55 @@ def phase_sample_step(rec, dev):
         (100, ST_V3["zero_sec"] + 3, ST_V3["zero_sec"] + 3, 4),
         (V3 - 1, 100, V3 - 1, 5),  # grammar deadlock
     ]
-    for B in (6, 48):
+    # Every case at each row count, at V=51866 and at an odd V: greedy
+    # tokens and deadlock flags exact, probabilities to rtol 1e-5; t>0 draws
+    # in the mask's support and replayed exactly from the kernel's Philox
+    # uniforms (>= 2000 at 48 rows).
+    draws = replay_ok = replay_n = 0
+    shapes = [(B, V3) for B in SS_ROWS] + [(8, SS_ODD_V)]
+    for B, V in shapes:
+        masks = _v3_masks(dev, V)
         for p1, p2, lts, step in cases:
-            ll, tp1, tp2, tlts = case_inputs(B, p1, p2, lts)
+            ll, tp1, tp2, tlts = case_inputs(B, V, p1, p2, lts)
             ll[0] = float("nan")  # a NaN row
-            ll[1, 7] = float("nan")  # one NaN poisons the row
+            if B > 1:
+                ll[1, 7] = float("nan")  # one NaN poisons the row
             temp = torch.zeros(B, device=dev)
             args = (ll, *masks, tp1, tp2, tlts, step, temp)
             kn, kp, kd = ss.sample_step(*args, eot=eot, no_timestamps=nts)
             pn, pp, pd = ss.sample_step_torch(*args, eot=eot, no_timestamps=nts, greedy_only=True)
             if not (torch.equal(kn, pn) and torch.equal(kd, pd)):
-                raise AssertionError(f"greedy mismatch B={B} case={(p1, p2, lts, step)}")
+                raise AssertionError(f"greedy mismatch B={B} V={V} case={(p1, p2, lts, step)}")
             torch.testing.assert_close(kp, pp, rtol=1e-5, atol=0.0, equal_nan=True)
             fin = torch.isfinite(pp)
             if fin.any():
                 max_err = max(max_err, float((kp[fin] - pp[fin]).abs().max()))
         # Per-row steps: row 0 at the first-token grammar.
-        ll, tp1, tp2, tlts = case_inputs(B, 100, 101, 0)
+        ll, tp1, tp2, tlts = case_inputs(B, V, 100, 101, 0)
         steps = torch.arange(B, dtype=torch.int32, device=dev) % 3
         args = (ll, *masks, tp1, tp2, tlts, steps, torch.zeros(B, device=dev))
         kn, kp, kd = ss.sample_step(*args, eot=eot, no_timestamps=nts)
         pn, pp, pd = ss.sample_step_torch(*args, eot=eot, no_timestamps=nts, greedy_only=True)
         if not (torch.equal(kn, pn) and torch.equal(kd, pd)):
-            raise AssertionError(f"per-row-step greedy mismatch B={B}")
+            raise AssertionError(f"per-row-step greedy mismatch B={B} V={V}")
         torch.testing.assert_close(kp, pp, rtol=1e-5, atol=0.0)
-
-    # t>0: >= 2000 draws never pick a masked token; replaying the kernel's
-    # Philox uniforms through the plain version gives the same tokens.
-    draws = replay_ok = replay_n = 0
-    for step in range(1, 51):
-        B = 48
-        ll, tp1, tp2, tlts = case_inputs(B, 100, 101, 0)
-        temp = torch.tensor([0.2, 0.6, 1.0] * 16, device=dev)
-        seed = 1234 + (step << 32)
-        kn, kp, kd = ss.sample_step(ll, *masks, tp1, tp2, tlts, step, temp, eot=eot, no_timestamps=nts, seed=seed)
-        if not torch.isfinite(kp).all() or kd.any():
-            raise AssertionError(f"t>0 draw chose a masked token at step {step}")
-        draws += B
-        u = ss.philox_uniform(seed, step, B, V3, dev)
-        pn, _, _ = ss.sample_step_torch(ll, *masks, tp1, tp2, tlts, step, temp, eot=eot, no_timestamps=nts, u=u)
-        replay_ok += int((pn == kn).sum())
-        replay_n += B
+        for step in range(1, 51 if B == 48 else 11):
+            ll, tp1, tp2, tlts = case_inputs(B, V, 100, 101, 0)
+            temp = torch.tensor([0.2, 0.6, 1.0] * 16, device=dev)[:B]
+            seed = 1234 + (step << 32)
+            kn, kp, kd = ss.sample_step(ll, *masks, tp1, tp2, tlts, step, temp, eot=eot, no_timestamps=nts,
+                                        seed=seed)
+            if not torch.isfinite(kp).all() or kd.any():
+                raise AssertionError(f"t>0 draw chose a masked token at B={B} V={V} step {step}")
+            draws += B
+            u = ss.philox_uniform(seed, step, B, V, dev)
+            pn, _, _ = ss.sample_step_torch(ll, *masks, tp1, tp2, tlts, step, temp, eot=eot, no_timestamps=nts,
+                                            u=u)
+            replay_ok += int((pn == kn).sum())
+            replay_n += B
     if replay_ok != replay_n:
         raise AssertionError(f"Philox replay agreed on {replay_ok}/{replay_n} draws")
+    masks = _v3_masks(dev)
     u = ss.philox_uniform(99, 7, 64, 512, dev)
     umin, umax, umean = float(u.min()), float(u.max()), float(u.mean())
     if not (0.0 <= umin < 0.02 and 0.98 < umax < 1.0 and abs(umean - 0.5) < 0.02):
@@ -376,23 +395,53 @@ def phase_sample_step(rec, dev):
     if len(set(kn.tolist())) < 2:
         raise AssertionError("rows with equal inputs drew the same token")
 
-    # Time at the slice's shape: B=1 speculative ladder = 6 rows, t = 0..1.
-    B = 6
-    ll, tp1, tp2, tlts = case_inputs(B, 100, 101, 0)
-    temp = torch.tensor([0.0, 0.2, 0.4, 0.6, 0.8, 1.0], device=dev)
-    args = (ll, *masks, tp1, tp2, tlts, 3, temp)
-    k_ms, p_ms = turns(
-        lambda: ss.sample_step_torch(*args, eot=eot, no_timestamps=nts),
-        lambda: ss.sample_step(*args, eot=eot, no_timestamps=nts, seed=1),
-    )
-    # Bound: the logits, masks and row state read once, three [B] outputs.
-    b_ms, b_by = bound(nbytes(ll, *masks, tp1, tp2, tlts, temp) + B * (8 + 4 + 1))
-    rec["sample_step"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=None)
-    log(f"phase 2 sample_step: ok greedy exact at rows 6,48 (NaN, all-masked, step 0, per-row steps), "
-        f"max_abs_err(prob)={max_err:.3g}; t>0 {draws} draws in support, Philox replay {replay_ok}/{replay_n}; "
-        f"u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows "
-        f"(bound {b_ms:.4f} ms, {b_by})")
+    # Times at the slices' shapes: the B=1 speculative ladder's 6 rows (t =
+    # 0..1) and the served batch's 8; host-launched in turns with the plain
+    # version, and device ms from CUDA graphs; then the cluster size against
+    # the plan's, from CUDA graphs.
+    times = {}
+    for B in (6, 8):
+        ll, tp1, tp2, tlts = case_inputs(B, V3, 100, 101, 0)
+        temp = torch.linspace(0.0, 1.0, B, device=dev)
+        args = (ll, *masks, tp1, tp2, tlts, 3, temp)
+        k_ms, p_ms = turns(
+            lambda: ss.sample_step_torch(*args, eot=eot, no_timestamps=nts),
+            lambda: ss.sample_step(*args, eot=eot, no_timestamps=nts, seed=1),
+        )
+        kern = [lambda: ss.sample_step(*args, eot=eot, no_timestamps=nts, seed=1)] * 20
+        zeros = torch.zeros(B, device=dev)
+        greedy = [lambda: ss.sample_step(*args[:-1], zeros, eot=eot, no_timestamps=nts)] * 20
+        gr_ms = (graph_ms(kern) + graph_ms(kern)) / 2
+        gr_greedy_ms = graph_ms(greedy)
+        plan, sweep = ss.sample_step_plan, {}
+        try:
+            for c in (1, 2, 4, 8, 16):
+                ss.sample_step_plan = lambda B_, V_, c=c: {**plan(B_, V_), "cluster": c,
+                                                           "slice": 4 * -(-(-(-V_ // c)) // 4)}
+                sweep[c] = graph_ms(kern)
+        finally:
+            ss.sample_step_plan = plan
+        # Bound: the logits, masks and row state read once, three [B] outputs.
+        b_ms, b_by = bound(nbytes(ll, *masks, tp1, tp2, tlts, temp) + B * (8 + 4 + 1))
+        times[B] = dict(ms=k_ms, plain_ms=p_ms, graph_ms=gr_ms, graph_greedy_ms=gr_greedy_ms, bound_ms=b_ms,
+                        bound_by=b_by, cluster=plan(B, V3)["cluster"], cluster_ms=sweep)
+    # The Philox probe (philox_uniform, the port of u_kernel): 6 rows of V
+    # uniforms; bound: the [6, V] f32 output written once.
+    pu_ms = cuda_ms(lambda: ss.philox_uniform(7, 3, 6, V3, dev))
+    pu_bound, pu_by = bound(6 * V3 * 4)
+    t6 = times[6]
+    rec["sample_step"] = dict(max_abs_err=max_err, ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
+                              bound_by=t6["bound_by"], library_ms=None)
+    rec["sample_step_detail"] = dict(times=times, philox_uniform=dict(ms=pu_ms, bound_ms=pu_bound, bound_by=pu_by))
+    tt = "; ".join(
+        f"{B} rows: host-launched {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, CUDA graph {v['graph_ms']:.4f} "
+        f"ms (greedy {v['graph_greedy_ms']:.4f}), bound {v['bound_ms']:.4f} ms ({v['bound_by']}); by cluster "
+        f"size (plan {v['cluster']}): " + ", ".join(f"{c}: {ms:.4f}" for c, ms in v["cluster_ms"].items())
+        for B, v in times.items())
+    log(f"phase 2 sample_step: ok greedy exact at rows {list(SS_ROWS)} x V={V3} and 8 x V={SS_ODD_V} (NaN, "
+        f"all-masked, step 0, per-row steps), max_abs_err(prob)={max_err:.3g}; t>0 {draws} draws in support, "
+        f"Philox replay {replay_ok}/{replay_n}; u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; {tt}; "
+        f"philox_uniform 6 x {V3}: {pu_ms:.4f} ms (bound {pu_bound:.4f} ms, {pu_by})")
 
 
 def phase_self_decode(rec, dev):
@@ -1278,50 +1327,142 @@ def _rel_err(k, p):
     return err, err / max(float(p.abs().max()), 1e-30)
 
 
+W4_ROWS = (1, 6, 8, 16, 48, 200)
+W4_TIMED_ROWS = (1, 6, 8, 16)
+W4_TILES = (66, 132, 264, 396, 528, 792)  # 128-column tiles: 0.5-6 per SM
+
+
 def phase_w4(rec, dev):
+    import math
+
     import torch
 
+    from norma_tpu_torch.model.load import params_from_numpy
+    from norma_tpu_torch.model.whisper import logits_head
     from norma_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(10)
     w = torch.randn((HEAD_K, HEAD_N), generator=g, device=dev) * 0.02  # the tied embedding, transposed
     q4, s4 = qm.quantize_blockwise_int4(w)
+    q4 = qm.pitched_codes(q4)  # the int4 head's layout (model/quant.py, DecodeEngine)
     q8, s8 = qm.quantize_per_channel(w)
-    q8 = qm.pitched_codes(q8)  # the int8 head's layout (model/quant.py)
+    q8 = qm.pitched_codes(q8)
     wb = w.to(torch.bfloat16)
+    wsq = torch.randn((1280, 1280), generator=g, device=dev) * 0.03
+    shapes = {"head": (q4, s4), "1280x1280": qm.quantize_blockwise_int4(wsq)}
     # Tolerance: both sum f32 products of the same exact operands (bf16 or
     # f32 x, integer codes, bf16 scales widened) in other orders: 1e-5 of
-    # the output's range.
+    # the output's range.  One launch per product.
     worst, worst_abs, n_cases = 0.0, 0.0, 0
-    for rows in (1, 6, 8, 48):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((rows, HEAD_K), generator=g, device=dev).to(dtype)
-            ko, po = qm.w4_matmul(x, q4, s4), qm.w4_matmul_torch(x, q4, s4)
-            torch.cuda.synchronize()
-            if ko.shape != (rows, HEAD_N) or ko.dtype != torch.float32 or not torch.isfinite(ko).all():
-                raise AssertionError(f"w4 rows={rows} {dtype}: bad output")
-            err, rel = _rel_err(ko, po)
-            if not rel <= 1e-5:
-                raise AssertionError(f"w4 rows={rows} {dtype}: err {err} ({rel:.3g} of max|y|)")
-            worst, worst_abs, n_cases = max(worst, rel), max(worst_abs, err), n_cases + 1
-    x = torch.randn((6, HEAD_K), generator=g, device=dev).to(torch.bfloat16)
-    k_ms, p_ms = turns(lambda: qm.w4_matmul_torch(x, q4, s4), lambda: qm.w4_matmul(x, q4, s4))
-    w8_ms = cuda_ms(lambda: qm.w8_matmul(x, q8, s8))
-    bf16_ms = cuda_ms(lambda: qm.mm_f32(x, wb))
-    x1 = x[:1].contiguous()
-    k1_ms = cuda_ms(lambda: qm.w4_matmul(x1, q4, s4))
-    head_bytes = dict(int4=q4.numel() + 2 * s4.numel(), int8=q8.numel() + 4 * s8.numel(), bf16=2 * wb.numel())
-    b_ms, b_by = bound(nbytes(q4, s4, x) + 4 * 6 * HEAD_N)
-    prof = device_profile(lambda: [qm.w4_matmul(x, q4, s4) for _ in range(20)], ["w4_matmul"])
+    for name, (q, sc) in shapes.items():
+        K, N = 2 * q.shape[0], q.shape[1]
+        for rows in W4_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((rows, K), generator=g, device=dev).to(dtype)
+                before = qm.w4_matmul.launches
+                ko = qm.w4_matmul(x, q, sc)
+                launched = qm.w4_matmul.launches - before
+                po = qm.w4_matmul_torch(x, q, sc)
+                torch.cuda.synchronize()
+                if launched != 1:
+                    raise AssertionError(f"w4 {name} rows={rows}: {launched} launches for one product")
+                if ko.shape != (rows, N) or ko.dtype != torch.float32 or not torch.isfinite(ko).all():
+                    raise AssertionError(f"w4 {name} rows={rows} {dtype}: bad output")
+                err, rel = _rel_err(ko, po)
+                if not rel <= 1e-5:
+                    raise AssertionError(f"w4 {name} rows={rows} {dtype}: err {err} ({rel:.3g} of max|y|)")
+                worst, worst_abs, n_cases = max(worst, rel), max(worst_abs, err), n_cases + 1
+    # Codes in another layout (contiguous rows of 51866 bytes) are copied
+    # pitched for the call: the same product, bit for bit.
+    x6 = torch.randn((6, HEAD_K), generator=g, device=dev).to(torch.bfloat16)
+    if not torch.equal(qm.w4_matmul(x6, q4.contiguous(), s4), qm.w4_matmul(x6, q4, s4)):
+        raise AssertionError("w4 on contiguous head codes differs from the pitched codes' product")
+    # A tree as the JAX package's quantizer writes it (logical [K/2, N] and
+    # [K, N] codes, contiguous), carried by params_from_numpy: the engine's
+    # head layout pitches it, and logits_head runs each head's kernel.
+    carried_txt = []
+    for head, (q, sc, kern) in {"tok_emb_q4": (q4, s4, qm.w4_matmul), "tok_emb_q8": (q8, s8, qm.w8_matmul)}.items():
+        tree = {"decoder": {head: {"q": q.contiguous().cpu().numpy(), "s": sc.float().cpu().numpy()}}}
+        carried = params_from_numpy(tree, dev, dtype=None)["decoder"]
+        dec = qm.head_kernel_layout(carried)
+        cq, dq = carried[head]["q"], dec[head]["q"]
+        if cq.stride(0) % 16 == 0 or dq.stride(0) % 16 or not torch.equal(dq, q):
+            raise AssertionError(f"{head}: carried stride {cq.stride()}, engine layout stride {dq.stride()}")
+        before = kern.launches
+        y = logits_head(dec, x6)
+        if kern.launches - before != 1:
+            raise AssertionError(f"{head}: logits_head launched its kernel {kern.launches - before} times")
+        plain = (qm.w4_matmul_torch if head == "tok_emb_q4" else qm.w8_matmul_torch)(x6, q, sc)
+        err, rel = _rel_err(y, plain)
+        if not rel <= 1e-5 or not torch.equal(logits_head(carried, x6), y):
+            raise AssertionError(f"{head}: carried tree's logits err {err} ({rel:.3g}) or layouts disagree")
+        carried_txt.append(f"{head} stride {cq.stride(0)} -> {dq.stride(0)}, err {rel:.3g} of max|y|")
+
+    # Device times from CUDA graphs over enough weight copies to exceed the
+    # 50 MB L2 (each call reads its head cold, as a decode step does): the
+    # kernel against the bf16 cuBLAS head and the int8 head (w8 kernel), in
+    # turns cuBLAS, w8, w4, w4, w8, cuBLAS.
+    copies = lambda t: max(2, math.ceil(120e6 / (t.shape[0] * t.stride(0) * t.element_size())))
+    q4s = [q4] + [qm.pitched_codes(q4.clone()) for _ in range(copies(q4) - 1)]
+    q8s = [q8] + [qm.pitched_codes(q8.clone()) for _ in range(copies(q8) - 1)]
+    wbs = [wb] + [wb.clone() for _ in range(copies(wb) - 1)]
+    times = {}
+    for rows in W4_TIMED_ROWS:
+        x = torch.randn((rows, HEAD_K), generator=g, device=dev).to(torch.bfloat16)
+        k4 = [lambda qq=qq: qm.w4_matmul(x, qq, s4) for qq in q4s]
+        k8 = [lambda qq=qq: qm.w8_matmul(x, qq, s8) for qq in q8s]
+        lib = [lambda ww=ww: qm.mm_f32(x, ww) for ww in wbs]
+        l1, e1, a1, a2, e2, l2 = graph_ms(lib), graph_ms(k8), graph_ms(k4), graph_ms(k4), graph_ms(k8), graph_ms(lib)
+        b_ms, b_by = bound(q4.shape[0] * HEAD_N + nbytes(s4, x) + 4 * rows * HEAD_N)
+        times[rows] = dict(ms=(a1 + a2) / 2, int8_ms=(e1 + e2) / 2, cublas_ms=(l1 + l2) / 2, bound_ms=b_ms,
+                           bound_by=b_by)
+    times[6]["plain_ms"] = graph_ms([lambda qq=qq: qm.w4_matmul_torch(x6, qq, s4) for qq in q4s[:2]])
+    # The plan's (cluster, warps) against other shapes at 6 rows, the same way.
+    plan_w4, sweep = qm.w4_plan, {}
+    try:
+        for c, wp in ((1, 4), (1, 5), (1, 6), (2, 4), (2, 5)):
+            qm.w4_plan = lambda M_, N_, K_, b_, c=c, wp=wp: dict(plan_w4(M_, N_, K_, b_), cluster=c, warps=wp)
+            sweep[(c, wp)] = graph_ms([lambda qq=qq: qm.w4_matmul(x6, qq, s4) for qq in q4s])
+    finally:
+        qm.w4_plan = plan_w4
+    p6 = plan_w4(6, HEAD_N, HEAD_K, 64)
+    del q4s, q8s, wbs
+    # Time against the number of 128-column tiles, w4 beside w8 (twice the
+    # code bytes, the same tensor-core products per tile), at 6 rows over
+    # cold weights: whether the time follows bytes or blocks.
+    tiles = {}
+    for nt in W4_TILES:
+        wt = torch.randn((HEAD_K, 128 * nt), generator=g, device=dev) * 0.02
+        t4, t4s = qm.quantize_blockwise_int4(wt)
+        t8, t8s = qm.quantize_per_channel(wt)
+        t4l = [t4] + [t4.clone() for _ in range(copies(t4) - 1)]
+        t8l = [t8] + [t8.clone() for _ in range(copies(t8) - 1)]
+        tiles[nt] = (graph_ms([lambda qq=qq: qm.w4_matmul(x6, qq, t4s) for qq in t4l]),
+                     graph_ms([lambda qq=qq: qm.w8_matmul(x6, qq, t8s) for qq in t8l]))
+        del wt, t4l, t8l
+    # Host-launched back-to-back calls (the wrapper's Python included).
+    host_k, host_p = turns(lambda: qm.w4_matmul_torch(x6, q4, s4), lambda: qm.w4_matmul(x6, q4, s4))
+    prof = device_profile(lambda: [qm.w4_matmul(x6, q4, s4) for _ in range(20)], ["w4_matmul"])
     rec.setdefault("profile", {}).update(prof)
-    rec["w4_matmul"] = dict(max_abs_err=worst_abs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=bf16_ms)
-    rec["w4_detail"] = dict(rel_err=worst, int8_head_ms=w8_ms, bf16_head_ms=bf16_ms, rows1_ms=k1_ms, bytes=head_bytes)
-    log(f"phase 10 w4_matmul: ok {n_cases} cases ([1280 -> 51866], rows 1/6/8/48, bf16/f32 x); max err "
-        f"{worst_abs:.3g} ({worst:.3g} of max|y|); at 6 rows bf16: kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms; "
-        f"int8 head (w8 kernel) {w8_ms:.4f} ms; bf16 cuBLAS head {bf16_ms:.4f} ms; w4 at 1 row {k1_ms:.4f} ms; "
-        f"head bytes int4 {head_bytes['int4']} int8 {head_bytes['int8']} bf16 {head_bytes['bf16']}; bound "
-        f"{b_ms:.4f} ms ({b_by}); profiler {profile_text(prof)}")
+    t6 = times[6]
+    head_bytes = dict(int4=q4.shape[0] * HEAD_N + 2 * s4.numel(), int8=q8.shape[0] * HEAD_N + 4 * s8.numel(),
+                      bf16=2 * wb.numel())
+    rec["w4_matmul"] = dict(max_abs_err=worst_abs, ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
+                            bound_by=t6["bound_by"], library_ms=t6["cublas_ms"])
+    rec["w4_detail"] = dict(rel_err=worst, times=times, sweep={f"C={c} W={wp}": v for (c, wp), v in sweep.items()},
+                            plan6=p6, host_ms=host_k, host_plain_ms=host_p, bytes=head_bytes, tiles=tiles)
+    txt = "; ".join(f"{r} rows {v['ms']:.4f} (int8 head {v['int8_ms']:.4f}, bf16 cuBLAS {v['cublas_ms']:.4f}, bound "
+                    f"{v['bound_ms']:.4f}, {v['bound_ms'] / v['ms']:.0%})" for r, v in times.items())
+    log(f"phase 10 w4_matmul: ok {n_cases} cases ([1280 -> 51866] pitched and 1280x1280, rows "
+        f"{'/'.join(map(str, W4_ROWS))}, bf16/f32 x), one launch each; max err {worst_abs:.3g} ({worst:.3g} of "
+        f"max|y|); contiguous codes copied pitched: equal; carried JAX-layout trees: {'; '.join(carried_txt)}; "
+        f"device ms from CUDA graphs, cold weights, bf16 x: {txt}; plain at 6 rows {t6['plain_ms']:.4f} ms; by "
+        f"(cluster, warps) at 6 rows (plan {p6['cluster']}, {p6['warps']}): "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in sweep.items())
+        + "; by 128-column tiles at 6 rows (w4, w8 ms): " + ", ".join(
+            f"{nt}: {a:.4f}, {b:.4f}" for nt, (a, b) in tiles.items())
+        + f"; host-launched at 6 rows {host_k:.4f} ms vs plain {host_p:.4f} ms; head bytes int4 "
+        f"{head_bytes['int4']} int8 {head_bytes['int8']} bf16 {head_bytes['bf16']}; profiler {profile_text(prof)}")
 
 
 def graph_ms(calls, reps: int = 10) -> float:

@@ -20,12 +20,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_or(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Block-wide reductions: every thread gets the result.  `sh` holds >= 32
 // entries of shared scratch; blockDim.x is a multiple of 32.
 __device__ __forceinline__ float block_sum(float v, float* sh) {
@@ -56,20 +50,6 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
   return sh[0];
 }
 
-__device__ __forceinline__ int block_or(int v, int* sh) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_or(v);
-  __syncthreads();
-  if (lane == 0) sh[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = warp_or(lane < nw ? sh[lane] : 0);
-    if (lane == 0) sh[0] = v;
-  }
-  __syncthreads();
-  return sh[0];
-}
-
 // Arg-max with the first-index tie rule: (key, idx) pairs, larger key wins,
 // equal keys keep the smaller index.  Keys must not be NaN.
 __device__ __forceinline__ void argmax_combine(float& k, int& i, float k2, int i2) {
@@ -77,35 +57,6 @@ __device__ __forceinline__ void argmax_combine(float& k, int& i, float k2, int i
     k = k2;
     i = i2;
   }
-}
-
-__device__ __forceinline__ int block_argmax(float k, int i, float* shk, int* shi) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float k2 = __shfl_xor_sync(0xffffffffu, k, o);
-    int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-    argmax_combine(k, i, k2, i2);
-  }
-  __syncthreads();
-  if (lane == 0) {
-    shk[w] = k;
-    shi[w] = i;
-  }
-  __syncthreads();
-  if (w == 0) {
-    k = lane < nw ? shk[lane] : -CUDART_INF_F;
-    i = lane < nw ? shi[lane] : 0x7fffffff;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      float k2 = __shfl_xor_sync(0xffffffffu, k, o);
-      int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-      argmax_combine(k, i, k2, i2);
-    }
-    if (lane == 0) shi[0] = i;
-  }
-  __syncthreads();
-  return shi[0];
 }
 
 // Philox4x32-10 (Salmon et al., SC'11): 128 random bits per (counter, key).

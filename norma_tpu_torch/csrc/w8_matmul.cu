@@ -42,20 +42,14 @@
 // Code rows must start 16-byte aligned: the row pitch (ldq) is a multiple
 // of 16 bytes (the int8 head's codes carry such a pitch, ops/quant_matmul.py
 // ::pitched_codes), and K is a multiple of 16.
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "wstream.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;                // warps per block
-constexpr int kStages = 4;               // ring depth per warp
-constexpr int kKB = 32;                  // contraction rows per stage
-constexpr int kBN = 128;                 // output columns per block
-constexpr int kCodeStage = kKB * kBN;    // code bytes per stage
+using namespace norma::wstream;
+
+constexpr int kWarps = 4;   // warps per block
+constexpr int kStages = 4;  // ring depth per warp
 
 template <int RT, bool F32X>
 struct Shape {
@@ -70,21 +64,6 @@ struct Shape {
   static constexpr int kSmem = kRing > kSlots ? kRing : kSlots;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Bytes 0 and 2 of w (int8) -> bf16x2, exactly: with m the low 7 bits and
 // s the sign bit, v = (128 + m) + (s ? -256 : -128).
 __device__ __forceinline__ uint32_t s8pair_bf16(uint32_t w) {
@@ -93,23 +72,6 @@ __device__ __forceinline__ uint32_t s8pair_bf16(uint32_t w) {
   uint32_t r;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(lo), "r"(0x3F803F80u), "r"(c));
   return r;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 template <int RT, bool F32X>
@@ -138,16 +100,7 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
     if (st < s_end) {
       const uint32_t base = smem_addr(ring + slot * S::kStage);
       const int k0 = st * kKB;
-      // Codes: 32 rows x 8 chunks of 16 bytes; chunk c of row r lands at
-      // c ^ 2 * ((r / 4) % 4), which spreads the compute's reads (rows
-      // 4 tq + i, chunk g) over all banks.
-#pragma unroll
-      for (int v = 0; v < kCodeStage / 16 / 32; ++v) {
-        const int i = lane + 32 * v, r = i >> 3, c = i & 7;
-        const int k = k0 + r, n = n0 + 16 * c;
-        const bool ok = k < kend && n < N;
-        cp16(base + r * kBN + ((c ^ (((r >> 2) & 3) << 1)) << 4), ok ? q + (size_t)k * ldq + n : q, ok);
-      }
+      issue_codes(base, q, ldq, k0, kend, n0, N, lane);
       // x: kRows rows x kXChunks chunks, zeros past M and past this range.
       for (int i = lane; i < S::kRows * S::kXChunks; i += 32) {
         const int rho = i / S::kXChunks, c = i % S::kXChunks;
@@ -162,12 +115,7 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
   };
 
   float acc[RT][8][4];
-#pragma unroll
-  for (int t = 0; t < RT; ++t)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  zero(acc);
 
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) issue(s_begin + p, p);
@@ -181,9 +129,7 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
     for (int s = 0; s < kKB / 16; ++s) {
       // Rows 16 s + 4 tq + (0..3), columns n0 + 16 g .. + 15.
       uint4 R[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        R[r] = *reinterpret_cast<const uint4*>(stage + (16 * s + 4 * tq + r) * kBN + ((g ^ (tq << 1)) << 4));
+      load_codes(R, stage, s, g, tq);
       // B fragments: x[8 t + g][k0 + 16 s + 4 tq .. + 3], as XP bf16 parts.
       uint32_t bx[RT][XP][2];
 #pragma unroll
@@ -191,19 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
         const int rho = 8 * t + g;
         if constexpr (F32X) {
           const int phys = (4 * s + tq) ^ ((rho & 1) << 2);
-          const float4 f = *reinterpret_cast<const float4*>(xs + rho * S::kXRow + (phys << 4));
-          float v[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-          for (int p = 0; p < XP; ++p) {
-            float part[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              part[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
-              v[e] -= part[e];  // exact: the remainder of a rounding to 8 bits
-            }
-            bx[t][p][0] = bf16x2_bits(part[0], part[1]);
-            bx[t][p][1] = bf16x2_bits(part[2], part[3]);
-          }
+          split_x<XP>(*reinterpret_cast<const float4*>(xs + rho * S::kXRow + (phys << 4)), bx[t]);
         } else {
           const int off = 32 * s + 8 * tq;
           const int phys = (off >> 4) ^ (((rho >> 1) & 1) << 1);
@@ -215,9 +149,8 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
       // A fragments per 16-column tile j: columns 16 g + 2 j (+1).
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
-        const uint32_t p01 = __byte_perm(word_of(R[0], j >> 1), word_of(R[1], j >> 1), sel);
-        const uint32_t p23 = __byte_perm(word_of(R[2], j >> 1), word_of(R[3], j >> 1), sel);
+        uint32_t p01, p23;
+        fragment_bytes(R, j, p01, p23);
         const uint32_t a[4] = {s8pair_bf16(p01), s8pair_bf16(p01 >> 8), s8pair_bf16(p23), s8pair_bf16(p23 >> 8)};
 #pragma unroll
         for (int t = 0; t < RT; ++t)
@@ -228,39 +161,7 @@ __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
     __syncwarp();  // the slot is read: the next issue may overwrite it
     issue(st + kStages - 1, (i + kStages - 1) % kStages);
   }
-  cp_wait<0>();
-  __syncthreads();  // every warp is done with the ring: it becomes the slots
-
-  // Warp w's partial tile to slot w, [row][column] f32.
-  float* slots = reinterpret_cast<float*>(smem);
-  float* mine = slots + warp * S::kTile;
-#pragma unroll
-  for (int t = 0; t < RT; ++t)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = 8 * t + 2 * tq, n = 16 * g + 2 * j;
-      *reinterpret_cast<float2*>(mine + m * kBN + n) = make_float2(acc[t][j][0], acc[t][j][2]);
-      *reinterpret_cast<float2*>(mine + (m + 1) * kBN + n) = make_float2(acc[t][j][1], acc[t][j][3]);
-    }
-  __syncthreads();
-  // The block's sum, warps in order, into slot 0.
-  for (int e = tid; e < S::kTile; e += blockDim.x) {
-    float v = slots[e];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += slots[w * S::kTile + e];
-    slots[e] = v;
-  }
-  cluster.sync();
-  // This block's slice of the tile: the cluster's blocks in rank order, then
-  // the scale.
-  const int slice = S::kTile / C;
-  for (int e = rank * slice + tid; e < (rank + 1) * slice; e += blockDim.x) {
-    float v = 0.f;
-    for (int r = 0; r < C; ++r) v += cluster.map_shared_rank(slots, r)[e];
-    const int m = m0 + e / kBN, n = n0 + e % kBN;
-    if (m < M && n < N) out[(size_t)m * N + n] = v * scale[n];
-  }
-  cluster.sync();  // no block leaves while another reads its slot 0
+  reduce_store(acc, smem, kWarps, cluster, out, scale, M, N, m0, n0);
 }
 
 template <int RT, bool F32X>
@@ -274,23 +175,8 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out, i
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  const long long tiles = (N + kBN - 1) / kBN, rows = (M + S::kRows - 1) / S::kRows;
-  if (tiles * cluster > 0x7fffffffLL || rows > 65535) return cudaErrorInvalidConfiguration;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles * cluster), (unsigned)rows, 1);
-  cfg.blockDim = dim3(kWarps * 32, 1, 1);
-  cfg.dynamicSmemBytes = S::kSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, (const int8_t*)q, (const float*)scale, (float*)out, M,
-                                           N, K, ldq);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_cluster(kernel, (N + kBN - 1) / kBN, (M + S::kRows - 1) / S::kRows, cluster, kWarps * 32,
+                        S::kSmem, stream, x, (const int8_t*)q, (const float*)scale, (float*)out, M, N, K, ldq);
 }
 
 template <bool F32X>

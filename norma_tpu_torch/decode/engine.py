@@ -65,6 +65,7 @@ from ..model.whisper import (
 )
 from ..ops import flash_encoder, mel_pallas, paged_cross, quant_matmul, self_decode
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
+from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
 from ..tracing import decode_telemetry, instrument
 from .masks import SpecialTokens, build_masks
@@ -281,16 +282,20 @@ class DecodeEngine:
 
     @staticmethod
     def _kernel_params(params: Params, cfg: WhisperConfig, device: torch.device) -> Params:
-        """The tree the engine runs on: on CUDA with the w8a8 encoder, its
-        own tree with K-major copies of the encoder's codes (the int8 GEMM
-        kernel's layout, same values); else ``params`` itself.  The
+        """The tree the engine runs on: on CUDA, its own tree where the
+        kernels need another layout of the same values -- the logits
+        heads' codes with 16-byte aligned rows (``head_kernel_layout``: a
+        tree carried from numpy or moved with ``.to`` loses that pitch)
+        and, with the w8a8 encoder, K-major copies of the encoder's codes
+        (the int8 GEMM kernel's layout); else ``params`` itself.  The
         caller's params are never changed."""
-        if (
-            device.type == "cuda"
-            and cfg.encoder_q8_mode in ("w8a8", "w8a8_pallas")
-            and "fc1_w_q" in params["encoder"]["layers"]
-        ):
-            return prep_encoder_q8_kernel(params)
+        if device.type != "cuda":
+            return params
+        if cfg.encoder_q8_mode in ("w8a8", "w8a8_pallas") and "fc1_w_q" in params["encoder"]["layers"]:
+            params = prep_encoder_q8_kernel(params)
+        dec = head_kernel_layout(params["decoder"])
+        if dec is not params["decoder"]:
+            params = Params({**dict(params.items()), "decoder": dec})
         return params
 
     def _host(self, t: torch.Tensor) -> np.ndarray:

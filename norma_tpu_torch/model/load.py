@@ -48,6 +48,8 @@ class Params(nn.Module):
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, Params(v))
+            elif isinstance(v, Params):  # a subtree shared with another tree
+                self.add_module(k, v)
             else:
                 self.register_buffer(k, v)
 

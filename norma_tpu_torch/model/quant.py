@@ -6,8 +6,9 @@
     f32) beside ``tok_emb``,
     which the token embedding keeps using;
   - :func:`quantize_logits_head_int4` — a blockwise-int4 head
-    (``tok_emb_q4``: nibble-packed codes [D/2, V] int8, scales [D/64, V]
-    bf16), half the int8 head's bytes.  Each head tier drops the other, so
+    (``tok_emb_q4``: nibble-packed codes [D/2, V] int8 whose rows start
+    16-byte aligned, as the int8 head's; scales [D/64, V] bf16), half the
+    int8 head's bytes.  Each head tier drops the other, so
     the one asked for last is the one ``logits_head`` runs;
   - :func:`quantize_decoder` — every decoder-layer matmul weight as
     per-(layer, out-channel) int8 (``name_q`` + ``name_s``), plus the int8
@@ -89,7 +90,8 @@ def quantize_logits_head_int4(params: Params, block: int = 64) -> Params:
     any int8 head dropped)."""
     tree = _tree(params)
     q, s = quantize_blockwise_int4(tree["decoder"]["tok_emb"].t(), block)  # [D/2, V], [D/block, V]
-    tree["decoder"]["tok_emb_q4"] = {"q": q, "s": s}
+    # Rows padded to 16 bytes (the same [D/2, V] values), as the int8 head's.
+    tree["decoder"]["tok_emb_q4"] = {"q": pitched_codes(q), "s": s}
     tree["decoder"].pop("tok_emb_q8", None)
     return Params(tree)
 

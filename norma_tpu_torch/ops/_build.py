@@ -43,7 +43,8 @@ SIGNATURES = {
         P, P, P,  # prev1, prev2, last_ts
         I, P,  # step (shared), step_rows (per-row or NULL)
         P, U64, P,  # temp, seed (by value), seed (device 64-bit, or NULL)
-        I, I, I, I, I,  # B, V, eot, no_timestamps, greedy_only
+        I, I, I, I,  # B, V, cluster size, slice length
+        I, I, I,  # eot, no_timestamps, greedy_only
         P, P, P,  # nxt, prob, deadlock
         P,  # stream
     ],
@@ -86,9 +87,9 @@ SIGNATURES = {
         P,  # stream
     ],
     "norma_w4_matmul": [
-        P, P, P, P, P,  # x, q, scale, out, workspace (or NULL)
-        I, I, I, I,  # M, N, K, blk
-        I, I, I,  # splits, warps, is_bf16
+        P, P, P, P,  # x, q, scale, out
+        I, I, I, I64, I,  # M, N, K, code row pitch, blk
+        I, I, I, I,  # row tiles of 8, cluster size, warps, is_bf16
         P,  # stream
     ],
     "norma_log_mel": [

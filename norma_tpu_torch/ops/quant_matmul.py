@@ -7,8 +7,8 @@
     with x in the model dtype (the int8 decoder layers).  Both route
     through one wrapper: the CUDA kernel (``csrc/w8_matmul.cu``, the port
     of ``w8_matmul_pallas``: one launch, bf16 tensor cores, launch shape
-    from :func:`w8_plan`; code rows 16-byte aligned, :func:`pitched_codes`)
-    for CUDA tensors, the plain version
+    from :func:`w8_plan`; code rows 16-byte aligned, :func:`pitched_codes`,
+    other layouts copied for the call) for CUDA tensors, the plain version
     (:func:`w8_matmul_torch` / :func:`w8_dense_torch`: exact widening, f32
     accumulation, times the scale) for CPU tensors; ``w8_matmul.launches``
     counts the kernel's launches through either;
@@ -16,10 +16,14 @@
     split-half nibble packing with bf16 scales per (block, column),
     bit-equal to the JAX package's;
   - :func:`w4_matmul` — w4a16 over those codes: the CUDA kernel
-    (``csrc/w4_matmul.cu``, the port of ``w4_matmul_pallas``) for CUDA
-    tensors, the plain :func:`w4_matmul_torch` (``w4_matmul_jnp``: per-block
-    f32 partials times the f32 scale, summed) for CPU tensors;
+    (``csrc/w4_matmul.cu``, the port of ``w4_matmul_pallas``: w8's design
+    with the nibbles widened per half and the block scales applied per
+    scale block, launch shape from :func:`w4_plan`, pitched code rows) for
+    CUDA tensors, the plain :func:`w4_matmul_torch` (``w4_matmul_jnp``:
+    per-block f32 partials times the f32 scale, summed) for CPU tensors;
     ``w4_matmul.launches`` counts kernel launches;
+  - :func:`head_kernel_layout` — the logits heads' codes in the kernels'
+    pitched layout, set where the params reach the card (``DecodeEngine``);
   - :func:`quantize_activations` — per-row dynamic int8 activations;
   - :func:`q8a8_dense_torch` — the plain w8a8 product, with the integer
     accumulation exact (float64 on every device: every partial sum of
@@ -98,17 +102,10 @@ def quantize_axis(w: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tenso
     return q.contiguous(), scale.contiguous()
 
 
-# -- weight-streaming kernels (csrc/wgemv.cuh) --------------------------------
+# -- weight-streaming kernels (csrc/wstream.cuh: w8_matmul.cu, w4_matmul.cu) --
 
-# Block shape of csrc/wgemv.cuh (the w4 kernel): most warps per block,
-# floats of x a block stages.
-_WG_WARPS, _WG_XTILE = 8, 8192
 _H100_SMS = 132
 _X_DTYPES = (torch.float32, torch.bfloat16)
-# Row tile of the w4 kernel (x rows per block).  At 4 rows its 2 x 4 x 16
-# f32 accumulators per thread spill, and it ran 1.4-2x slower than at 2
-# rows at every M on the H100.
-_W4_BM = 2
 
 
 # Tiles of csrc/w8_matmul.cu: output columns per block, warps per block,
@@ -141,7 +138,7 @@ def pitched_codes(q: torch.Tensor) -> torch.Tensor:
     when its rows already are).  The w8 kernel streams code rows with
     16-byte copies; the int8 head (N = 51866) needs the padding."""
     K, N = q.shape
-    if q.stride(1) == 1 and q.stride(0) % 16 == 0 and q.stride(0) >= N:
+    if q.stride(1) == 1 and q.stride(0) % 16 == 0 and q.stride(0) >= N and q.data_ptr() % 16 == 0:
         return q
     P = -(-N // 16) * 16
     buf = torch.zeros((K, P), dtype=q.dtype, device=q.device)
@@ -149,15 +146,55 @@ def pitched_codes(q: torch.Tensor) -> torch.Tensor:
     return buf[:, :N]
 
 
-def w4_plan(K: int, block: int) -> Tuple[int, int]:
-    """(splits, warps) of a w4 launch: one warp per packed block of
-    ``block`` rows (K / 2 / block of them), the most warps a block's x tile
-    allows that divide them evenly."""
-    npb = K // 2 // block
-    fits = [d for d in range(1, _WG_WARPS + 1) if npb % d == 0 and 2 * _W4_BM * d * block <= _WG_XTILE]
-    if not fits:
-        raise ValueError(f"w4 kernel: scale block {block} too large (at most {_WG_XTILE // (2 * _W4_BM)})")
-    return npb // fits[-1], fits[-1]
+# Tiles of csrc/w4_matmul.cu: warps per block it may run (the block's
+# ring and totals fit the shared memory at 4-6 warps up to 16 rows, at 4
+# warps at 32), largest cluster, the scale blocks it takes.
+_W4_WARPS, _W4_WARPS_RT4, _W4_CLUSTER, _W4_BLOCKS = (4, 5, 6), (4,), 8, (32, 64)
+
+
+def w4_plan(M: int, N: int, K: int, blk: int) -> dict:
+    """Launch shape of the w4 kernel for x [M, K] and packed codes [K/2, N]
+    with scale blocks of ``blk`` rows: ``rt`` row tiles of 8 (as
+    :func:`w8_plan`: up to 32 rows every code byte is read once),
+    ``row_blocks`` x ``tiles`` blocks of 128 columns, and the ``units``
+    (K/2/blk packed blocks, one scale block of each half) shared by a
+    cluster of ``cluster`` blocks of ``warps`` warps.  The cluster doubles
+    while the blocks still fit one per SM of the H100 and every warp of 4
+    keeps a unit (at the head's 406 column tiles it stays 1, as w8's); then
+    the warps (4-6 up to 16 rows) are the fewest that leave the fewest
+    units to the busiest warp."""
+    if blk not in _W4_BLOCKS or K % 2 or (K // 2) % blk:
+        raise ValueError(f"w4 kernel needs a scale block in {_W4_BLOCKS} dividing K/2, got block {blk}, K={K}")
+    rt = 1 if M <= 8 else 2 if M <= 16 else 4
+    row_blocks, tiles = math.ceil(M / (8 * rt)), math.ceil(N / _W8_BN)
+    units = K // 2 // blk
+    cluster = 1
+    while (cluster < _W4_CLUSTER and row_blocks * tiles * 2 * cluster <= _H100_SMS
+           and 4 * 2 * cluster <= units):
+        cluster *= 2
+    warps = min(_W4_WARPS_RT4 if rt == 4 else _W4_WARPS, key=lambda w: (math.ceil(units / (w * cluster)), w))
+    return dict(rt=rt, row_blocks=row_blocks, tiles=tiles, cluster=cluster, warps=warps, units=units)
+
+
+def head_kernel_layout(dec):
+    """The decoder subtree with the heads' codes in the kernels' layout:
+    ``tok_emb_q8.q`` and ``tok_emb_q4.q`` with rows starting 16-byte
+    aligned (:func:`pitched_codes`: the same values), every other leaf and
+    subtree shared as it is; ``dec`` itself when nothing changes.  A tree
+    carried from numpy (``model/load.py::params_from_numpy``) or moved by
+    ``.to(device)`` has contiguous head codes, whose rows at V = 51866 are
+    not aligned.  ``DecodeEngine`` applies this on CUDA to its own tree, so
+    the caller's params stay as they are."""
+    heads = {}
+    for name in ("tok_emb_q8", "tok_emb_q4"):
+        if name in dec:
+            q = pitched_codes(dec[name]["q"])
+            if q is not dec[name]["q"]:
+                heads[name] = {**dict(dec[name].items()), "q": q}
+    if not heads:
+        return dec
+    tree = {**dict(dec.items()), **heads}
+    return tree if isinstance(dec, dict) else type(dec)(tree)
 
 
 def _w8_shapes(x, q, scale):
@@ -189,7 +226,10 @@ def w8_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
 @torch.no_grad()
 def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`w8_dense_torch`, x f32 or bf16.  CUDA
-    tensors launch the w8 kernel, CPU tensors run the plain version."""
+    tensors launch the w8 kernel, CPU tensors run the plain version.  The
+    kernel reads code rows that start 16-byte aligned (:func:`pitched_codes`:
+    the int8 head's layout from the quantizer and ``DecodeEngine``); codes
+    in any other layout are copied into it for this call."""
     K, N = _w8_shapes(x, q, scale)
     dev = x.device
     if dev.type == "cpu":
@@ -198,11 +238,7 @@ def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
         raise ValueError(f"w8_dense: unsupported device {dev}")
     if x.dtype not in _X_DTYPES or scale.dtype != torch.float32:
         raise TypeError(f"w8 kernel needs x in {_X_DTYPES} and f32 scales, got {x.dtype}, {scale.dtype}")
-    if q.stride(1) != 1 or q.stride(0) % 16 or q.stride(0) < N or q.data_ptr() % 16:
-        raise ValueError(
-            "w8 kernel needs [K, N] codes whose rows start 16-byte aligned (unit column stride, "
-            f"a row pitch that is a multiple of 16: ops/quant_matmul.py::pitched_codes), got strides {q.stride()}"
-        )
+    q = pitched_codes(q)  # a copy for this call unless the rows start 16-byte aligned
     if K % 16:
         raise ValueError(f"w8 kernel needs K a multiple of 16, got {K}")
     x2 = x.reshape(-1, K)
@@ -290,8 +326,12 @@ def w4_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
 @torch.no_grad()
 def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`w4_matmul_torch`, x f32 or bf16.  CUDA
-    tensors launch the w4 kernel (bf16 scales), CPU tensors run the plain
-    version."""
+    tensors launch the w4 kernel (bf16 scales; launch shape from
+    :func:`w4_plan`), CPU tensors run the plain version.  The kernel reads
+    code rows that start 16-byte aligned (:func:`pitched_codes`, the
+    layout the quantizer and ``DecodeEngine`` give the head); codes in any
+    other layout are copied into it for this call, as :func:`q8a8_dense`
+    copies unprepped codes."""
     K, N, block = _w4_shapes(x, q, scale)
     dev = x.device
     if dev.type == "cpu":
@@ -300,21 +340,19 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError(f"w4_matmul: unsupported device {dev}")
     if x.dtype not in _X_DTYPES or scale.dtype != torch.bfloat16:
         raise TypeError(f"w4 kernel needs x in {_X_DTYPES} and bf16 scales, got {x.dtype}, {scale.dtype}")
-    if not (q.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("w4 kernel needs contiguous codes and scales")
-    if (K // 2) % block:
-        raise ValueError(f"w4 kernel needs the scale block ({block}) to divide K/2 ({K // 2})")
-    x2 = x.reshape(-1, K).contiguous()
+    x2 = x.reshape(-1, K)
     M = x2.shape[0]
+    plan = w4_plan(M, N, K, block)
+    q = pitched_codes(q)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
-    splits, warps = w4_plan(K, block)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    scale = scale.contiguous()
     code = _build.lib().norma_w4_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, M, N, K, block, splits, warps,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, q.stride(0), block,
+        plan["rt"], plan["cluster"], plan["warps"], int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
     )
     _build.check(code, "w4 kernel")
     w4_matmul.launches += 1

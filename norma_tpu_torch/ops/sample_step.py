@@ -10,10 +10,12 @@ sampling and the chosen token's probability:
     the kernel's oracle).  Its t>0 draw takes uniforms ``u`` (or draws them
     from a ``torch.Generator``);
   - :func:`sample_step` — the wrapper: the CUDA kernel
-    (``csrc/sample_step.cu``) for CUDA tensors, whose t>0 draw uses Philox
-    keyed by ``seed`` with counter (group, row, step); the plain version
-    for CPU tensors.  It raises on dtypes, shapes and devices the kernel
-    does not take, and never falls back.  ``sample_step.launches`` counts
+    (``csrc/sample_step.cu``: each row on a thread-block cluster of CTAs
+    that each hold a slice of the vocab, :func:`sample_step_plan`) for CUDA
+    tensors, whose t>0 draw uses Philox keyed by ``seed`` with counter
+    (group, row, step); the plain version for CPU tensors.  It raises on
+    dtypes, shapes and devices the kernel does not take, and never falls
+    back.  ``sample_step.launches`` counts
     kernel launches;
   - :func:`philox_uniform` — the kernel's uniforms for (seed, step, row,
     token), so a test can feed the plain version the kernel's exact draws.
@@ -110,6 +112,35 @@ def sample_step_torch(
     return nxt.to(torch.int32), prob, deadlock
 
 
+# csrc/sample_step.cu: largest cluster (16 is the H100's non-portable
+# limit), largest slice (f32 logits in shared memory).
+_SS_MAX_CLUSTER, _SS_MAX_SLICE = 16, 229376 // 4
+_H100_SMS = 132
+
+
+def sample_step_plan(B: int, V: int) -> dict:
+    """Launch shape of the sampling kernel for B rows of V logits: each
+    row on a cluster of ``cluster`` CTAs (a power of two up to 16) holding
+    ``slice`` vocab ids each (a multiple of 4, so no Philox group of 4
+    straddles two CTAs) in ``smem_bytes`` of shared memory.  The cluster
+    doubles while B x cluster stays within the H100's 132 SMs (8 rows x 16
+    = 128) and every CTA keeps some of the row, and further if a slice
+    would not fit the shared memory."""
+    if B <= 0 or V <= 0:
+        raise ValueError(f"sample_step_plan: B and V must be positive, got {B}, {V}")
+    slice_of = lambda c: -(-(-(-V // c)) // 4) * 4
+    cluster = 1
+    while cluster < _SS_MAX_CLUSTER and (
+        (B * 2 * cluster <= _H100_SMS and (2 * cluster - 1) * slice_of(2 * cluster) < V)
+        or slice_of(cluster) > _SS_MAX_SLICE
+    ):
+        cluster *= 2
+    if slice_of(cluster) > _SS_MAX_SLICE:
+        raise ValueError(f"sample_step kernel: V={V} needs more than {_SS_MAX_CLUSTER} slices of shared memory")
+    L = slice_of(cluster)
+    return dict(cluster=cluster, slice=L, smem_bytes=4 * L, grid=(cluster, B))
+
+
 def _validate(ll, masks, rows, temp, step) -> None:
     if ll.dim() != 2 or ll.dtype != torch.float32 or not ll.is_contiguous():
         raise ValueError(f"logits must be contiguous f32 [B, V], got {ll.dtype} {tuple(ll.shape)}")
@@ -168,6 +199,7 @@ def sample_step(
     if dev.type != "cuda":
         raise ValueError(f"sample_step: unsupported device {dev}")
     B, V = ll.shape
+    plan = sample_step_plan(B, V)
     nxt = torch.empty(B, dtype=torch.int32, device=dev)
     prob = torch.empty(B, dtype=torch.float32, device=dev)
     dead = torch.empty(B, dtype=torch.bool, device=dev)
@@ -181,7 +213,7 @@ def sample_step(
         0 if per_row else int(step), step.data_ptr() if per_row else None,
         temp.data_ptr(), 0 if dev_seed else seed & 0xFFFFFFFFFFFFFFFF,
         seed.data_ptr() if dev_seed else None,
-        B, V, eot, no_timestamps, int(greedy_only),
+        B, V, plan["cluster"], plan["slice"], eot, no_timestamps, int(greedy_only),
         nxt.data_ptr(), prob.data_ptr(), dead.data_ptr(),
         _build.stream_ptr(dev),
     )

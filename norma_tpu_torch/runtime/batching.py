@@ -272,19 +272,26 @@ class BatchedTranscriber:
                 self._streams.pop(sid, None)
                 self._slot_cond.notify_all()
             raise
-        closed_raced = False
+        closed_raced = retired = False
         with self._lock:
             if self._closed.is_set():
-                # close() raced the unlocked start: its snapshot may have
-                # stopped the pipeline BEFORE start() ran (stop-then-start
-                # leaves the source's worker live behind a closed
-                # transcriber), so stop again — idempotent — outside the
-                # lock (it joins the worker thread).
+                # close() or a fatal round raced the unlocked start: its
+                # snapshot may have stopped the pipeline BEFORE start() ran
+                # (stop-then-start leaves the source's worker live behind a
+                # closed transcriber), so stop again — idempotent — outside
+                # the lock (it joins the worker thread).
                 closed_raced = True
+                # A stream the teardown already retired was served: its
+                # sender is closed, so its handle's receiver ends (a fast
+                # source can fill the ring and a fatal round retire the
+                # stream before start() returns).  One still registered was
+                # never seen by the teardown: it is refused.
+                retired = sid not in self._streams
                 self._streams.pop(sid, None)
         if closed_raced:
             pipeline.stop()
-            raise NormaError("BatchedTranscriber is closed")
+            if not retired:
+                raise NormaError("BatchedTranscriber is closed")
         return BatchedStreamHandle(self, sid, schan.receiver())
 
     def _stop_stream(self, sid: int) -> None:

@@ -99,6 +99,37 @@ def test_fatal_decode_error_tears_down(model, monkeypatch):
         assert s.pipeline._stopped
 
 
+@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_fatal_round_before_start_returns(model, monkeypatch):
+    """Fault (a flake of test_fatal_decode_error_tears_down, 1 in 50 runs
+    under -n 6): a fast source can fill its ring, and a fatal round retire
+    the stream, before the source's start() returns in blocking_start.  The
+    admitted, served stream then gets its handle (its receiver ends), not a
+    "closed" error.  start() is held here until the teardown has run, so
+    the race always goes that way."""
+    from norma_tpu_torch.audio.pipeline import StreamPipeline
+
+    bt = BatchedTranscriber(model, max_streams=2)
+    monkeypatch.setattr(
+        bt, "_dispatch_round", lambda ready: (_ for _ in ()).throw(RuntimeError("device lost"))
+    )
+    start = StreamPipeline.start
+
+    def start_then_wait_for_teardown(self):
+        start(self)
+        assert bt._closed.wait(timeout=10)
+        bt._thread.join(timeout=10)
+
+    monkeypatch.setattr(StreamPipeline, "start", start_then_wait_for_teardown)
+    h = bt.blocking_start(Settings(source=_source(3, seconds=0.6)))
+    assert list(h.receiver) == []
+    assert not bt._thread.is_alive() and bt._closed.is_set()
+    with bt._lock:
+        assert not bt._streams
+    with pytest.raises(NormaError, match="closed"):
+        bt.blocking_start(Settings(source=_source(4)))
+
+
 def test_batch_size_padding():
     bs = BatchedTranscriber._batch_size
     assert [bs(n, 8) for n in (1, 2, 3, 4, 5, 8)] == [1, 2, 4, 4, 8, 8]

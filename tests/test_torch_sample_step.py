@@ -186,3 +186,29 @@ def test_wrapper_rejects_bad_inputs():
             0, torch.zeros(2), eot=ST.eot, no_timestamps=ST.no_timestamps,
         )
     assert ss.sample_step.launches == 0  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("B,V", [(1, 51866), (6, 51866), (8, 51866), (16, 51866), (48, 51866), (200, 51866),
+                                 (3, 51869), (6, V), (8, 7), (1, 300000)])
+def test_sample_step_plan(B, V):
+    """The kernel's clusters: slices of a multiple of 4 ids (no Philox
+    group straddles two CTAs) that split the row with every CTA holding
+    some of it, B x cluster within the H100's 132 SMs where a row fits one
+    CTA's shared memory, the cluster as large as that allows, and each
+    slice within the shared memory."""
+    plan = ss.sample_step_plan(B, V)
+    C, L = plan["cluster"], plan["slice"]
+    assert C in (1, 2, 4, 8, 16) and L % 4 == 0
+    assert (C - 1) * L < V <= C * L  # every CTA has work, the slices cover the row
+    assert plan["smem_bytes"] == 4 * L <= 229376 and plan["grid"] == (C, B)
+    if 4 * -(-V // 4) <= 229376:  # a row fits one CTA
+        assert B * C <= 132 or C == 1
+        L2 = 4 * -(-(-(-V // (2 * C))) // 4)
+        assert C == 16 or B * 2 * C > 132 or (2 * C - 1) * L2 >= V  # it grew as far as it could
+    if V == 51866:
+        assert C == {1: 16, 6: 16, 8: 16, 16: 8, 48: 2, 200: 1}[B]
+
+
+def test_sample_step_plan_rejects_rows_past_the_clusters():
+    with pytest.raises(ValueError, match="slices"):
+        ss.sample_step_plan(1, 16 * 229376 // 4 + 4)

@@ -11,8 +11,10 @@ package, on the CPU (where each wrapper runs its plain version).
     (fault: a leftover int4 head would win logits_head's dispatch);
   - the weight carry keeps the int4 head's codes int8 and scales bf16;
   - logits_head with q4 and an int4-head engine match JAX at f32;
-  - the kernel launch plans cover the contraction and, for w8, read the
-    codes once for up to 32 rows.
+  - both heads' codes come out pitched (16-byte aligned rows), and a
+    carried JAX tree gets that layout in the engine's own tree on the card;
+  - the kernel launch plans cover the contraction and read the codes once
+    for up to 32 rows.
 """
 
 import jax.numpy as jnp
@@ -140,11 +142,37 @@ def test_w8_plan_covers_the_contraction(M, N, K):
         assert plan["row_blocks"] == 1  # every code byte read once for all rows
 
 
-@pytest.mark.parametrize("K,block", [(1280, 64), (1280, 32), (256, 64), (5120, 64)])
-def test_w4_plan_one_warp_per_packed_block(K, block):
-    splits, warps = pq.w4_plan(K, block)
-    assert splits * warps == K // 2 // block and 1 <= warps <= 8
-    assert 2 * 2 * warps * block <= 8192  # both halves of 2 x rows fit the x tile
+@pytest.mark.parametrize("M,N,K,block", [(1, 51866, 1280, 64), (6, 51866, 1280, 64), (8, 51866, 1280, 64),
+                                         (16, 51866, 1280, 64), (32, 51866, 1280, 64), (48, 51866, 1280, 32),
+                                         (6, 1280, 1280, 64), (200, 1280, 1280, 32), (3, 700, 128, 64)])
+def test_w4_plan_covers_the_units(M, N, K, block):
+    """w4_plan: row tiles cover M (one row block up to 32 rows: every code
+    byte read once), column tiles cover N, and the cluster's warps share
+    the K/2/block units; the cluster stays within the SMs and gives every
+    warp of 4 a unit."""
+    plan = pq.w4_plan(M, N, K, block)
+    rows = 8 * plan["rt"]
+    assert plan["rt"] in (1, 2, 4) and plan["row_blocks"] * rows >= M > (plan["row_blocks"] - 1) * rows
+    assert plan["tiles"] * 128 >= N > (plan["tiles"] - 1) * 128
+    assert plan["units"] == K // 2 // block
+    c, w = plan["cluster"], plan["warps"]
+    assert c in (1, 2, 4, 8) and (c == 1 or 4 * c <= plan["units"])  # every warp of 4 has a unit
+    assert plan["row_blocks"] * plan["tiles"] * c <= 132 or c == 1  # one block per SM at the most
+    if c < 8 and 8 * c <= plan["units"]:  # it stopped growing because twice the blocks pass one per SM
+        assert plan["row_blocks"] * plan["tiles"] * 2 * c > 132
+    assert w in ((4,) if plan["rt"] == 4 else (4, 5, 6))  # the shared memory the kernel's ring needs
+    busiest = -(-plan["units"] // (w * c))
+    assert all(-(-plan["units"] // (v * c)) >= busiest for v in (4, 5, 6) if plan["rt"] < 4)
+    if M <= 32:
+        assert plan["row_blocks"] == 1
+    if (M, N) == (6, 51866):
+        assert (c, w) == (1, 5)  # the head's 406 column tiles: no K split; 10 units over 5 warps
+
+
+@pytest.mark.parametrize("block", [16, 128])
+def test_w4_plan_rejects_other_blocks(block):
+    with pytest.raises(ValueError, match="scale block"):
+        pq.w4_plan(6, 1280, 1280, block)
 
 
 @pytest.fixture(scope="module")
@@ -167,19 +195,50 @@ def test_quantize_decoder_int4_head(params):
 
 def test_head_codes_are_contiguous(params):
     """Fault: the heads quantize the transposed embedding view; their codes
-    and scales must come out in the layout the kernels read, or the kernels
-    (which refuse other strides) cannot take them: the int4 head
-    contiguous, the int8 head's code rows 16-byte aligned (unit column
-    stride, a row pitch of round_up(V, 16)) with the same values."""
+    and scales must come out in the layout the kernels read: both heads'
+    code rows 16-byte aligned (unit column stride, a row pitch of
+    round_up(V, 16)) with the same values, the scales contiguous."""
     _, pp = params
     head = pquant.quantize_logits_head_int4(pp)["decoder"]["tok_emb_q4"]
-    assert head["q"].is_contiguous() and head["s"].is_contiguous()
+    D2, V = head["q"].shape
+    assert head["q"].stride() == (-(-V // 16) * 16, 1) and head["s"].is_contiguous()
+    q4, s4 = pq.quantize_blockwise_int4(pp["decoder"]["tok_emb"].t())
+    assert torch.equal(head["q"], q4) and torch.equal(head["s"], s4)
+    assert pq.pitched_codes(head["q"]) is head["q"]
     head = pquant.quantize_logits_head(pp)["decoder"]["tok_emb_q8"]
     D, V = head["q"].shape
     assert head["q"].stride() == (-(-V // 16) * 16, 1) and head["s"].is_contiguous()
     q, s = pq.quantize_per_channel(pp["decoder"]["tok_emb"].t())
     assert torch.equal(head["q"], q) and torch.equal(head["s"], s)
     assert pq.pitched_codes(head["q"]) is head["q"]
+
+
+@pytest.mark.parametrize("logits", ["int8", "int4"])
+def test_carried_head_gets_the_kernel_layout(params, logits):
+    """Fault: a JAX-quantized tree carried by params_from_numpy has head
+    codes with row stride V (unaligned at V = 51866, which the kernels'
+    16-byte copies cannot read).  The engine's tree on the card
+    (DecodeEngine._kernel_params, through head_kernel_layout) pitches them:
+    row stride % 16 == 0, the same values as JAX's, logits equal to JAX's
+    logits_head; the caller's tree is left as it was."""
+    jp, _ = params
+    jt = jquant.quantize_decoder(jload.fuse_qkv(jp), logits=True if logits == "int8" else "int4")
+    name = {"int8": "tok_emb_q8", "int4": "tok_emb_q4"}[logits]
+    carried = port_params(jt)
+    q0 = carried["decoder"][name]["q"]
+    assert q0.stride(0) % 16  # V = 1000 in tiny_config: the carried row pitch is not aligned
+    engine_tree = DecodeEngine._kernel_params(carried, PCFG, torch.device("cuda"))
+    head = engine_tree["decoder"][name]
+    assert head["q"].stride(0) % 16 == 0 and head["q"].stride(1) == 1
+    np.testing.assert_array_equal(head["q"].numpy(), np.asarray(jt["decoder"][name]["q"]))
+    assert head["s"] is carried["decoder"][name]["s"]
+    assert carried["decoder"][name]["q"] is q0  # the caller's params untouched
+    assert engine_tree["decoder"]["layers"] is carried["decoder"]["layers"]  # shared, not copied
+    assert pq.head_kernel_layout(engine_tree["decoder"]) is engine_tree["decoder"]  # already in layout
+    x = np.random.default_rng(12).standard_normal((3, CFG.d_model)).astype(np.float32)
+    want = np.asarray(jw.logits_head(jt["decoder"], jnp.asarray(x)))
+    got = n(pw.logits_head(engine_tree["decoder"], t(x)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())  # f32 summation order
 
 
 def test_head_tiers_drop_each_other(params):
