@@ -17,7 +17,12 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      CUDA graphs, by cluster size against the plan's, and the Philox probe
      (philox_uniform) with its bound;
   3. self_decode kernel vs its plain version at distil-large-v3 widths
-     (f32 and bf16, bucket views, in-place row write);
+     (f32 and bf16, bucket views, in-place row write; every position of a
+     128-row crop at rows 1 and 6, host and device positions; the served
+     bf16 8 rows at crops 128/256/448, pos 3/127/255/300/447); device ms
+     from CUDA graphs over cold caches at those fills beside SDPA over the
+     same rows, and by cluster size against the plan's (each size's output
+     checked);
   4. the golden config (tests/golden/engine_small.json) on the card,
      through the graph loop and the per-step eager loop alike;
   5. the single-stream slice: distil-large-v3 at mtp=448, buckets
@@ -30,7 +35,10 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      walls at chunk lengths 8/16/32, and the B=1 idle share under
      torch.profiler, graph and eager;
   6. cross_decode kernel vs its plain version (int8 and int4, G 1/6,
-     B 1/8/48, stacked layers 0/1 and the per-layer form);
+     B 1/8/48, stacked layers 0/1 and the per-layer form; Ta 37/38/200 at
+     G 1-8 and every cluster size); device ms from CUDA graphs over cold
+     codes at B=8 G=1 and B=1 G=6, int8 and int4, by cluster size against
+     the plan's (each size's output checked);
   7. flash_encoder kernel vs its plain version (T 1500/200/37, B 1/8, bf16
      and f32, D=1280, H=20);
   8. q8a8 kernel vs its plain version at the w8a8 encoder's four (K, N)
@@ -480,25 +488,145 @@ def phase_self_decode(rec, dev):
                         raise AssertionError(f"rows other than (li, :, pos) moved B={B} T={T} pos={pos}")
                     n_cases += 1
 
-    # Time at the slice's shape: 6 rows, bucket 448 (mtp), mid-window fill.
-    B, T, pos = 6, 448, 300
-    ck = torch.randn((L, B, T, D), generator=g, device=dev)
-    cv = torch.randn((L, B, T, D), generator=g, device=dev)
-    qkv = torch.randn((B, 1, 3, D), generator=g, device=dev)
+    # Every position of one short crop at the plan's cluster (1 row: 8 CTAs,
+    # some with no rows while pos < 8; 6 rows: 4), host and device
+    # positions alternating: the CTAs' ranges cover 0..pos-1 exactly once.
+    T = 128
+    for B in (1, 6):
+        ck = torch.randn((L, B, T, D), generator=g, device=dev) * 0.5
+        cv = torch.randn((L, B, T, D), generator=g, device=dev) * 0.5
+        qkv = torch.randn((B, 1, 3, D), generator=g, device=dev)
+        q, kn, vn = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        for pos in range(T):
+            pk, pv = ck.clone(), cv.clone()
+            p_arg = torch.tensor([pos], dtype=torch.int64, device=dev) if pos % 2 else pos
+            a, _, _ = sd.self_attention_decode(q, kn, vn, ck, cv, 1, p_arg, H)
+            pa, _, _ = sd.self_attention_decode_torch(q, kn, vn, pk, pv, 1, pos, H)
+            torch.cuda.synchronize()
+            err = float((a - pa).abs().max())
+            if not err <= 1e-5:
+                raise AssertionError(f"self_decode every-pos B={B} pos={pos}: err {err}")
+            if not (torch.equal(ck, pk) and torch.equal(cv, pv)):
+                raise AssertionError(f"self_decode every-pos B={B} pos={pos}: cache write differs")
+            worst[torch.float32] = max(worst[torch.float32], err)
+            n_cases += 1
+
+    # The served shape: bf16, 8 rows, crops 128/256/448 (the buckets and
+    # mtp) of one 448-row allocation, fills across the window.
+    B, T_ALL, li = 8, 448, 1
+    bf = torch.bfloat16
+    served = [(T, pos) for T in (128, 256, 448) for pos in (3, 127, 255, 300, 447) if pos < T]
+    for T, pos in served:
+        full_k = (torch.randn((L, B, T_ALL, D), generator=g, device=dev) * 0.5).to(bf)
+        full_v = (torch.randn((L, B, T_ALL, D), generator=g, device=dev) * 0.5).to(bf)
+        qkv = torch.randn((B, 1, 3, D), generator=g, device=dev).to(bf)
+        q, kn, vn = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        orig_k, orig_v = full_k.clone(), full_v.clone()
+        pk, pv = full_k.clone(), full_v.clone()
+        a, _, _ = sd.self_attention_decode(q, kn, vn, full_k[:, :, :T], full_v[:, :, :T], li, pos, H)
+        pa, _, _ = sd.self_attention_decode_torch(q, kn, vn, pk[:, :, :T], pv[:, :, :T], li, pos, H)
+        torch.cuda.synchronize()
+        err = float((a.float() - pa.float()).abs().max())
+        if not err <= 2e-2:
+            raise AssertionError(f"self_decode served B={B} T={T} pos={pos}: err {err}")
+        worst[bf] = max(worst[bf], err)
+        if not (torch.equal(full_k, pk) and torch.equal(full_v, pv)):
+            raise AssertionError(f"served cache write differs T={T} pos={pos}")
+        orig_k[li, :, pos], orig_v[li, :, pos] = kn[:, 0], vn[:, 0]
+        if not (torch.equal(full_k, orig_k) and torch.equal(full_v, orig_v)):
+            raise AssertionError(f"served: rows other than (li, :, pos) moved T={T} pos={pos}")
+        n_cases += 1
+
+    # Device ms from CUDA graphs at those fills, over six caches in turn
+    # (~220 MB, so the rows come from device memory, not the 50 MB L2, as in
+    # the token loop), beside SDPA over rows 0..pos of the same crop with the
+    # new row in place (it leaves out the row write).  Bound: q and the new
+    # K/V row in, rows 0..pos-1 of layer li's K and V read, the new row
+    # written, the output out: 2 B D (2 pos + 6) bytes.
+    import torch.nn.functional as F
+
+    dh = D // H
+    caches = [((torch.randn((L, B, T_ALL, D), generator=g, device=dev) * 0.5).to(bf),
+               (torch.randn((L, B, T_ALL, D), generator=g, device=dev) * 0.5).to(bf)) for _ in range(6)]
+    qkv = torch.randn((B, 1, 3, D), generator=g, device=dev).to(bf)
     q, kn, vn = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-    k_ms, p_ms = turns(
-        lambda: sd.self_attention_decode_torch(q, kn, vn, ck, cv, 1, pos, H),
-        lambda: sd.self_attention_decode(q, kn, vn, ck, cv, 1, pos, H),
+    qh = q.reshape(B, 1, H, dh).transpose(1, 2)
+
+    def kern_calls(T, pos):
+        return [lambda c=c: sd.self_attention_decode(q, kn, vn, c[0][:, :, :T], c[1][:, :, :T], li, pos, H)
+                for c in caches]
+
+    def sdpa_calls(T, pos):
+        view = lambda x: x[li, :, :pos + 1].reshape(B, pos + 1, H, dh).transpose(1, 2)
+        return [lambda c=c: F.scaled_dot_product_attention(qh, view(c[0]), view(c[1]), scale=dh**-0.5)
+                for c in caches]
+
+    fills = {}
+    for T, pos in served + [(448, SD_MEAN_POS)]:
+        k1, l1, l2, k2 = (graph_ms(kern_calls(T, pos)), graph_ms(sdpa_calls(T, pos)),
+                          graph_ms(sdpa_calls(T, pos)), graph_ms(kern_calls(T, pos)))
+        b_ms, b_by = bound(2 * B * D * (2 * pos + 6))
+        fills[(T, pos)] = dict(graph_ms=(k1 + k2) / 2, sdpa_ms=(l1 + l2) / 2, bound_ms=b_ms, bound_by=b_by)
+    ck, cv = caches[0]
+    plain_ms = cuda_ms(lambda: sd.self_attention_decode_torch(q, kn, vn, ck, cv, li, SD_MEAN_POS, H))
+
+    # The cluster size against the plan's at 6 and 8 rows (the ladder's and
+    # the served batch's), crop 448, pos 300: each size's output held to the
+    # plain version too.
+    plan, sweep = sd.self_decode_plan, {}
+    try:
+        for B_s in (6, 8):
+            ref = sd.self_attention_decode_torch(q[:B_s], kn[:B_s], vn[:B_s], ck[:, :B_s].clone(),
+                                                 cv[:, :B_s].clone(), li, 300, H)[0]
+            calls_s = [lambda c=c: sd.self_attention_decode(q[:B_s], kn[:B_s], vn[:B_s], c[0][:, :B_s],
+                                                            c[1][:, :B_s], li, 300, H) for c in caches]
+            for c in (1, 2, 4, 8, 16):
+                sd.self_decode_plan = lambda B_, H_, S_, dt_, dh_=64, c=c: {
+                    **plan(B_, H_, S_, dt_, dh_), "cluster": c, "share": -(-(S_ - 1) // c)}
+                if -(-(448 - 1) // c) > plan(B_s, H, 448, bf)["max_rows"]:
+                    continue  # the rows do not fit this few CTAs
+                a = sd.self_attention_decode(q[:B_s], kn[:B_s], vn[:B_s], ck[:, :B_s], cv[:, :B_s], li, 300, H)[0]
+                err = float((a.float() - ref.float()).abs().max())
+                if not err <= 2e-2:
+                    raise AssertionError(f"self_decode cluster {c} at {B_s} rows: err {err}")
+                n_cases += 1
+                sweep[(B_s, c)] = graph_ms(calls_s)
+    finally:
+        sd.self_decode_plan = plan
+    picks = {B_s: plan(B_s, H, 448, bf)["cluster"] for B_s in (6, 8)}
+
+    # The 6-row f32 slice shape, host-launched in turns with the plain
+    # version (the figure PRs 1-7 kept).
+    B6, pos6 = 6, 300
+    ck6 = torch.randn((L, B6, 448, D), generator=g, device=dev)
+    cv6 = torch.randn((L, B6, 448, D), generator=g, device=dev)
+    qkv6 = torch.randn((B6, 1, 3, D), generator=g, device=dev)
+    q6, kn6, vn6 = qkv6[..., 0, :], qkv6[..., 1, :], qkv6[..., 2, :]
+    host_k, host_p = turns(
+        lambda: sd.self_attention_decode_torch(q6, kn6, vn6, ck6, cv6, 1, pos6, H),
+        lambda: sd.self_attention_decode(q6, kn6, vn6, ck6, cv6, 1, pos6, H),
     )
-    # Bound: q and the new row in, positions 0..pos of layer 1's K and V
-    # read, the new row written, the output out (f32).
-    b_ms, b_by = bound(4 * B * D * (3 + 2 * pos + 2 + 1))
-    rec["self_decode"] = dict(max_abs_err=worst[torch.float32], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=None)
-    log(f"phase 3 self_decode: ok {n_cases} cases (rows 6,48; T 128/256/448 and bucket views; pos 3/127/300); "
-        f"max_abs_err f32={worst[torch.float32]:.3g} bf16={worst[torch.bfloat16]:.3g}; row write bit-equal, "
-        f"other rows untouched; kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms at 6 rows pos {pos} "
-        f"(bound {b_ms:.4f} ms, {b_by})")
+    mean = fills[(448, SD_MEAN_POS)]
+    rec["self_decode"] = dict(max_abs_err=worst[torch.float32], ms=mean["graph_ms"], plain_ms=plain_ms,
+                              bound_ms=mean["bound_ms"], bound_by=mean["bound_by"], library_ms=mean["sdpa_ms"])
+    rec["self_decode_detail"] = dict(
+        fills={f"T={T} pos={p}": v for (T, p), v in fills.items()},
+        cluster_ms={f"{b} rows C={c}": v for (b, c), v in sweep.items()}, plan_cluster=picks,
+        host_f32_6rows_pos300=dict(ms=host_k, plain_ms=host_p))
+    ft = "; ".join(f"T={T} pos={p}: {v['graph_ms']:.4f} ms (SDPA {v['sdpa_ms']:.4f}, bound {v['bound_ms']:.4f})"
+                   for (T, p), v in fills.items())
+    st = "; ".join(f"{b} rows (plan {picks[b]}): " + ", ".join(
+        f"{c}: {ms:.4f}" for (bb, c), ms in sweep.items() if bb == b) for b in (6, 8))
+    log(f"phase 3 self_decode: ok {n_cases} cases (rows 6,48; T 128/256/448 and bucket views; pos 3/127/300; "
+        f"every pos of T=128 at rows 1 and 6, host and device positions; the served bf16 8 rows at crops "
+        f"128/256/448, pos 3/127/255/300/447; each cluster size); max_abs_err f32={worst[torch.float32]:.3g} "
+        f"bf16={worst[bf]:.3g}; row write bit-equal, other rows untouched; bf16 8 rows, CUDA graph over cold "
+        f"caches: {ft}; plain {plain_ms:.4f} ms at T=448 pos {SD_MEAN_POS}; by cluster size at T=448 pos 300: "
+        f"{st}; host-launched 6 rows f32 pos 300: kernel {host_k:.4f} ms vs plain {host_p:.4f} ms")
+
+
+# The served window's mean fill: its 444 steps write rows ~4..447.
+SD_MEAN_POS = 225
 
 
 def phase_golden(rec, dev):
@@ -765,17 +893,107 @@ def phase_cross_decode(rec, dev):
                         lambda: pc.cross_attention_decode_torch(q, kp, vp, 1, H, G_t),
                         lambda: pc.cross_attention_q8_kernel_stacked(q, kp, vp, 1, H, G_t),
                     )
-                    if (int4, B_t) == (False, 8):  # bound: layer 1's codes and scales, q in, out
-                        layer1 = [t[1] for t in list(kp.values()) + list(vp.values())]
-                        cross_bound = bound(nbytes(*layer1) + 2 * nbytes(q))
+
+    # Edge shapes: key counts that leave short and empty tiles and pieces,
+    # every G, and each cluster size on them, bf16 and f32 q, both held to
+    # the bf16 tolerance: at 37-200 keys one p weighs up to ~1/10 of its row,
+    # so a p on a bf16 rounding boundary that another summation order of its
+    # logit rounds the other way moves an output by up to ~2**-8 * 0.1 *
+    # |v| ~ 1e-3; at Ta=1500 each p weighs ~1/1500 and f32 holds to 1e-4.
+    plan, edge_worst = pc.cross_decode_plan, 0.0
+    try:
+        for int4, Ta_e in ((False, 37), (False, 200), (True, 38), (True, 200)):
+            limit = 7.0 if int4 else 127.0
+            xk = torch.randn((L, 2, Ta_e, D), generator=g, device=dev)
+            xv = torch.randn((L, 2, Ta_e, D), generator=g, device=dev)
+            kp, vp = (pc.prep_cross_kv_kernel4 if int4 else pc.prep_cross_kv_kernel)(
+                _quant_xkv(xk, limit), _quant_xkv(xv, limit), H)
+            for G in range(1, 9):
+                for dtype in (torch.bfloat16, torch.float32):
+                    q = torch.randn((G * 2, 1, D), generator=g, device=dev).to(dtype)
+                    want = pc.cross_attention_decode_torch(q, kp, vp, 1, H, G)
+                    for c in (1, 2, 4, 8, 16):
+                        pc.cross_decode_plan = _cross_plan_at(plan, c)
+                        got = pc.cross_attention_q8_kernel_stacked(q, kp, vp, 1, H, G)
+                        err = float((got.float() - want.float()).abs().max())
+                        if not err <= tol[torch.bfloat16]:
+                            raise AssertionError(f"cross_decode edge int4={int4} Ta={Ta_e} G={G} C={c} {dtype}: "
+                                                 f"err {err}")
+                        edge_worst = max(edge_worst, err)
+                        n_cases += 1
+    finally:
+        pc.cross_decode_plan = plan
+
+    # Device ms from CUDA graphs at the path's shapes (bf16 q, Ta=1500):
+    # B=8 G=1 (the served batch) and B=1 G=6 (the ladder), int8 and int4,
+    # cycling over enough layers of codes (>= 60 MB) that they come from
+    # device memory, not the 50 MB L2, as in the token loop; each cluster
+    # size against the plan's, its output held to the plain version.
+    # Bound: one layer's K and V codes and scales read, q in, the output out.
+    graphs, sweep, picks = {}, {}, {}
+    try:
+        for int4 in (False, True):
+            for B, G in ((8, 1), (1, 6)):
+                limit = 7.0 if int4 else 127.0
+                n_sets = 2 if B == 8 else 8
+                sets = []
+                for _ in range(n_sets):
+                    xk = torch.randn((L, B, Ta, D), generator=g, device=dev)
+                    xv = torch.randn((L, B, Ta, D), generator=g, device=dev)
+                    sets.append((pc.prep_cross_kv_kernel4 if int4 else pc.prep_cross_kv_kernel)(
+                        _quant_xkv(xk, limit), _quant_xkv(xv, limit), H))
+                q = torch.randn((G * B, 1, D), generator=g, device=dev).to(torch.bfloat16)
+                calls = [lambda kv=kv, li=li: pc.cross_attention_q8_kernel_stacked(q, kv[0], kv[1], li, H, G)
+                         for kv in sets for li in range(L)]
+                kp, vp = sets[0]
+                layer1 = [t[1] for t in list(kp.values()) + list(vp.values())]
+                key = f"int{4 if int4 else 8} B={B} G={G}"
+                b_ms, b_by = bound(nbytes(*layer1) + 2 * nbytes(q))
+                graphs[key] = dict(graph_ms=(graph_ms(calls) + graph_ms(calls)) / 2, bound_ms=b_ms, bound_by=b_by)
+                want = pc.cross_attention_decode_torch(q, kp, vp, 1, H, G)
+                picks[key] = plan(B, H, G, Ta, int4)["cluster"]
+                for c in (1, 2, 4, 8, 16):
+                    pc.cross_decode_plan = _cross_plan_at(plan, c)
+                    try:
+                        got = pc.cross_attention_q8_kernel_stacked(q, kp, vp, 1, H, G)
+                    except ValueError:  # this cluster's share does not fit the shared memory
+                        continue
+                    err = float((got.float() - want.float()).abs().max())
+                    if not err <= tol[torch.bfloat16]:
+                        raise AssertionError(f"cross_decode {key} C={c}: err {err}")
+                    n_cases += 1
+                    sweep[(key, c)] = graph_ms(calls)
+                pc.cross_decode_plan = plan
+    finally:
+        pc.cross_decode_plan = plan
     k_ms, p_ms = timed[(False, 8, 1)]
-    rec["cross_decode"] = dict(max_abs_err=worst[torch.bfloat16], ms=k_ms, plain_ms=p_ms,
-                               bound_ms=cross_bound[0], bound_by=cross_bound[1], library_ms=None)
+    main = graphs["int8 B=8 G=1"]
+    rec["cross_decode"] = dict(max_abs_err=worst[torch.bfloat16], ms=main["graph_ms"], plain_ms=p_ms,
+                               bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None)
     rec["cross_decode_times"] = {f"int{4 if k[0] else 8} B={k[1]} G={k[2]}": v for k, v in timed.items()}
+    rec["cross_decode_detail"] = dict(graphs=graphs, plan_cluster=picks,
+                                      cluster_ms={f"{k} C={c}": v for (k, c), v in sweep.items()})
     times = "; ".join(f"{k}: kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms" for k, v in rec["cross_decode_times"].items())
+    gt = "; ".join(f"{k}: {v['graph_ms']:.4f} ms (bound {v['bound_ms']:.4f}, {v['bound_by']}; by cluster size, plan "
+                   f"{picks[k]}: " + ", ".join(f"{c}: {ms:.4f}" for (kk, c), ms in sweep.items() if kk == k) + ")"
+                   for k, v in graphs.items())
     log(f"phase 6 cross_decode: ok {n_cases} cases (int8/int4, B 1/8/48, G 1/6, stacked li 0/1 and per-layer, "
-        f"bf16/f32); max_abs_err bf16={worst[torch.bfloat16]:.3g} f32={worst[torch.float32]:.3g}; {times} "
-        f"(Ta=1500, D=1280, H=20, bf16 q); int8 B=8 G=1 bound {cross_bound[0]:.4f} ms ({cross_bound[1]})")
+        f"bf16/f32; Ta 37/38/200 at G 1-8 and each cluster size); max_abs_err bf16={worst[torch.bfloat16]:.3g} "
+        f"f32={worst[torch.float32]:.3g}, at Ta 37-200 {edge_worst:.3g}; host-launched {times} (Ta=1500, D=1280, H=20, bf16 q); CUDA graph over "
+        f"cold codes: {gt}")
+
+
+def _cross_plan_at(plan, c):
+    """cross_decode_plan with the cluster set to ``c`` (the sweep's)."""
+    from norma_tpu_torch.ops import paged_cross as pc
+
+    def at(B, H, G, Ta, int4):
+        share = -(-(Ta // 2 if int4 else Ta) // c)
+        pitch = -(-share // 16) * 16 * (2 if int4 else 1) + (8 if int4 else 4)
+        if 4 * G * pitch > pc._XD_SMEM:
+            raise ValueError(f"cluster {c}: {4 * G * pitch} bytes of logits")
+        return {**plan(B, H, G, Ta, int4), "cluster": c, "share": share, "pitch": pitch, "smem_bytes": 4 * G * pitch}
+    return at
 
 
 def phase_flash_encoder(rec, dev, lengths=(1500, 200, 37)):

@@ -50,6 +50,15 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
   return sh[0];
 }
 
+// A thread-block cluster's barrier split in two: every thread arrives, and
+// later waits for the whole cluster's arrivals.  A kernel that writes into
+// another CTA's shared memory before any cluster.sync() arrives on entry and
+// waits before that first write, so every CTA of the cluster has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
 // Arg-max with the first-index tie rule: (key, idx) pairs, larger key wins,
 // equal keys keep the smaller index.  Keys must not be NaN.
 __device__ __forceinline__ void argmax_combine(float& k, int& i, float k2, int i2) {

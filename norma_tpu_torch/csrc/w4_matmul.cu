@@ -73,14 +73,6 @@ struct Shape4 {
   }
 };
 
-// Nibbles 0 and 4 of w (bits 0-3, 16-19), signed 4-bit -> bf16x2 exactly.
-__device__ __forceinline__ uint32_t s4pair_bf16(uint32_t w) {
-  const uint32_t b = (w & 0x000F000Fu) ^ 0x43084308u;  // 128 + (n ^ 8) = 136 + v
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
-}
-
 template <int RT, bool F32X>
 __global__ void __launch_bounds__(kMaxWarps * 32) w4_mma_kernel(
     const void* __restrict__ x, const int8_t* __restrict__ q, const __nv_bfloat16* __restrict__ scale,

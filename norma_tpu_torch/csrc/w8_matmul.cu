@@ -64,16 +64,6 @@ struct Shape {
   static constexpr int kSmem = kRing > kSlots ? kRing : kSlots;
 };
 
-// Bytes 0 and 2 of w (int8) -> bf16x2, exactly: with m the low 7 bits and
-// s the sign bit, v = (128 + m) + (s ? -256 : -128).
-__device__ __forceinline__ uint32_t s8pair_bf16(uint32_t w) {
-  const uint32_t lo = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t c = (w & 0x00800080u) ^ 0xC300C300u;
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(lo), "r"(0x3F803F80u), "r"(c));
-  return r;
-}
-
 template <int RT, bool F32X>
 __global__ void __launch_bounds__(kWarps * 32) w8_mma_kernel(
     const void* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,

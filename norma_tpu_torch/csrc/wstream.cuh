@@ -16,6 +16,10 @@
 // acc[t][j][0..3] hold, for row tile t, x rows 8 t + 2 tq (+1) at those two
 // columns: [0] (row 2 tq, col 16 g + 2 j), [1] (row 2 tq + 1, same col), [2]
 // and [3] the same rows at col 16 g + 2 j + 1.
+//
+// The decode-step attention kernels use some of it too: cross_decode.cu the
+// exact int8 / int4 widening and the mma wrapper, both it and
+// self_decode.cu the cluster launch.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -82,6 +86,24 @@ __device__ __forceinline__ void fragment_bytes(const uint4 (&R)[4], int j, uint3
   const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
   p01 = __byte_perm(word_of(R[0], j >> 1), word_of(R[1], j >> 1), sel);
   p23 = __byte_perm(word_of(R[2], j >> 1), word_of(R[3], j >> 1), sel);
+}
+
+// Bytes 0 and 2 of w (int8) -> bf16x2, exactly: with m the low 7 bits and
+// s the sign bit, v = (128 + m) + (s ? -256 : -128).
+__device__ __forceinline__ uint32_t s8pair_bf16(uint32_t w) {
+  const uint32_t lo = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (w & 0x00800080u) ^ 0xC300C300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(lo), "r"(0x3F803F80u), "r"(c));
+  return r;
+}
+
+// Nibbles 0 and 4 of w (bits 0-3 and 16-19), signed 4-bit -> bf16x2 exactly.
+__device__ __forceinline__ uint32_t s4pair_bf16(uint32_t w) {
+  const uint32_t b = (w & 0x000F000Fu) ^ 0x43084308u;  // 128 + (n ^ 8) = 136 + v
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
@@ -174,15 +196,14 @@ __device__ __forceinline__ void reduce_store(const float (&acc)[RT][8][4], unsig
   cluster.sync();  // no block leaves while another reads its slot 0
 }
 
-// Launch `kernel` on a grid of (tiles * cluster, row_blocks) blocks of
-// `threads`, `smem` bytes of dynamic shared memory, in clusters of `cluster`
-// blocks along x.
+// Launch `kernel` on `grid` blocks of `threads`, `smem` bytes of dynamic
+// shared memory, in clusters of `cluster` blocks along x (0: no cluster
+// attribute, every block its own cluster of one).
 template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, long long tiles, long long row_blocks, int cluster, int threads,
-                           int smem, cudaStream_t stream, Args... args) {
-  if (tiles * cluster > 0x7fffffffLL || row_blocks > 65535) return cudaErrorInvalidConfiguration;
+cudaError_t launch_cluster_grid(Kernel kernel, dim3 grid, int cluster, int threads, int smem, cudaStream_t stream,
+                                Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles * cluster), (unsigned)row_blocks, 1);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -192,9 +213,19 @@ cudaError_t launch_cluster(Kernel kernel, long long tiles, long long row_blocks,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Launch `kernel` on a grid of (tiles * cluster, row_blocks) blocks, in
+// clusters of `cluster` blocks along x.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, long long tiles, long long row_blocks, int cluster, int threads,
+                           int smem, cudaStream_t stream, Args... args) {
+  if (tiles * cluster > 0x7fffffffLL || row_blocks > 65535) return cudaErrorInvalidConfiguration;
+  return launch_cluster_grid(kernel, dim3((unsigned)(tiles * cluster), (unsigned)row_blocks, 1), cluster, threads,
+                             smem, stream, args...);
 }
 
 }  // namespace wstream

@@ -55,7 +55,7 @@ SIGNATURES = {
         I64, I64, I64, I64,  # cache_k strides (layer, batch), cache_v strides
         I, I, P,  # li, pos (by value), pos (device int64, or NULL)
         I, I, I, I,  # B, H, dh, T
-        I, F32,  # is_bf16, scale (dh**-0.5)
+        I, I, F32,  # is_bf16, cluster size, scale (dh**-0.5)
         P,  # stream
     ],
     "norma_cross_decode": [
@@ -64,7 +64,8 @@ SIGNATURES = {
         P, P, I64, I64,  # k scales, v scales, scales layer / stream strides
         P, I64,  # out, out row stride
         I, I, I, I, I, I,  # li, B, H, dh, G, Ta
-        I, I, F32,  # is_bf16, is_int4, scale (dh**-0.5)
+        I, I,  # is_bf16, is_int4
+        I, I, F32,  # cluster size, logits pitch, scale (dh**-0.5)
         P,  # stream
     ],
     "norma_flash_encoder": [

@@ -17,7 +17,9 @@ kernel reads the codes and never a dequantized copy.
     CPU path and the kernel's oracle);
   - :func:`cross_attention_q8_kernel_stacked` — the wrapper over the
     stacked layout with a layer index ``li`` (the arrays are never
-    sliced): the CUDA kernel (``csrc/cross_decode.cu``) for CUDA tensors,
+    sliced): the CUDA kernel (``csrc/cross_decode.cu``: each (stream, head)
+    on a thread-block cluster whose CTAs split the keys,
+    :func:`cross_decode_plan`, :func:`cross_decode_ranges`) for CUDA tensors,
     the plain version for CPU tensors; any other device raises.
     ``cross_attention_q8_kernel_stacked.launches`` counts kernel launches;
   - :func:`cross_attention_q8_kernel` — the per-layer form (one layer's
@@ -31,7 +33,8 @@ dtype.  ``n_groups`` G query rows (row g*B + b) share stream b's codes.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -41,8 +44,59 @@ XKV = Dict[str, torch.Tensor]
 
 _KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_GROUPS = 8
-# The kernel keeps G x Ta f32 logits in shared memory (~227 KB per block).
-_KERNEL_MAX_LOGITS = 40_000
+# csrc/cross_decode.cu: largest cluster (16 is the H100's non-portable
+# limit; above 8 the launcher sets the attribute), dynamic shared memory a
+# CTA may take beside its ~25 KB of static arrays.
+_XD_MAX_CLUSTER, _XD_SMEM = 16, 232448 - 28672
+# The plan's cluster doubles while the grid has fewer CTAs than this and
+# each CTA keeps at least _XD_MIN_ROWS stored code rows: the sweeps of
+# 4-warp CTAs (chip_smoke.py phase 6; PERF.md, Findings) put 2 CTAs per
+# (stream, head) first at 8 streams and 8 at one.
+_XD_TARGET_CTAS, _XD_MIN_ROWS = 256, 128
+
+
+@functools.lru_cache(maxsize=None)
+def cross_decode_plan(B: int, H: int, G: int, Ta: int, int4: bool) -> dict:
+    """Launch shape of the cross-decode kernel: each (stream, head) on a
+    cluster of ``cluster`` CTAs (a power of two up to 16) that split the
+    stored code rows (Ta, or Ta/2 for int4; :func:`cross_decode_ranges`),
+    at most ``share`` rows each; a CTA's warps stream their tiles of codes
+    through registers and keep the [G, ``pitch``] f32 logits in
+    ``smem_bytes`` of dynamic shared memory.  The cluster doubles while the
+    grid has fewer than ``_XD_TARGET_CTAS`` CTAs and each CTA keeps
+    ``_XD_MIN_ROWS`` rows, and further while the logits would not fit."""
+    if B < 1 or H < 1:
+        raise ValueError(f"cross_decode_plan: B and H must be positive, got {B}, {H}")
+    if not 1 <= G <= _KERNEL_MAX_GROUPS:
+        raise ValueError(f"kernel takes 1 to {_KERNEL_MAX_GROUPS} groups, got G={G}")
+    if Ta < 1 or (int4 and Ta % 2):
+        raise ValueError(f"kernel needs Ta >= 1 (even for int4), got Ta={Ta}")
+    R = Ta // 2 if int4 else Ta
+    share = lambda c: -(-R // c)
+    # The keys of a share rounded up to whole 16-key tiles, padded so that
+    # the rungs' rows of p start on other banks (4 words apart for int8's
+    # scalar reads, 8 for int4's pairs).
+    pitch = lambda c: -(-share(c) // 16) * 16 * (2 if int4 else 1) + (8 if int4 else 4)
+    smem = lambda c: 4 * G * pitch(c)
+    C = 1
+    while C < _XD_MAX_CLUSTER and (
+        (B * H * C < _XD_TARGET_CTAS and share(2 * C) >= _XD_MIN_ROWS) or smem(C) > _XD_SMEM
+    ):
+        C *= 2
+    if smem(C) > _XD_SMEM:
+        raise ValueError(
+            f"cross_decode kernel: Ta={Ta} at G={G} needs more than {_XD_MAX_CLUSTER} CTAs of shared memory"
+        )
+    return dict(cluster=C, share=share(C), pitch=pitch(C), smem_bytes=smem(C), grid=(C, H, B),
+                nonportable=C > 8)
+
+
+def cross_decode_ranges(Ta: int, cluster: int, int4: bool) -> List[Tuple[int, int]]:
+    """The keys [lo, hi) each CTA of a cluster takes: the kernel's own
+    formula over the stored rows R (rank * R / C, integer division), two
+    keys per stored row for int4."""
+    R, k = (Ta // 2, 2) if int4 else (Ta, 1)
+    return [(k * (r * R // cluster), k * ((r + 1) * R // cluster)) for r in range(cluster)]
 
 
 def _to_kernel_layout(codes: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -171,13 +225,10 @@ def cross_attention_q8_kernel_stacked(
         raise ValueError(f"cross_attention_q8_kernel_stacked: unsupported device {dev}")
     if dh != _KERNEL_HEAD_DIM:
         raise ValueError(f"kernel head_dim must be {_KERNEL_HEAD_DIM}, got {dh}")
-    if n_groups > _KERNEL_MAX_GROUPS or n_groups * Ta > _KERNEL_MAX_LOGITS:
-        raise ValueError(
-            f"kernel takes at most {_KERNEL_MAX_GROUPS} groups and {_KERNEL_MAX_LOGITS} "
-            f"logits per block, got G={n_groups} Ta={Ta}"
-        )
+    plan = cross_decode_plan(B, H, n_groups, Ta, int4)
     for c in (kc, vc):
-        if c.stride()[2:] != (c.shape[3] * dh, dh, 1) or c.data_ptr() % 16:
+        if (c.stride()[2:] != (c.shape[3] * dh, dh, 1) or c.data_ptr() % 16
+                or c.stride(0) % 16 or c.stride(1) % 16):
             raise ValueError("codes must be contiguous per (layer, stream) and 16-byte aligned")
         if c.stride() != kc.stride():
             raise ValueError("K and V codes must share strides")
@@ -190,7 +241,7 @@ def cross_attention_q8_kernel_stacked(
         q.data_ptr(), q.stride(0), kc.data_ptr(), vc.data_ptr(), kc.stride(0), kc.stride(1),
         ks.data_ptr(), vs.data_ptr(), ks.stride(0), ks.stride(1), out.data_ptr(), D,
         li, B, H, dh, n_groups, Ta, int(q.dtype == torch.bfloat16), int(int4),
-        float(dh) ** -0.5, _build.stream_ptr(dev),
+        plan["cluster"], plan["pitch"], float(dh) ** -0.5, _build.stream_ptr(dev),
     )
     _build.check(code, "cross_decode kernel")
     cross_attention_q8_kernel_stacked.launches += 1

@@ -9,7 +9,9 @@ in f32 (then q is rounded to the cache dtype, as the TPU kernel does).
   - :func:`self_attention_decode_torch` — the plain PyTorch version (the
     CPU path and the kernel's oracle);
   - :func:`self_attention_decode` — the wrapper: the CUDA kernel
-    (``csrc/self_decode.cu``) for CUDA tensors, the plain version for CPU
+    (``csrc/self_decode.cu``: each (row, head) on a thread-block cluster
+    whose CTAs split the positions below ``pos``, :func:`self_decode_plan`,
+    :func:`self_decode_ranges`) for CUDA tensors, the plain version for CPU
     tensors.  It validates dtypes, shapes and strides on both and raises on
     what the kernel does not take; it never falls back.
     ``self_attention_decode.launches`` counts kernel launches.
@@ -26,7 +28,8 @@ axes) is taken as it is, and rows at or beyond ``pos`` are never read.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -34,8 +37,52 @@ from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-# The kernel keeps T + 1 f32 logits in (non-opt-in) shared memory.
-_KERNEL_MAX_T = 8192
+# csrc/self_decode.cu: largest cluster (16 is the H100's non-portable
+# limit; above 8 the launcher sets the attribute), warps per CTA, the most
+# rows a thread holds in registers.
+_SD_MAX_CLUSTER, _SD_WARPS, _SD_ROWS = 16, 8, 8
+
+
+@functools.lru_cache(maxsize=None)
+def self_decode_plan(B: int, H: int, S: int, dtype: torch.dtype, dh: int = 64) -> dict:
+    """Launch shape of the self-decode kernel at crop ``S``: each (row,
+    head) on a cluster of ``cluster`` CTAs (a power of two up to 16) that
+    split the history rows 0..pos-1 (:func:`self_decode_ranges`), at most
+    ``share`` rows each.  A CTA's threads hold their rows' K and V chunks
+    in registers, at most ``max_rows`` rows per CTA (8 per thread); rank 0
+    gathers the cluster's partial sums in ``smem_bytes`` of dynamic shared
+    memory.  It depends on the crop, not the position, so one shape serves
+    a graph's whole chunk.  The cluster is the fewest CTAs that hold the
+    rows: at 6 and 8 rows every doubling cost 1-4 us more than the rows
+    it spread (the sweep of chip_smoke.py phase 3; PERF.md, Findings), so a
+    crop of 128 or 256 bf16 rows runs on one CTA, launched without a
+    cluster, and 448 on two."""
+    if B < 1 or H < 1 or S < 1:
+        raise ValueError(f"self_decode_plan: B, H and S must be positive, got {B}, {H}, {S}")
+    if dh not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel head_dim must be one of {_KERNEL_HEAD_DIMS}, got {dh}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"kernel dtype must be one of {_DTYPES}, got {dtype}")
+    lanes = dh * dtype.itemsize // 16  # lanes per row: 16-byte chunks
+    max_rows = _SD_ROWS * _SD_WARPS * (32 // lanes)
+    hist = max(S - 1, 1)
+    C = 1
+    while C < _SD_MAX_CLUSTER and -(-hist // C) > max_rows:
+        C *= 2
+    share = -(-hist // C)
+    if share > max_rows:
+        raise ValueError(
+            f"self_decode kernel: a crop of {S} rows at dh={dh} {dtype} needs more than "
+            f"{_SD_MAX_CLUSTER} CTAs of {max_rows} rows"
+        )
+    return dict(cluster=C, share=share, max_rows=max_rows, smem_bytes=4 * C * (dh + 1),
+                grid=(C, H, B), nonportable=C > 8)
+
+
+def self_decode_ranges(pos: int, cluster: int) -> List[Tuple[int, int]]:
+    """The history rows [lo, hi) each CTA of a cluster takes at ``pos``:
+    the kernel's own formula, rank * pos / C (integer division)."""
+    return [(r * pos // cluster, (r + 1) * pos // cluster) for r in range(cluster)]
 
 
 def _validate(q, k_new, v_new, cache_k, cache_v, li, pos, n_heads) -> None:
@@ -135,10 +182,9 @@ def self_attention_decode(
         raise ValueError(f"self_attention_decode: unsupported device {dev}")
     _, B, T, D = cache_k.shape
     dh = D // n_heads
-    if dh not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head_dim must be one of {_KERNEL_HEAD_DIMS}, got {dh}")
-    if T > _KERNEL_MAX_T:
-        raise ValueError(f"kernel cache length must be <= {_KERNEL_MAX_T}, got {T}")
+    plan = self_decode_plan(B, n_heads, T, cache_k.dtype, dh)
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
+        raise ValueError("the kernel's 16-byte loads need 16-byte aligned caches")
     out = torch.empty((B, 1, D), dtype=q.dtype, device=dev)
     dev_pos = isinstance(pos, torch.Tensor)
     code = _build.lib().norma_self_decode(
@@ -147,7 +193,7 @@ def self_attention_decode(
         q.stride(0), k_new.stride(0), v_new.stride(0),
         cache_k.stride(0), cache_k.stride(1), cache_v.stride(0), cache_v.stride(1),
         li, 0 if dev_pos else pos, pos.data_ptr() if dev_pos else None, B, n_heads, dh, T,
-        int(cache_k.dtype == torch.bfloat16), dh**-0.5,
+        int(cache_k.dtype == torch.bfloat16), plan["cluster"], dh**-0.5,
         _build.stream_ptr(dev),
     )
     _build.check(code, "self_decode kernel")

@@ -179,3 +179,67 @@ def test_plain_impls_run_attention_cross_q8(model_params, impl):
     np.testing.assert_allclose(n(pl), np.asarray(jl), rtol=5e-4, atol=5e-4)
     with pytest.raises(ValueError, match="cross_kv_impl"):
         pw.decoder_step(pp, PCFG.with_(cross_kv_impl="paged"), t(tok), 3, pck, pcv, pk, pv)
+
+
+# The kernel's launch shape (ops/paged_cross.py::cross_decode_plan) and its
+# key split (cross_decode_ranges, the kernel's own integer formula).
+def _covers(ranges, n):
+    """The ranges, in rank order, tile 0..n-1: contiguous, exactly once."""
+    return ranges[0][0] == 0 and ranges[-1][1] == n and all(
+        a[1] == b[0] and a[0] <= a[1] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_cross_decode_ranges_cover_the_keys(int4):
+    for Ta in range(2 if int4 else 1, 1601, 2 if int4 else 1):
+        for C in (1, 2, 4, 8, 16):
+            ranges = pc.cross_decode_ranges(Ta, C, int4)
+            assert _covers(ranges, Ta), (Ta, C, ranges)
+            if int4:  # a CTA takes whole stored rows: key pairs 2r, 2r + 1
+                assert all(lo % 2 == 0 and hi % 2 == 0 for lo, hi in ranges)
+        plan = pc.cross_decode_plan(1, 20, 6, Ta, int4)
+        stored = [(hi - lo) // (2 if int4 else 1) for lo, hi in pc.cross_decode_ranges(Ta, plan["cluster"], int4)]
+        assert max(stored) <= plan["share"]
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_cross_decode_plan_limits(int4):
+    for B in (1, 2, 6, 8, 16, 48):
+        for G in range(1, 9):
+            for Ta in (2, 16, 38, 200, 1500, 3000):
+                p = pc.cross_decode_plan(B, 20, G, Ta, int4)
+                C, share = p["cluster"], p["share"]
+                assert C in (1, 2, 4, 8, 16) and p["nonportable"] == (C > 8)
+                assert share * C >= (Ta // 2 if int4 else Ta)
+                assert p["pitch"] >= -(-share // 16) * 16 * (2 if int4 else 1)  # whole 16-key tiles
+                assert p["smem_bytes"] == 4 * G * p["pitch"]
+                assert p["smem_bytes"] + 28672 <= 232448  # 227 KB with the static arrays
+                assert p["grid"] == (C, 20, B)
+
+
+# Pinned at the path's shapes (Ta 1500, H 20): (B, G, int4) -> (cluster,
+# stored rows per CTA), the plan's values, chosen by the cluster sweep of
+# chip_smoke.py phase 6: 2 CTAs per (stream, head) at 8 streams (int8 and
+# int4), 8 at one stream for int8 and 4 for int4 (at least 128 rows each).
+CROSS_PLAN_PINS = {
+    (B, G, int4): {1: (8, 188) if not int4 else (4, 188), 6: (4, 375) if not int4 else (4, 188),
+                   8: (2, 750) if not int4 else (2, 375), 48: (1, 1500) if not int4 else (1, 750)}[B]
+    for B in (1, 6, 8, 48) for G in (1, 6) for int4 in (False, True)
+}
+
+
+@pytest.mark.parametrize("B,G,int4", sorted(CROSS_PLAN_PINS))
+def test_cross_decode_plan_at_the_path_shapes(B, G, int4):
+    p = pc.cross_decode_plan(B, 20, G, 1500, int4)
+    assert (p["cluster"], p["share"]) == CROSS_PLAN_PINS[(B, G, int4)]
+
+
+def test_cross_decode_plan_rejects_shapes_past_the_kernel():
+    with pytest.raises(ValueError, match="groups"):
+        pc.cross_decode_plan(1, 20, 9, 1500, False)
+    with pytest.raises(ValueError, match="groups"):
+        pc.cross_decode_plan(1, 20, 0, 1500, False)
+    with pytest.raises(ValueError, match="even"):
+        pc.cross_decode_plan(1, 20, 1, 1499, True)
+    with pytest.raises(ValueError, match="more than 16"):
+        pc.cross_decode_plan(1, 20, 8, 200000, False)

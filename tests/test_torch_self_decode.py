@@ -113,3 +113,73 @@ def test_wrapper_rejects_bad_inputs():
         sd.self_attention_decode(**args(cache_k=t(ck).to("meta"), cache_v=t(cv).to("meta"),
                                         q=t(q).to("meta"), k_new=t(kn).to("meta"), v_new=t(vn).to("meta")))
     assert sd.self_attention_decode.launches == 0  # the CPU path launches nothing
+
+
+# The kernel's launch shape (ops/self_decode.py::self_decode_plan) and its
+# range formula (self_decode_ranges, the kernel's own integer formula).
+PATH_CROPS = (128, 256, 448)  # the served buckets and mtp
+
+
+def _covers(ranges, n):
+    """The ranges, in rank order, tile 0..n-1: contiguous, exactly once."""
+    return ranges[0][0] == 0 and ranges[-1][1] == n and all(
+        a[1] == b[0] and a[0] <= a[1] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 6, 8, 48])
+@pytest.mark.parametrize("S", PATH_CROPS)
+def test_self_decode_ranges_cover_every_fill(S, B, dtype):
+    plan = sd.self_decode_plan(B, 20, S, dtype)
+    C = plan["cluster"]
+    for pos in range(S):
+        ranges = sd.self_decode_ranges(pos, C)
+        assert _covers(ranges, pos), (pos, ranges)
+        assert max(hi - lo for lo, hi in ranges) <= plan["share"]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_self_decode_plan_limits(dtype, dh):
+    es = 2 if dtype == torch.bfloat16 else 4
+    # A CTA's 8 warps hold up to 8 rows per thread, 32 / (lanes per row)
+    # rows per warp instruction.
+    max_rows = 8 * 8 * (32 // (dh * es // 16))
+    for B in (1, 2, 6, 8, 16, 48, 200):
+        for S in (1, 2, 17, 128, 256, 448, 1024, 4096):
+            try:
+                p = sd.self_decode_plan(B, 20, S, dtype, dh)
+            except ValueError:  # only where even 16 CTAs' shares overflow
+                assert -(-(S - 1) // 16) > max_rows
+                continue
+            C = p["cluster"]
+            assert C in (1, 2, 4, 8, 16) and p["nonportable"] == (C > 8)
+            assert p["share"] * C >= S - 1 and 1 <= p["share"] <= p["max_rows"] == max_rows
+            assert C == 1 or -(-(S - 1) // (C // 2)) > max_rows  # the fewest CTAs that hold the rows
+            assert p["smem_bytes"] == 4 * C * (dh + 1)
+            assert p["grid"] == (C, 20, B)
+
+
+# Pinned at the path's shapes: (rows, crop) -> (cluster, rows per CTA), bf16
+# dh 64, H 20: the fewest CTAs that hold the rows (chosen by the cluster
+# sweep of chip_smoke.py phase 3), so one CTA up to 257 rows, two at 448.
+SELF_PLAN_PINS = {
+    (B, S): ((1, S - 1) if S <= 256 else (2, 224)) for B in (1, 6, 8, 48) for S in PATH_CROPS
+}
+
+
+@pytest.mark.parametrize("B,S", sorted(SELF_PLAN_PINS))
+def test_self_decode_plan_at_the_path_shapes(B, S):
+    p = sd.self_decode_plan(B, 20, S, torch.bfloat16)
+    assert (p["cluster"], p["share"]) == SELF_PLAN_PINS[(B, S)]
+
+
+def test_self_decode_plan_rejects_shapes_past_the_kernel():
+    with pytest.raises(ValueError, match="head_dim"):
+        sd.self_decode_plan(8, 20, 448, torch.bfloat16, dh=48)
+    with pytest.raises(ValueError, match="more than 16"):
+        sd.self_decode_plan(8, 20, 1100, torch.float32, dh=128)
+    with pytest.raises(ValueError, match="positive"):
+        sd.self_decode_plan(0, 20, 448, torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        sd.self_decode_plan(8, 20, 448, torch.float16)
