@@ -11,7 +11,8 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      lines and the card's name and power limit;
   2. sample_step kernel vs its plain PyTorch version at rows 1/6/8/48 x
      V=51866 and 8 x an odd V (greedy exactness with NaN, all-masked,
-     step-0 and per-row-step rows; t>0 mask support and exact replay from
+     step-0 and per-row-step rows; the speculative verify rows 5/40/104
+     greedy_only with per-row steps; t>0 mask support and exact replay from
      the kernel's own Philox uniforms; uniformity of those uniforms,
      per-row independence); times at 6 and 8 rows host-launched and from
      CUDA graphs, by cluster size against the plan's, and the Philox probe
@@ -87,7 +88,24 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      cross_decode, flash_encoder, q8a8, w8, w4) all move; the first
      window again, graph against eager (tokens equal); then one window
      of multilingual.Definition in detect mode with quantize_self_kv and
-     the int4 head (the self-decode kernel stays off on the int8 cache).
+     the int4 head (the self-decode kernel stays off on the int8 cache);
+ 14. speculative decoding at full width: a large-v3 target (32/32 layers)
+     and a distil-large-v3-shaped draft (2 decoder layers sharing the
+     target's encoder), seeded random weights drawn on the card with a
+     peaked softmax.  f32: the speculative tokens equal the plain engine's
+     greedy decode at B=1 and B=8 (5 active), at spec_k=4 and "auto"
+     (a failure prints the first differing position and the target's logit
+     margin there); a self-draft accepts every proposal; the round loop's
+     CUDA graphs give its round-by-round eager twin's result; at most one
+     host read per chunk of rounds plus two.  bf16 serving knobs (fused QKV,
+     int8 decoder, int4 head, w8a8 + flash encoder; int8 draft): B=8 rows
+     against the plain engine (printed), the launches of sample_step, w8,
+     w4, flash and q8a8 in one speculative window (all must move), walls
+     of both engines at B=1 and B=8 in turns; then the public entry,
+     monolingual.Definition(draft_local_dir=...) over two BF16 checkpoints
+     it writes (depth cut to 4 layers), warmup() running the fallback, and
+     30 s transcribed in three chunks.  Phase 2 also holds sample_step at
+     the verify chunk's 5, 40 and 104 rows (greedy_only, per-row steps).
 
 Then one JSON line with each kernel's launches, error and times, the
 card's ``nvidia-smi`` name/power-limit line, and last
@@ -393,6 +411,23 @@ def phase_sample_step(rec, dev):
     if replay_ok != replay_n:
         raise AssertionError(f"Philox replay agreed on {replay_ok}/{replay_n} draws")
     masks = _v3_masks(dev)
+    # The speculative verify chunk's rows (B x (K+1)): greedy_only, per-row
+    # steps and grammar states, as a round runs them; CUDA-graph ms.
+    verify_ms = {}
+    for R in SPEC_ROWS:
+        ll = torch.randn((R, V3), generator=g, device=dev) * 2.0
+        tp1 = torch.randint(0, V3, (R,), generator=g, device=dev, dtype=torch.int32)
+        tp2 = torch.randint(0, V3, (R,), generator=g, device=dev, dtype=torch.int32)
+        ts = torch.randint(nts + 1, V3, (R,), generator=g, device=dev, dtype=torch.int32)
+        tlts = torch.where(torch.rand(R, generator=g, device=dev) < 0.5, 0, ts).to(torch.int32)
+        steps = (torch.arange(R, device=dev) % 5).to(torch.int32)
+        args = (ll, *masks, tp1, tp2, tlts, steps, torch.zeros(R, device=dev))
+        kn, kp, kd = ss.sample_step(*args, eot=eot, no_timestamps=nts, greedy_only=True)
+        pn, pp, pd = ss.sample_step_torch(*args, eot=eot, no_timestamps=nts, greedy_only=True)
+        if not (torch.equal(kn, pn) and torch.equal(kd, pd)):
+            raise AssertionError(f"greedy_only per-row-step mismatch at {R} verify rows")
+        torch.testing.assert_close(kp, pp, rtol=1e-5, atol=0.0, equal_nan=True)
+        verify_ms[R] = graph_ms([lambda: ss.sample_step(*args, eot=eot, no_timestamps=nts, greedy_only=True)] * 20)
     u = ss.philox_uniform(99, 7, 64, 512, dev)
     umin, umax, umean = float(u.min()), float(u.max()), float(u.mean())
     if not (0.0 <= umin < 0.02 and 0.98 < umax < 1.0 and abs(umean - 0.5) < 0.02):
@@ -440,7 +475,8 @@ def phase_sample_step(rec, dev):
     t6 = times[6]
     rec["sample_step"] = dict(max_abs_err=max_err, ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
                               bound_by=t6["bound_by"], library_ms=None)
-    rec["sample_step_detail"] = dict(times=times, philox_uniform=dict(ms=pu_ms, bound_ms=pu_bound, bound_by=pu_by))
+    rec["sample_step_detail"] = dict(times=times, philox_uniform=dict(ms=pu_ms, bound_ms=pu_bound, bound_by=pu_by),
+                                     verify_ms=verify_ms)
     tt = "; ".join(
         f"{B} rows: host-launched {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, CUDA graph {v['graph_ms']:.4f} "
         f"ms (greedy {v['graph_greedy_ms']:.4f}), bound {v['bound_ms']:.4f} ms ({v['bound_by']}); by cluster "
@@ -449,7 +485,8 @@ def phase_sample_step(rec, dev):
     log(f"phase 2 sample_step: ok greedy exact at rows {list(SS_ROWS)} x V={V3} and 8 x V={SS_ODD_V} (NaN, "
         f"all-masked, step 0, per-row steps), max_abs_err(prob)={max_err:.3g}; t>0 {draws} draws in support, "
         f"Philox replay {replay_ok}/{replay_n}; u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; {tt}; "
-        f"philox_uniform 6 x {V3}: {pu_ms:.4f} ms (bound {pu_bound:.4f} ms, {pu_by})")
+        f"philox_uniform 6 x {V3}: {pu_ms:.4f} ms (bound {pu_bound:.4f} ms, {pu_by}); verify rows greedy_only, "
+        f"per-row steps, exact vs plain, CUDA graph ms " + ", ".join(f"{R}: {v:.4f}" for R, v in verify_ms.items()))
 
 
 def phase_self_decode(rec, dev):
@@ -2113,6 +2150,367 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
         log(f"  definition window, graph vs per-step eager loop (tokens equal): {modes_text(modes13)}")
 
 
+# --------------------------------------------------------------------------
+# Phase 14: speculative decoding, a large-v3 target with a distil-large-v3
+# draft.
+# --------------------------------------------------------------------------
+
+# The verify chunk's sampling rows, B x (K+1): B=1 K=4, B=8 K=4, B=8 K=12.
+SPEC_ROWS = (5, 40, 104)
+# The logits' spread in phase 14's weights (the decoders' final LayerNorm
+# gain is set for it): a peaked softmax, so greedy decodes pass the
+# logprob gate at rung 0.
+SPEC_LOGIT_STD = 12.0
+
+
+def device_params(cfg, seed, dtype, dev, encoder=None, logit_std=None):
+    """Random params in the port's layout drawn on ``dev`` from ``seed``:
+    linear weights N(0, 1/in), embeddings N(0, 0.02^2), convolutions
+    N(0, 0.05^2), biases 0, LayerNorms 1 and 0, sinusoidal encoder
+    positions (``model/load.py::init_params``'s laws, not its draws).
+    ``encoder`` shares an existing encoder subtree (distil-large-v3's
+    encoder is a copy of large-v3's); ``logit_std`` sets the decoder's final
+    LayerNorm gain so that the logits spread about that much (a LayerNorm
+    output of norm sqrt(D) x gain against N(0, 0.02^2) embeddings)."""
+    import torch
+
+    from norma_tpu_torch.model.load import Params, sinusoids
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, V, F = cfg.d_model, cfg.vocab_size, 4 * cfg.d_model
+
+    def w(*shape, scale=None):
+        scale = shape[-2] ** -0.5 if scale is None else scale
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def const(v, *shape):
+        return torch.full(shape, float(v), dtype=dtype, device=dev)
+
+    def layers(L, cross):
+        t = {}
+        for px in ("", "x") if cross else ("",):
+            t.update({f"{px}q_w": w(L, D, D), f"{px}q_b": const(0, L, D), f"{px}k_w": w(L, D, D),
+                      f"{px}v_w": w(L, D, D), f"{px}v_b": const(0, L, D), f"{px}o_w": w(L, D, D),
+                      f"{px}o_b": const(0, L, D)})
+        for ln in ("attn", "mlp") + (("xattn",) if cross else ()):
+            t[f"{ln}_ln_g"], t[f"{ln}_ln_b"] = const(1, L, D), const(0, L, D)
+        t.update(fc1_w=w(L, D, F), fc1_b=const(0, L, F), fc2_w=w(L, F, D), fc2_b=const(0, L, D))
+        return {k: t[k] for k in sorted(t)}
+
+    if encoder is None:
+        encoder = {
+            "conv1_w": w(3, cfg.num_mel_bins, D, scale=0.05), "conv1_b": const(0, D),
+            "conv2_w": w(3, D, D, scale=0.05), "conv2_b": const(0, D),
+            "pos": torch.from_numpy(sinusoids(cfg.max_source_positions, D)).to(dev, dtype),
+            "layers": layers(cfg.encoder_layers, False), "ln_g": const(1, D), "ln_b": const(0, D),
+        }
+    gain = 1.0 if logit_std is None else logit_std / (0.02 * D ** 0.5)
+    decoder = {
+        "tok_emb": w(V, D, scale=0.02), "pos_emb": w(cfg.max_target_positions, D, scale=0.02),
+        "layers": layers(cfg.decoder_layers, True), "ln_g": const(gain, D), "ln_b": const(0, D),
+    }
+    return Params({"encoder": encoder, "decoder": decoder})
+
+
+def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, public_cfgs=None, seconds=30.0):
+    """Speculative decoding at full width (the defaults): a large-v3 target
+    (32/32 layers) and a distil-large-v3 draft (2 decoder layers sharing
+    the target's encoder), seeded random weights drawn on the card.  A CPU
+    rehearsal passes tiny configs, their special tokens and ``public_cfgs``
+    (tiny configs with large-v3's vocabulary for the checkpoint writer); it
+    checks everything but the kernel launches and graphs."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine, SpecialTokens, SpeculativeEngine
+    from norma_tpu_torch.decode.speculative import SPEC_CHUNK
+    from norma_tpu_torch.frontend.mel import log_mel_spectrogram, prepare_audio
+    from norma_tpu_torch.model import PRESETS, fuse_qkv
+    from norma_tpu_torch.model.quant import quantize_decoder, quantize_encoder
+    from norma_tpu_torch.model.whisper import decoder_full, encode
+    from norma_tpu_torch.models import SelectedDevice
+    from norma_tpu_torch.models.whisper import monolingual
+    from norma_tpu_torch.ops import flash_encoder, quant_matmul, sample_step
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = cfg or PRESETS["large-v3"].with_(max_target_positions=448, decode_buckets=(128, 256))
+    dcfg = dcfg or PRESETS["distil-large-v3"].with_(max_target_positions=448)
+    st = st or SpecialTokens(**ST_V3)
+    lang_ids = lang_ids or LANG_IDS_V3
+    lang = lang_ids[0]
+    Tmax, n_frames = cfg.max_target_positions, 2 * cfg.max_source_positions
+    rng = np.random.default_rng(14)
+    tt = np.arange(int(seconds * 16000)) / 16000
+    base = (0.15 * np.sin(2 * np.pi * 440 * tt) + 0.05 * rng.standard_normal(tt.size)).astype(np.float32)
+    batch = np.stack([prepare_audio(base * (1.0 + 0.1 * i), n_frames) for i in range(8)])
+    windows = {1: (batch[:1], 1), 8: (batch, 5)}  # B -> (audio, active rows)
+
+    def cleanup(toks):  # the trailing-timestamp cleanup of every decode
+        toks = list(toks)
+        while len(toks) >= 2 and toks[-2] > st.no_timestamps:
+            del toks[-2]
+        return toks
+
+    def greedy_rows(engine, B):
+        """The plain engine's greedy (t=0) decode of window B."""
+        audio, na = windows[B]
+        return [d.tokens for d in engine.run_loop(engine.prefill_window(audio, lang), 0.0, 0)[:na]]
+
+    def spec_packed(spec, B, k):
+        audio, na = windows[B]
+        active = torch.zeros(B, dtype=torch.bool)
+        active[:na] = True
+        packed, _ = spec._spec_window(torch.from_numpy(audio).to(dev), torch.full((B,), lang, device=dev),
+                                      active.to(dev), detect=False, k=k)
+        return spec._host(packed)
+
+    def spec_rows(packed, na):
+        """Each row's tokens; None for a no-speech row (born finished)."""
+        return [None if packed[b, Tmax + 3] > 0.6 else cleanup(packed[b, :int(packed[b, Tmax])].astype(np.int64))
+                for b in range(na)]
+
+    def margin(engine, B, b, toks, i):
+        """Top-2 logit margin of the target at the first differing position."""
+        mel = log_mel_spectrogram(torch.from_numpy(windows[B][0][b:b + 1]).to(dev), n_mels=cfg.num_mel_bins,
+                                  n_frames=n_frames)
+        feats = encode(engine.params, engine.cfg, mel)
+        top = decoder_full(engine.params, engine.cfg, torch.tensor([toks[:i]], device=dev), feats)[0, -1].topk(2)
+        return float(top.values[0] - top.values[1])
+
+    def check_equal(name, engine, B, want, got, gate=True):
+        """Rows equal, or the first differing position and margin (raised
+        when ``gate``); returns the rows equal."""
+        equal = []
+        for b, (w_, g_) in enumerate(zip(want, got)):
+            if g_ is None:  # no-speech: the plain ladder decodes nothing either
+                continue
+            equal.append(w_ == g_)
+            if w_ != g_:
+                i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
+                msg = (f"{name}: B={B} row {b} differs from the plain engine at position {i} "
+                       f"(plain {w_[i:i + 3]}, speculative {g_[i:i + 3]}), target top-2 logit margin there "
+                       f"{margin(engine, B, b, w_, i):.3g}")
+                if gate:
+                    raise AssertionError(msg)
+                log("  " + msg)
+        return equal
+
+    def rung0(r):  # a decoded row accepted at t=0 (not no-speech, not failed)
+        return r is not None and r.no_speech_prob <= 0.6 and not r.avg_logprob < -1.0
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # ---- 1. f32, exact, the full target ----------------------------------
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    params = fuse_qkv(device_params(cfg, 31, f32, dev, logit_std=SPEC_LOGIT_STD))
+    dparams = fuse_qkv(device_params(dcfg, 32, f32, dev, encoder=params["encoder"], logit_std=SPEC_LOGIT_STD))
+    sync()
+    make_s = time.perf_counter() - t0
+    plain = DecodeEngine(params, cfg, st, language_token_ids=lang_ids)
+    spec4 = SpeculativeEngine(params, cfg, dparams, dcfg, st, language_token_ids=lang_ids, spec_k=4)
+    f32_out = {}
+    for B in (1, 8):
+        sync()
+        w0 = time.perf_counter()
+        want = greedy_rows(plain, B)
+        sync()
+        plain_ms = (time.perf_counter() - w0) * 1e3
+        h0, w0 = spec4.host_syncs, time.perf_counter()
+        packed = spec_packed(spec4, B, 4)
+        sync()
+        spec_ms, reads = (time.perf_counter() - w0) * 1e3, spec4.host_syncs - h0
+        check_equal("f32 spec_k=4", plain, B, want, spec_rows(packed, windows[B][1]))
+        rounds = int(packed[:, -1].max())
+        # One read per chunk of rounds, one that finds every row finished
+        # (unless the last chunk ends at the round budget), and the packed
+        # result.
+        if reads > -(-rounds // SPEC_CHUNK) + 2:
+            raise AssertionError(f"B={B}: {reads} host reads for {rounds} rounds")
+        f32_out[B] = dict(rounds=packed[:, -1].astype(int).tolist(), n=packed[:, Tmax].astype(int).tolist(),
+                          reads=reads, plain_greedy_ms=plain_ms, spec_ms=spec_ms)
+    graphs = sum(len(b.graphs) for b in spec4._spec_buffers.values())
+    if cuda and not graphs:
+        raise AssertionError("the round loop captured no CUDA graph")
+    del plain, spec4
+    free()
+    log(f"phase 14 speculative: f32 large-v3 target ({cfg.decoder_layers} decoder layers) + distil-large-v3 "
+        f"draft ({dcfg.decoder_layers}), drawn in {make_s:.1f} s: spec_k=4 tokens equal to the plain greedy decode "
+        f"at B=1 and B=8 (5 active); " + "; ".join(
+            f"B={B}: rounds {v['rounds'][:windows[B][1]]} for n {v['n'][:windows[B][1]]}, {v['reads']} host reads, "
+            f"window {v['spec_ms']:.1f} ms (plain greedy loop {v['plain_greedy_ms']:.1f} ms)"
+            for B, v in f32_out.items()) + f"; {graphs} round-loop CUDA graphs captured")
+
+    # ---- 1b. f32, the target's decoder cut to 4 layers: "auto", the
+    # self-draft, the graphs against the round-by-round eager twin --------
+    ccfg = cfg.with_(decoder_layers=min(4, cfg.decoder_layers))
+    cut = fuse_qkv(device_params(ccfg, 33, f32, dev, encoder=params["encoder"], logit_std=SPEC_LOGIT_STD))
+    plain = DecodeEngine(cut, ccfg, st, language_token_ids=lang_ids)
+    auto = SpeculativeEngine(cut, ccfg, dparams, dcfg, st, language_token_ids=lang_ids, spec_k="auto")
+    selfd = SpeculativeEngine(cut, ccfg, cut, ccfg, st, language_token_ids=lang_ids, spec_k=4)
+    want = {B: greedy_rows(plain, B) for B in (1, 8)}
+    # "auto": the public window (rows accepted at rung 0 compared), and
+    # where none was, the greedy loop at the K the window used.
+    compared, ks = 0, []
+    for B in (1, 1, 8):
+        out, _ = auto.transcribe_window(windows[B][0], [lang] * B, 0, n_active=windows[B][1])
+        ks.append(auto.last_spec_k)
+        rows = [(i, r) for i, r in enumerate(out[:windows[B][1]]) if rung0(r)]
+        check_equal("f32 spec_k=auto", plain, B, [want[B][i] for i, _ in rows], [r.tokens for _, r in rows])
+        compared += len(rows)
+        if not rows:
+            check_equal("f32 spec_k=auto (greedy loop)", plain, B, want[B],
+                        spec_rows(spec_packed(auto, B, ks[-1]), windows[B][1]))
+    # The self-draft accepts every proposal: each row's rounds are the fewest
+    # that commit its tokens, K+1 a round but the last (which may add the
+    # length limit's EOT).
+    packed = spec_packed(selfd, 1, 4)
+    check_equal("f32 self-draft", plain, 1, want[1], spec_rows(packed, 1))
+    r, committed = int(packed[0, -1]), int(packed[0, Tmax]) - 3
+    if not (r >= 1 and (r - 1) * 5 < committed <= r * 5 + 1):
+        raise AssertionError(f"self-draft did not accept every proposal: {committed} tokens in {r} rounds")
+    selfdraft = dict(rounds=r, tokens=committed)
+    # The round loop's CUDA graphs against its round-by-round eager twin.
+    modes = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            selfd._spec_loop = selfd._spec_loop_eager
+        try:
+            sync()
+            w0 = time.perf_counter()
+            p_ = spec_packed(selfd, 1, 4)
+            sync()
+            modes[mode] = ((time.perf_counter() - w0) * 1e3, p_)
+        finally:
+            selfd.__dict__.pop("_spec_loop", None)
+    if not np.array_equal(modes["graph"][1], modes["eager"][1], equal_nan=True):
+        raise AssertionError("the round loop's graphs and its eager twin differ")
+    modes = {k: round(v[0], 1) for k, v in modes.items()}
+    del plain, auto, selfd, cut, params, dparams
+    free()
+    log(f"  f32 at {ccfg.decoder_layers} target decoder layers: 'auto' (K used {ks}) equal to the plain greedy "
+        f"decode on {compared} rung-0 rows; self-draft {committed} tokens in {r} rounds (all accepted); self-draft "
+        f"B=1 window graph {modes['graph']} ms vs round-by-round eager {modes['eager']} ms (equal)")
+
+    # ---- 2-4. bf16 serving knobs, the full target -------------------------
+    bf16 = torch.bfloat16
+    cfgq = cfg.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
+    pq = quantize_encoder(quantize_decoder(fuse_qkv(device_params(cfg, 31, bf16, dev, logit_std=SPEC_LOGIT_STD)),
+                                           logits="int4"))
+    dq = quantize_decoder(fuse_qkv(device_params(dcfg, 32, bf16, dev, encoder=pq["encoder"],
+                                                 logit_std=SPEC_LOGIT_STD)))
+    plain = DecodeEngine(pq, cfgq, st, language_token_ids=lang_ids)
+    spec = SpeculativeEngine(pq, cfgq, dq, dcfg, st, language_token_ids=lang_ids, spec_k=4)
+    counters = {"sample_step": sample_step.sample_step, "w8_matmul": quant_matmul.w8_matmul,
+                "w4_matmul": quant_matmul.w4_matmul, "flash_encoder": flash_encoder.flash_self_attention,
+                "q8a8": quant_matmul.q8a8_dense}
+    audio8, na8 = windows[8]
+    # ---- the speculative path: counts from zero ----
+    for c in counters.values():
+        c.launches = 0
+    sync()
+    w0 = time.perf_counter()
+    out_s, _ = spec.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
+    sync()
+    spec8_ms = (time.perf_counter() - w0) * 1e3
+    launches = {k: c.launches for k, c in counters.items()}
+    # ---- end of the path ----
+    rounds8 = (spec.last_spec_rounds, spec.last_tokens_per_round)
+    w0 = time.perf_counter()
+    out_p, _ = plain.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
+    sync()
+    plain8_ms = (time.perf_counter() - w0) * 1e3
+    equal_bf16 = [a is not None and b is not None and a.tokens == b.tokens for a, b in zip(out_p[:na8], out_s[:na8])]
+    if cuda and any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"kernels not launched on the speculative path: {launches}")
+    if any(r is None or not all(0 <= x < cfg.vocab_size for x in r.tokens) for r in out_s[:na8]):
+        raise AssertionError("bf16 speculative rows out of range or empty")
+    if any(r is not None for r in out_s[na8:]):
+        raise AssertionError("pad rows gave results")
+    # Walls at B=1, the two engines in turns (each one's first window
+    # captures its graphs; the median of three leaves that one out).
+    audio1 = windows[1][0]
+    w = {"plain": [], "spec": [], "reads": []}
+    for who in ("spec", "plain", "plain", "spec", "spec", "plain"):
+        eng = plain if who == "plain" else spec
+        sync()
+        h0, w0 = eng.host_syncs, time.perf_counter()
+        eng.transcribe_window(audio1, [lang], 0)
+        sync()
+        w[who].append((time.perf_counter() - w0) * 1e3)
+        if who == "spec":
+            w["reads"].append(eng.host_syncs - h0)
+    walls = dict(plain_ms=w["plain"], spec_ms=w["spec"], plain_median_ms=float(np.median(w["plain"])),
+                 spec_median_ms=float(np.median(w["spec"])), rounds=spec.last_spec_rounds,
+                 tokens_per_round=spec.last_tokens_per_round, spec_reads=w["reads"],
+                 b8=dict(spec_ms=spec8_ms, plain_ms=plain8_ms, rounds=rounds8[0], tokens_per_round=rounds8[1]))
+    del plain, spec, pq, dq
+    free()
+    smi = smi_line() if cuda else "cpu"
+    log(f"  bf16 serving knobs (fuse_qkv, int8 decoder, int4 head, w8a8 + flash encoder; draft int8), full "
+        f"target: B=8 (5 active) rows equal to the plain engine {equal_bf16} (printed, not gated: bf16 on random "
+        f"weights); launches in that speculative window {launches}; its wall {spec8_ms:.1f} ms with first-use "
+        f"captures (plain {plain8_ms:.1f} ms), {rounds8[0]} rounds, {rounds8[1]} tokens/round")
+    log(f"  bf16 B=1 window walls on {smi}: plain {[round(x, 1) for x in walls['plain_ms']]} ms (median "
+        f"{walls['plain_median_ms']:.1f}), speculative {[round(x, 1) for x in walls['spec_ms']]} ms (median "
+        f"{walls['spec_median_ms']:.1f}); {walls['rounds']} rounds, {walls['tokens_per_round']} tokens/round, "
+        f"host reads {walls['spec_reads']}")
+
+    # ---- 5. the public entry: Definitions over checkpoints on disk -------
+    tcfg5, dcfg5 = public_cfgs or (
+        PRESETS["large-v3"].with_(encoder_layers=4, decoder_layers=4, max_target_positions=448),
+        PRESETS["distil-large-v3"].with_(encoder_layers=4, max_target_positions=448),
+    )
+    device = SelectedDevice.cuda() if cuda else SelectedDevice.cpu()
+    with tempfile.TemporaryDirectory(prefix="norma_spec_ckpt_") as d:
+        dt, dd = os.path.join(d, "target"), os.path.join(d, "draft")
+        os.makedirs(dt)
+        os.makedirs(dd)
+        t0 = time.perf_counter()
+        nb = write_v3_checkpoint(dt, dev, seed=41, cfg=tcfg5) + write_v3_checkpoint(dd, dev, seed=42, cfg=dcfg5)
+        write_s = time.perf_counter() - t0
+        kw = dict(local_dir=dt, dtype=bf16, quantize_decoder=True, quantize_logits="int4")
+        model = monolingual.Definition(monolingual.ModelType.DISTIL_LARGE_EN_V3, device, draft_local_dir=dd,
+                                       spec_k=4, **kw).blocking_try_to_model()
+        pmodel = monolingual.Definition(monolingual.ModelType.DISTIL_LARGE_EN_V3, device, **kw).blocking_try_to_model()
+        if not (isinstance(model.engine, SpeculativeEngine) and model.engine.draft_cfg.decoder_layers
+                == dcfg5.decoder_layers):
+            raise AssertionError("the Definition with draft_local_dir did not build the speculative engine")
+        fallback_runs = []
+        inner = model.engine.warmup_fallback
+        model.engine.warmup_fallback = lambda *a: (fallback_runs.append(a), inner(*a))[1]
+        model.warmup()
+        if not fallback_runs:
+            raise AssertionError("warmup() did not run the speculative engine's fallback")
+        chunks = np.array_split(base, 3)
+        texts = {}
+        for name, m in (("spec", model), ("plain", pmodel)):
+            sync()
+            w0 = time.perf_counter()
+            texts[name] = [m.transcribe(c, final_chunk=i == 2) for i, c in enumerate(chunks)]
+            sync()
+            texts[name + "_ms"] = (time.perf_counter() - w0) * 1e3
+            if m.longform.buf.size:
+                raise AssertionError(f"{name}: buffer not drained")
+        if not all(isinstance(x, str) for x in texts["spec"]):
+            raise AssertionError("the speculative model's transcripts are not strings")
+    rec["speculative"] = dict(f32=f32_out, auto_ks=ks, selfdraft=selfdraft, modes=modes, bf16_equal=equal_bf16,
+                              launches=launches, walls=walls, public=dict(write_s=write_s, ckpt_bytes=nb,
+                              ms=(texts["spec_ms"], texts["plain_ms"]), equal=texts["spec"] == texts["plain"]))
+    log(f"  public entry: monolingual.Definition(draft_local_dir=...) over two BF16 checkpoints "
+        f"({nb / 2**30:.2f} GiB, written in {write_s:.1f} s; target {tcfg5.encoder_layers}/{tcfg5.decoder_layers} "
+        f"layers, draft {dcfg5.encoder_layers}/{dcfg5.decoder_layers}), int8 decoder + int4 head: warmup ran the "
+        f"fallback; {seconds:.0f} s in 3 chunks {texts['spec_ms']:.1f} ms (plain {texts['plain_ms']:.1f} ms), "
+        f"transcripts equal to the plain model's: {texts['spec'] == texts['plain']} (bf16: printed, not gated)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2151,6 +2549,7 @@ def main(argv=None) -> int:
         ("w8_matmul", lambda: phase_w8(rec, dev)),
         ("log_mel", lambda: phase_log_mel(rec, dev)),
         ("definition", lambda: phase_definition(rec, dev)),
+        ("speculative", lambda: phase_speculative(rec, dev)),
     )
     only = [x for x in args.phases.split(",") if x]
     unknown = set(only) - {name for name, _ in phases}

@@ -7,6 +7,10 @@ to find:
   - ``frontend.mel``        log-mel spectrogram (``torch.fft``)
   - ``model.whisper``       encoder / decoder (f32 or bf16, int8 dispatch)
   - ``model.load``          ``init_params``, safetensors, ``params_from_numpy``
+  - ``model.serialize``     pre-quantized params files (``save_params``,
+                            ``load_params_file``), byte-equal to the JAX
+                            package's
+  - ``model.gguf``          the GGUF q8_0 checkpoint reader
   - ``model.quant``         ``quantize_decoder`` / ``quantize_encoder``
   - ``ops.sample_step``     fused grammar + sampling step (CUDA kernel)
   - ``ops.self_decode``     single-query self-attention decode (CUDA kernel)
@@ -14,11 +18,14 @@ to find:
   - ``ops.flash_encoder``   encoder flash attention (CUDA kernel)
   - ``ops.quant_matmul``    int8 GEMM, w8a16 and w4a16 products (CUDA kernels)
   - ``decode.engine``       ``DecodeEngine`` (temperature ladders, buckets,
-                            quantized cross-K/V)
+                            quantized cross-K/V, the token loop as CUDA graphs)
+  - ``decode.speculative``  ``SpeculativeEngine`` (a draft decoder proposes,
+                            the target verifies in one chunked forward)
   - ``decode.longform``     ``LongFormDecoder`` (streaming buffer/drain)
   - ``models.whisper``      ``monolingual`` / ``multilingual.Definition``,
-                            their checkpoint loader and tokenizer, and
-                            ``WhisperModel``
+                            their checkpoint loader (HF safetensors, GGUF,
+                            params files, draft checkpoints) and tokenizer,
+                            and ``WhisperModel``
   - ``runtime.transcriber`` ``Transcriber`` (the public entry point)
   - ``runtime.batching``    ``BatchedTranscriber`` (multi-stream serving)
   - ``ops.mel_pallas``      the fused log-mel frontend (CUDA kernel)

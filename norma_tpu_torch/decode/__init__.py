@@ -1,6 +1,7 @@
 from .engine import DecodeEngine, DecodingResult
 from .longform import LanguageState, LongFormDecoder
 from .masks import Masks, SpecialTokens, build_masks
+from .speculative import SpeculativeEngine
 
 __all__ = [
     "DecodeEngine",
@@ -9,5 +10,6 @@ __all__ = [
     "LongFormDecoder",
     "Masks",
     "SpecialTokens",
+    "SpeculativeEngine",
     "build_masks",
 ]

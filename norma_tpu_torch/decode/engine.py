@@ -1,5 +1,5 @@
-"""Whisper decoding engine in eager PyTorch (``norma_tpu/decode/engine.py``,
-without speculation or meshes).
+"""Whisper decoding engine in PyTorch (``norma_tpu/decode/engine.py``,
+without meshes; speculation is ``decode/speculative.py``).
 
 The reference's per-window decode (``model.rs:164-389``): mel -> encoder ->
 cross-K/V -> optional language detection -> prefill with the no-speech
@@ -441,20 +441,23 @@ class DecodeEngine:
         return plan, buf, generator
 
     def _run_chunk(self, buf, S: int, k: int, n_rungs: int, greedy_only: bool, generator) -> None:
-        """Advance ``buf`` by ``k`` steps at crop ``S``: eagerly on the CPU;
-        on CUDA by replaying the chunk's graph.  A chunk met for the first
-        time runs eagerly on a side stream (the warm-up: the kernel library,
-        cuBLAS and the allocator are ready before the capture), then is
-        captured there.  A capture or replay error raises."""
+        """Advance ``buf`` by ``k`` steps at crop ``S`` (:meth:`_graphed`)."""
 
         def chunk():
             for _ in range(k):
                 self._loop_step(buf, S, n_rungs, greedy_only, generator)
 
+        self._graphed(buf, (S, k, n_rungs, bool(greedy_only)), chunk)
+
+    def _graphed(self, buf, key, fn) -> None:
+        """Run ``fn``, device work on ``buf``'s tensors: eagerly on the CPU;
+        on CUDA by replaying ``buf.graphs[key]``.  A key met for the first
+        time runs ``fn`` eagerly on a side stream (the warm-up: the kernel
+        library, cuBLAS and the allocator are ready before the capture),
+        then captures it there.  A capture or replay error raises."""
         if buf.fin.device.type != "cuda":
-            chunk()
+            fn()
             return
-        key = (S, k, n_rungs, bool(greedy_only))
         graph = buf.graphs.get(key)
         if graph is not None:
             graph.replay()
@@ -465,18 +468,18 @@ class DecodeEngine:
         side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            chunk()  # the warm-up is this chunk's real run
+            fn()  # the warm-up is this call's real run
         before = {c: c.launches for c in _kernel_counters()}
-        # One memory pool for all the engine's graphs: a chunk's temporaries
+        # One memory pool for all the engine's graphs: a graph's temporaries
         # are dead when it ends (its results are copied into ``buf``) and
-        # chunks run one at a time on one stream, so they can share blocks.
+        # graphs run one at a time on one stream, so they can share blocks.
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
-                chunk()
+                fn()
             finally:
                 graph.capture_end()
         cur.wait_stream(side)
@@ -645,12 +648,15 @@ class DecodeEngine:
         return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
     def _sequential_rungs(
-        self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0
+        self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0,
+        *, start_rung: int = 0,
     ):
         """Sequential temperature ladder: try rungs in order, stopping once
         every stream has settled.  Rung r draws with key
-        ``_rung_seed(seed, r)``; settled rows are born finished.  Returns
-        (btoks, bn, bavg, brung); rows never accepted carry brung = -1."""
+        ``_rung_seed(seed, r)`` and reports TEMPERATURES[r]; settled rows are
+        born finished; ``start_rung`` > 0 skips rungs a caller already ran
+        (the speculative engine's t=0 pass).  Returns (btoks, bn, bavg,
+        brung); rows never accepted carry brung = -1."""
         B = tokens_init.shape[0]
         dev = tokens_init.device
         settled = settled0.clone()
@@ -658,7 +664,7 @@ class DecodeEngine:
         bn = torch.full((B,), 3, dtype=torch.int32, device=dev)
         bavg = torch.zeros(B, dtype=torch.float32, device=dev)
         brung = torch.full((B,), -1, dtype=torch.int64, device=dev)
-        for r in range(len(TEMPERATURES)):
+        for r in range(start_rung, len(TEMPERATURES)):
             self.host_syncs += 1
             if not bool((~settled).any()):
                 break
@@ -767,9 +773,20 @@ class DecodeEngine:
         return self._unpack_ladder(self._host(packed), active, detect)
 
     def _unpack_ladder(
-        self, packed: np.ndarray, active: np.ndarray, detect: bool
+        self,
+        packed: np.ndarray,
+        active: np.ndarray,
+        detect: bool,
+        *,
+        trailing_cols: int = 0,
+        reject_rung0_below_gate: bool = False,
     ) -> Tuple[List[Optional[DecodingResult]], dict]:
-        """Host-side unpack of :meth:`_pack_ladder`'s layout."""
+        """Host-side unpack of :meth:`_pack_ladder`'s layout (the speculative
+        engine unpacks through here too).  ``trailing_cols``: telemetry
+        columns after the lang_probs block.  ``reject_rung0_below_gate``:
+        also reject rung-0 rows failing the logprob gate (the speculative
+        host applies the gate after its fallback dispatch, whereas the plain
+        ladder gated on the device: rung -1)."""
         Tmax = self.cfg.max_target_positions
         btoks = packed[:, :Tmax].astype(np.int32)
         bn = packed[:, Tmax].astype(np.int32)
@@ -777,7 +794,7 @@ class DecodeEngine:
         brung = packed[:, Tmax + 2].astype(np.int32)
         nsp = packed[:, Tmax + 3]
         langs_out = packed[:, Tmax + 4].astype(np.int32)
-        lang_probs = packed[:, Tmax + 5 :]
+        lang_probs = packed[:, Tmax + 5 : packed.shape[1] - trailing_cols]
         st = self.st
         out: List[Optional[DecodingResult]] = []
         for b in range(btoks.shape[0]):
@@ -793,7 +810,9 @@ class DecodeEngine:
                     )
                 )
                 continue
-            if brung[b] < 0:
+            if brung[b] < 0 or (
+                reject_rung0_below_gate and brung[b] == 0 and bavg[b] < LOGPROB_THRESHOLD
+            ):
                 out.append(None)  # failed at all temperatures
                 continue
             toks = btoks[b, : bn[b]].tolist()
@@ -883,7 +902,13 @@ class DecodeEngine:
         computes compression_ratio).  When the no-speech probe fires the
         prefix-only result is returned; the long-form layer discards it.
         """
-        state = self.prefill(feats, lang_token)
+        return self._fallback_from_state(self.prefill(feats, lang_token), seed)
+
+    def decode_with_fallback_windowed(self, audio, lang_token, seed: int) -> Optional[DecodingResult]:
+        """:meth:`decode_with_fallback` from a raw padded PCM window."""
+        return self._fallback_from_state(self.prefill_window(audio, lang_token), seed)
+
+    def _fallback_from_state(self, state, seed: int) -> Optional[DecodingResult]:
         nsp = float(state["no_speech_prob"][0])
         if nsp > NO_SPEECH_THRESHOLD:
             return DecodingResult(
@@ -899,3 +924,39 @@ class DecodeEngine:
                 return dr
         logger.debug("failed to decode at all temperatures, returning None")
         return None
+
+    @torch.no_grad()
+    def detect_language(self, feats) -> np.ndarray:
+        """[B, n_languages] probabilities (``language_token_ids`` order) from
+        one decoder pass over [sot] (reference: detect_language,
+        model.rs:194-210)."""
+        if self._lang_ids is None:
+            raise ValueError("language detection requires language_token_ids")
+        feats = torch.as_tensor(feats).to(self.device)
+        B = feats.shape[0]
+        xk, xv = cross_kv(self.params, self.cfg, feats)
+        sot = torch.full((B, 1), self.st.sot, dtype=torch.int32, device=self.device)
+        logits, _, _ = decoder_prefill(self.params, self.cfg, sot, xk, xv)
+        return self._host(torch.softmax(logits[:, 0, self._lang_ids], dim=-1))
+
+    def decode(
+        self, feats, lang_token: Optional[int], temperature: float, seed: int, _prefill_state=None
+    ) -> DecodingResult:
+        """Single decode at one temperature (reference: decode, model.rs:279-389)."""
+        state = _prefill_state or self.prefill(feats, lang_token)
+        return self.run_loop(state, temperature, seed)[0]
+
+    @torch.no_grad()
+    def prefill_window(self, audio, lang_token):
+        """:meth:`prefill` from raw padded PCM [B, samples] (mel, encoder,
+        prefill in one call)."""
+        if isinstance(audio, torch.Tensor):
+            audio_t = audio.to(self.device, torch.float32)
+        else:
+            audio_t = torch.from_numpy(np.asarray(audio, np.float32)).to(self.device)
+        cfg = self.cfg
+        mel = log_mel_spectrogram(
+            audio_t, n_mels=cfg.num_mel_bins, n_frames=2 * cfg.max_source_positions,
+            center=self.mel_center,
+        )
+        return self.prefill(encode(self.params, cfg, mel), lang_token)

@@ -1,0 +1,525 @@
+"""Speculative decoding: a shallow draft decoder proposes, the target
+verifies (``norma_tpu/decode/speculative.py``).
+
+The distil-whisper checkpoints share the target's encoder lineage, vocab
+and tokenizer, so one encoder pass feeds both decoders: per round the
+draft proposes K greedy tokens in K+1 one-token steps, then the target
+scores all K proposals plus one bonus position in ONE chunked forward
+(:func:`~norma_tpu_torch.model.whisper.decoder_chunk`), so the target's
+weights stream once for up to K+1 committed tokens.
+
+Exact greedy equivalence: every committed token is the TARGET's own
+grammar-masked greedy choice.  Position j of a verify chunk is accepted
+only if the target's choice (with the timestamp-grammar state the plain
+loop would carry, advanced along the accepted prefix) equals the draft's
+proposal; the first mismatch commits the target's choice instead.  The
+avg_logprob gate reads the target's own masked probabilities, so the
+temperature fallback is unchanged: the t=0 rung is speculative, t>0 rungs
+run the plain sequential ladder over the same encoder features.
+
+Cache staleness: each round writes chunk K/V at positions [n-1, n+K) and
+commits n' >= n+1, so rows left by rejected proposals sit at positions
+>= n'-1 and are overwritten by the next round's writes (which start at
+n'-1) before any read; queries mask keys beyond their own position.
+
+The round loop keeps all its state on the device (tokens, n, grammar
+state, sum of log-probabilities, finished flags, rounds per row).  Rounds
+run in chunks of ``SPEC_CHUNK`` with one host read of the finished flags
+per chunk; on CUDA each chunk is a captured CUDA graph (the counterpart of
+the JAX package's ``lax.while_loop``), on the CPU the same rounds run
+eagerly.  Rounds after every row has finished change nothing (the caches
+carry K+1 rows of slack for the writes of finished rows).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD
+from ..model.config import WhisperConfig
+from ..model.load import Params
+from ..model.whisper import (
+    cross_kv,
+    decoder_chunk,
+    decoder_prefill,
+    quantize_cross_kv as quantize_xkv8,
+)
+from ..ops.quant_matmul import head_kernel_layout
+from ..ops.sample_step import sample_step
+from ..tracing import instrument
+from .engine import DecodeEngine, DecodingResult, _copy_into, _like, _signature
+from .masks import SpecialTokens
+
+# Rounds per chunk of the speculative loop: one host read of the finished
+# flags, and on CUDA one graph replay, per chunk.
+SPEC_CHUNK = 8
+
+
+class _SpecBuffers:
+    """The round loop's tensors: inputs (both cross-K/V, both caches) and
+    state (tokens, n, p1/p2/last timestamp, sum of logprobs, finished
+    flags, live rounds per row), all on the device.  A ``static`` one
+    (CUDA) owns every tensor, at addresses its captured graphs hold, and
+    :meth:`start` copies a window's inputs in; otherwise (the CPU) it works
+    on the caller's tensors, writing the caches in place."""
+
+    def __init__(self, ins, static: bool = False):
+        tokens_init = ins[8]
+        B, Tmax = tokens_init.shape
+        dev = tokens_init.device
+        self.static = static
+        names = ("xk", "xv", "dxk", "dxv", "ck", "cv", "dk", "dv")
+        for name, t in zip(names, ins[:8]):
+            setattr(self, name, _like(t) if static else t)
+        self.tokens = torch.empty((B, Tmax), dtype=torch.int32, device=dev)
+        i32 = lambda: torch.empty(B, dtype=torch.int32, device=dev)
+        self.n, self.p1, self.p2, self.last_ts, self.rounds = i32(), i32(), i32(), i32(), i32()
+        self.slp = torch.empty(B, dtype=torch.float32, device=dev)
+        self.fin = torch.empty(B, dtype=torch.bool, device=dev)
+        self.slots = torch.arange(Tmax, device=dev)[None]
+        self.graphs: dict = {}  # (K, rounds, n0) -> CUDAGraph
+        self.launches: dict = {}
+
+    def start(self, ins, n0: int, prev1, prev2, fin_init) -> None:
+        names = ("xk", "xv", "dxk", "dxv", "ck", "cv", "dk", "dv")
+        for name, src in zip(names, ins[:8]):
+            if self.static:
+                _copy_into(getattr(self, name), src)
+            else:
+                setattr(self, name, src)
+        self.tokens.copy_(ins[8])
+        self.n.fill_(n0)
+        self.p1.copy_(prev1)
+        self.p2.copy_(prev2)
+        self.last_ts.zero_()
+        self.slp.zero_()
+        self.fin.copy_(fin_init)
+        self.rounds.zero_()
+
+
+class SpeculativeEngine(DecodeEngine):
+    """DecodeEngine whose greedy (t=0) rung runs draft/verify speculation.
+
+    ``draft_params``/``draft_cfg`` describe a shallow Whisper decoder with
+    the same d_model, vocab and max_target_positions as the target; its
+    encoder weights are unused (the target's encoder output feeds the
+    draft's own cross-attention projections).
+
+    ``spec_k`` proposals are drafted per round; ``spec_k="auto"`` walks K
+    along ``_K_CHOICES`` between windows from the acceptance telemetry
+    (``last_tokens_per_round``).  Committed tokens are identical at every
+    K, so K is a performance knob only.
+    """
+
+    #: The K ladder ``spec_k="auto"`` walks.
+    _K_CHOICES = (2, 4, 8, 12)
+    #: EMA-smoothed acceptance ratio (tokens/round over K+1) thresholds:
+    #: above _K_UP, escalate; below _K_DOWN, de-escalate.
+    _K_UP = 0.75
+    _K_DOWN = 0.35
+    _K_EMA = 0.5
+
+    # The window has a host gate between the speculative arm and its
+    # fallback dispatch, so it does not split into dispatch and fetch; the
+    # batching scheduler runs its rounds synchronously.
+    supports_async_window = False
+
+    def __init__(
+        self,
+        params: Params,
+        cfg: WhisperConfig,
+        draft_params: Params,
+        draft_cfg: WhisperConfig,
+        st: SpecialTokens,
+        language_token_ids: Optional[Sequence[int]] = None,
+        mel_center: bool = False,
+        quantize_cross_kv: "bool | str" = False,
+        spec_k=4,
+    ):
+        if draft_cfg.d_model != cfg.d_model:
+            raise ValueError(
+                "draft d_model must match the target's (the draft reuses "
+                f"the target encoder output): {draft_cfg.d_model} != {cfg.d_model}"
+            )
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError("draft vocab must match the target's")
+        if draft_cfg.max_target_positions != cfg.max_target_positions:
+            raise ValueError(
+                "draft max_target_positions must match the target's (both "
+                "decoders share the round's position bookkeeping)"
+            )
+        if quantize_cross_kv and cfg.cross_kv_impl == "kernel":
+            raise ValueError(
+                'cross_kv_impl="kernel" is not supported with speculative '
+                "decoding: the verify pass scores multi-token chunks and "
+                "the cross-decode kernel is single-query — use the einsum "
+                "or chunked impl (or drop quantize_cross_kv)"
+            )
+        super().__init__(
+            params, cfg, st,
+            language_token_ids=language_token_ids,
+            mel_center=mel_center,
+            quantize_cross_kv=quantize_cross_kv,
+        )
+        if draft_params.device != self.device:
+            raise ValueError(f"draft params on {draft_params.device}, target on {self.device}")
+        if self.device.type == "cuda":
+            # The heads' kernel layout, as DecodeEngine._kernel_params sets
+            # it for the target (the draft's encoder is never run).
+            dec = head_kernel_layout(draft_params["decoder"])
+            if dec is not draft_params["decoder"]:
+                draft_params = Params({**dict(draft_params.items()), "decoder": dec})
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        if spec_k == "auto":
+            self.auto_k = True
+            self.spec_k = 4  # starting rung of _K_CHOICES
+        else:
+            self.auto_k = False
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            self.spec_k = int(spec_k)
+        self._accept_ema: Optional[float] = None
+        self.last_spec_k: Optional[int] = None
+        # Telemetry of the last transcribe_window (read with its one fetch):
+        # draft/verify rounds, and committed tokens per round (1.0 = nothing
+        # accepted .. spec_k+1 = all accepted).
+        self.last_spec_rounds: Optional[int] = None
+        self.last_tokens_per_round: Optional[float] = None
+        self._spec_chunk = SPEC_CHUNK
+        self._spec_buffers: dict = {}
+
+    def _adapt_spec_k(self) -> None:
+        """Walk ``spec_k`` along ``_K_CHOICES`` from the acceptance ratio
+        tokens_per_round / (K+1), EMA-smoothed; called after each window
+        when ``spec_k="auto"``."""
+        tpr = self.last_tokens_per_round
+        if tpr is None:
+            return
+        ratio = tpr / (self.spec_k + 1)
+        ema = self._accept_ema
+        ema = ratio if ema is None else self._K_EMA * ema + (1 - self._K_EMA) * ratio
+        self._accept_ema = ema
+        idx = self._K_CHOICES.index(self.spec_k) if self.spec_k in self._K_CHOICES else None
+        if idx is None:
+            return
+        if ema >= self._K_UP and idx + 1 < len(self._K_CHOICES):
+            self.spec_k = self._K_CHOICES[idx + 1]
+            self._accept_ema = None  # ratio scale changed with K
+        elif ema <= self._K_DOWN and idx > 0:
+            self.spec_k = self._K_CHOICES[idx - 1]
+            self._accept_ema = None
+
+    # ------------------------------------------------------------------
+    # The speculative greedy loop
+    # ------------------------------------------------------------------
+
+    def _grammar(self, ll, p1, p2, lts, step):
+        """Greedy grammar-masked pick for rows at per-row ``step``."""
+        zero_temp = torch.zeros(ll.shape[0], dtype=torch.float32, device=ll.device)
+        return sample_step(
+            ll, self._m_suppress, self._m_non_ts, self._m_ts, self._m_first,
+            p1, p2, lts, step, zero_temp,
+            eot=self.st.eot, no_timestamps=self.st.no_timestamps, greedy_only=True,
+        )
+
+    def _spec_round(self, buf: _SpecBuffers, K: int, n0: int) -> None:
+        """One draft/verify round on ``buf``'s tensors, in place.
+
+        State at the top of a round, per row: tokens [0, n) committed; both
+        caches hold positions [0, n-1); the committed token at n-1 (the
+        pending one) is fed to neither decoder yet; (p1, p2, last_ts) is the
+        grammar state for predicting position n, at step n - n0."""
+        cfg, st = self.cfg, self.st
+        B = buf.tokens.shape[0]
+        mtp = cfg.max_target_positions
+        dev = buf.tokens.device
+        fin, n = buf.fin, buf.n
+        live = ~fin
+        # Per-row live rounds: rows finished before this round do not pay
+        # for it (the acceptance telemetry's denominator).
+        buf.rounds.add_(live.to(torch.int32))
+        step0 = n - n0
+
+        # Draft: K+1 one-token steps feed [pending, d_0 .. d_{K-1}] at
+        # positions n-1 .. n+K-1 (the last step only writes its cache row);
+        # step j proposes d_j from the grammar state s_j, kept for verify.
+        dp1, dp2, dlts = buf.p1, buf.p2, buf.last_ts
+        fed, states = [buf.p1], []
+        for j in range(K + 1):
+            states.append((dp1, dp2, dlts, step0 + j))
+            logits, _, _ = decoder_chunk(
+                self.draft_params, self.draft_cfg, fed[-1][:, None], n - 1 + j,
+                buf.dk, buf.dv, buf.dxk, buf.dxv,
+            )
+            if j < K:
+                d_j, _, _ = self._grammar(logits[:, 0, :].contiguous(), dp1, dp2, dlts, step0 + j)
+                dp2, dp1 = dp1, d_j
+                dlts = torch.where(d_j > st.no_timestamps, d_j, dlts)
+                fed.append(d_j)
+        s_p1, s_p2, s_lts, s_step = (list(x) for x in zip(*states))
+
+        # Verify: one (K+1)-wide target chunk; logits[:, j] predicts n + j
+        # under grammar state s_j.
+        chunk = torch.stack(fed, 1)  # [B, K+1]
+        logits, _, _ = decoder_chunk(self.params, cfg, chunk, n - 1, buf.ck, buf.cv, buf.xk, buf.xv)
+        rows = lambda xs: torch.stack(xs, 1).reshape(-1)  # row b*(K+1) + j
+        g, prob, _ = self._grammar(
+            logits.reshape(B * (K + 1), -1), rows(s_p1), rows(s_p2), rows(s_lts), rows(s_step)
+        )
+        g = g.reshape(B, K + 1)  # the target's choice at positions n .. n+K
+        prob = prob.reshape(B, K + 1)
+
+        # Acceptance: the longest prefix where the target agrees.
+        match = g[:, :K] == chunk[:, 1:]
+        a = torch.where(match.all(1), K, torch.argmin(match.to(torch.int32), 1))  # [B] in [0, K]
+        # Sequential push semantics over j = 0..a (as the plain loop): stop
+        # after the first EOT; at len >= mtp-1 push the token and an EOT.
+        js = torch.arange(K + 1, device=dev)[None]
+        in_range = js <= a[:, None]
+        is_eot = g == st.eot
+        first_eot = torch.where(in_range & is_eot, js, K + 1).amin(1)
+        limit_j = ((n[:, None] + js + 1) >= (mtp - 1)) & ~is_eot
+        first_lim = torch.where(in_range & limit_j, js, K + 1).amin(1)
+        stop_j = torch.minimum(first_eot, first_lim)  # K+1 = no stop
+        cc = torch.minimum(a + 1, stop_j + 1)  # committed count
+        hit_lim = first_lim < torch.minimum(first_eot, a + 1)
+
+        # Committed tokens at [n, n+cc); the extra EOT at n+cc on the limit.
+        sel = buf.slots - n[:, None]
+        take = (sel >= 0) & (sel < cc[:, None]) & live[:, None]
+        tokens = torch.where(take, torch.gather(g, 1, sel.clamp(0, K)), buf.tokens)
+        lim_slot = buf.slots == (n + cc)[:, None]
+        tokens = torch.where(lim_slot & (hit_lim & live)[:, None], st.eot, tokens)
+        committed = (js < cc[:, None]) & live[:, None]
+        slp = buf.slp + torch.where(committed, torch.log(prob), 0.0).sum(1)
+        new_fin = fin | (first_eot <= a) | hit_lim
+        n_new = torch.where(fin, n, n + cc + hit_lim.to(torch.int32))
+
+        # Grammar state after the commit: s_{cc-1} advanced by its token.
+        last_j = (cc - 1).clamp(min=0)[:, None]
+        at_last = lambda xs: torch.gather(torch.stack(xs, 1), 1, last_j)[:, 0]
+        c_last = torch.gather(g, 1, last_j)[:, 0]
+        np1 = torch.where(fin, buf.p1, c_last)
+        np2 = torch.where(fin, buf.p2, at_last(s_p1))
+        nlts = torch.where(live & (c_last > st.no_timestamps), c_last, at_last(s_lts))
+        nlts = torch.where(fin, buf.last_ts, nlts)
+
+        buf.tokens.copy_(tokens)
+        buf.slp.copy_(slp)
+        buf.n.copy_(n_new)
+        buf.p1.copy_(np1)
+        buf.p2.copy_(np2)
+        buf.last_ts.copy_(nlts)
+        buf.fin.copy_(new_fin)
+
+    def _spec_buffer(self, ins) -> _SpecBuffers:
+        """A fresh :class:`_SpecBuffers` on the CPU; on CUDA the engine's
+        static one for these inputs' shapes, strides and dtypes."""
+        if ins[8].device.type != "cuda":
+            return _SpecBuffers(ins)
+        key = _signature(ins)
+        buf = self._spec_buffers.get(key)
+        if buf is None:
+            buf = self._spec_buffers[key] = _SpecBuffers(ins, static=True)
+        return buf
+
+    def _spec_loop(self, ins, n0: int, prev1, prev2, fin_init, k: int):
+        """The greedy draft/verify loop over ``ins`` = (xk, xv, dxk, dxv,
+        cache_k, cache_v, draft cache_k, draft cache_v, tokens_init), the
+        caches holding positions [0, n0-1) with K+1 rows of slack.  Returns
+        (tokens, n, sum_logprob, live rounds per row) on the device;
+        token-for-token the plain loop's greedy decode.
+
+        The loop runs at most ``mtp - 1 - n0`` rounds (a live row commits at
+        least one token a round, and the length guard finishes it by then),
+        in chunks of ``_spec_chunk`` rounds with one host read of the
+        finished flags before each; each chunk a CUDA graph on CUDA, captured
+        on its first use per (buffers, K, rounds, n0)."""
+        buf = self._spec_buffer(ins)
+        buf.start(ins, n0, prev1, prev2, fin_init)
+        budget = self.cfg.max_target_positions - 1 - n0
+        done = 0
+        while done < budget:
+            r = min(self._spec_chunk, budget - done)
+            self.host_syncs += 1
+            if not bool((~buf.fin).any()):
+                break
+
+            def rounds(r=r):
+                for _ in range(r):
+                    self._spec_round(buf, k, n0)
+
+            self._graphed(buf, (k, r, n0), rounds)
+            done += r
+        return buf.tokens.clone(), buf.n.clone(), buf.slp.clone(), buf.rounds.clone()
+
+    def _spec_loop_eager(self, ins, n0: int, prev1, prev2, fin_init, k: int):
+        """:meth:`_spec_loop` round by round, a host read before each round
+        and no graphs: its results from the same rounds, for comparisons."""
+        buf = _SpecBuffers(ins)
+        buf.start(ins, n0, prev1, prev2, fin_init)
+        for _ in range(self.cfg.max_target_positions - 1 - n0):
+            self.host_syncs += 1
+            if not bool((~buf.fin).any()):
+                break
+            self._spec_round(buf, k, n0)
+        return buf.tokens, buf.n, buf.slp, buf.rounds
+
+    # ------------------------------------------------------------------
+    # The window
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _spec_window(self, audio, langs, active, *, detect: bool, k: int):
+        """mel -> encoder -> (detection) -> both prefills -> no-speech gate
+        -> the speculative greedy loop.  Returns the packed ladder layout
+        (rung 0 everywhere; the host applies the logprob gate and runs the
+        t>0 fallback on failures) with each row's live rounds as one
+        trailing column, and the encoder features for that fallback."""
+        cfg, st = self.cfg, self.st
+        B = audio.shape[0]
+        dev = audio.device
+        feats, xk, xv, prefix, langs, lang_probs = self._window_front(audio, langs, detect=detect)
+        dxk, dxv = cross_kv(self.draft_params, self.draft_cfg, feats)
+        # Both decoders prefill the prefix MINUS the pending task token (the
+        # loop re-feeds it as the head of the first chunk); the no-speech
+        # probe still reads the SOT position.
+        logits, ck, cv = decoder_prefill(self.params, cfg, prefix[:, :2], xk, xv)
+        _, dck, dcv = decoder_prefill(self.draft_params, self.draft_cfg, prefix[:, :2], dxk, dxv)
+        # K+1 rows of slack: finished rows keep feeding their last pending
+        # token at their final position, and rows at the length limit write
+        # a chunk past it.
+        pad = lambda c: F.pad(c, (0, 0, 0, k + 1))
+        ck, cv, dck, dcv = pad(ck), pad(cv), pad(dck), pad(dcv)
+        if self.quantize_cross_kv:  # loop-side only
+            xk, xv = quantize_xkv8(xk, xv)
+        nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, st.no_speech]
+        tokens_init = torch.zeros((B, cfg.max_target_positions), dtype=torch.int32, device=dev)
+        tokens_init[:, :3] = prefix
+        gated0 = (nsp > NO_SPEECH_THRESHOLD) | ~active
+        toks, n, slp, lrounds = self._spec_loop(
+            (xk, xv, dxk, dxv, ck, cv, dck, dcv, tokens_init), 3,
+            prefix[:, -1].contiguous(), prefix[:, -2].contiguous(), gated0, k,
+        )
+        avg = slp / torch.clamp(n, min=1).to(torch.float32)
+        rung0 = torch.zeros(B, dtype=torch.int32, device=dev)
+        packed = self._pack_ladder(toks, n, avg, rung0, nsp, langs, lang_probs)
+        return torch.cat([packed, lrounds.to(torch.float32)[:, None]], dim=1), feats
+
+    @torch.no_grad()
+    def _fallback_rungs(self, feats, langs, seed: int, settled):
+        """The t>0 rungs over the window's encoder features for rows whose
+        speculative t=0 rung failed the logprob gate: the sequential ladder
+        from rung 1 (a row settling at rung r reports TEMPERATURES[r]);
+        settled rows are born finished.  Returns [B, Tmax+3] f32: tokens,
+        n, avg_logprob, rung."""
+        cfg, st = self.cfg, self.st
+        B = feats.shape[0]
+        dev = feats.device
+        xk, xv = cross_kv(self.params, cfg, feats)
+        prefix = torch.stack(
+            [
+                torch.full((B,), st.sot, dtype=torch.int32, device=dev),
+                langs.to(device=dev, dtype=torch.int32),
+                torch.full((B,), st.task, dtype=torch.int32, device=dev),
+            ],
+            dim=1,
+        )
+        cache_k, cache_v, next_logits, _ = self._prefill_kv(prefix, xk, xv)
+        if self.quantize_cross_kv:
+            xk, xv = self._quantize_xkv(xk, xv)
+        tokens_init = torch.zeros((B, cfg.max_target_positions), dtype=torch.int32, device=dev)
+        tokens_init[:, :3] = prefix
+        btoks, bn, bavg, brung = self._sequential_rungs(
+            xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled,
+            start_rung=1,  # rung 0 already ran speculatively
+        )
+        col = lambda t: t.to(torch.float32)[:, None]
+        return torch.cat([btoks.to(torch.float32), col(bn), col(bavg), col(brung)], dim=1)
+
+    def warmup_fallback(self, batch: int = 1) -> None:
+        """Run the t>0 fallback once at ``batch`` rows.  Silence never
+        reaches it (the no-speech gate), so a warm-up of zeros alone would
+        leave the first gate-failing live window to pay its first-use costs
+        (graph captures, allocator growth).  ``WhisperModel.warmup`` calls
+        it."""
+        cfg = self.cfg
+        feats = torch.zeros(
+            (batch, cfg.max_source_positions, cfg.d_model),
+            dtype=self.params["decoder"]["tok_emb"].dtype, device=self.device,
+        )
+        langs = torch.full((batch,), self.st.sot + 1, dtype=torch.int32, device=self.device)
+        self._fallback_rungs(feats, langs, 0, torch.zeros(batch, dtype=torch.bool, device=self.device))
+
+    # ------------------------------------------------------------------
+    # Host orchestration
+    # ------------------------------------------------------------------
+
+    @instrument(
+        fields={
+            "B": lambda a: int(a["audio"].shape[0]),
+            "samples": lambda a: int(a["audio"].shape[1]),
+            "seed": lambda a: a["seed"],
+        }
+    )
+    def transcribe_window(
+        self, audio, langs, seed: int, n_active: Optional[int] = None
+    ) -> Tuple[List[Optional[DecodingResult]], dict]:
+        """Speculative window transcription: one device->host read of the
+        packed result in the common case (t=0 accepted or no speech) besides
+        the round loop's per-chunk reads, and a second pass over the
+        window's encoder features only for streams whose greedy decode
+        failed the reference's avg_logprob gate.  Same contract as
+        :meth:`DecodeEngine.transcribe_window`."""
+        langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
+        if isinstance(audio, torch.Tensor):
+            audio_t = audio.to(self.device, torch.float32)
+        else:
+            audio_t = torch.from_numpy(np.asarray(audio, np.float32)).to(self.device)
+        self.last_spec_k = k = self.spec_k  # the K this window used
+        packed_dev, feats = self._spec_window(
+            audio_t,
+            torch.from_numpy(np.array(langs_arr, np.int64)).to(self.device),
+            torch.from_numpy(active).to(self.device),
+            detect=detect, k=k,
+        )
+        packed = np.array(self._host(packed_dev))  # writable: fallback rows land in it
+        Tmax = self.cfg.max_target_positions
+        bn = packed[:, Tmax].astype(np.int32)
+        bavg = packed[:, Tmax + 1]
+        nsp = packed[:, Tmax + 3]
+        langs_out = packed[:, Tmax + 4].astype(np.int32)
+
+        # Telemetry from the trailing column: each row's live rounds, and
+        # the mean over live streams of per-row committed tokens / rounds
+        # (per-row, so one long stream cannot dilute the others' ratio).
+        lrounds = packed[:, -1].astype(np.int32)
+        live = active & ~(nsp > NO_SPEECH_THRESHOLD)
+        self.last_spec_rounds = int(lrounds.max()) if len(lrounds) else 0
+        live_r = live & (lrounds > 0)
+        self.last_tokens_per_round = (
+            float(((bn[live_r] - 3) / lrounds[live_r]).mean()) if live_r.any() else None
+        )
+        if self.auto_k:
+            self._adapt_spec_k()
+
+        # Reference gate (model.rs:175-186): the greedy rung is accepted
+        # unless avg_logprob < threshold (NaN accepted; no-speech rows exit
+        # early regardless).
+        need_fb = active & ~(nsp > NO_SPEECH_THRESHOLD) & (bavg < LOGPROB_THRESHOLD)
+        if need_fb.any():
+            fb = self._host(
+                self._fallback_rungs(
+                    feats, torch.from_numpy(langs_out).to(self.device), int(seed),
+                    torch.from_numpy(~need_fb).to(self.device),
+                )
+            )
+            packed[need_fb, : Tmax + 3] = fb[need_fb]
+        return self._unpack_ladder(
+            packed, active, detect, trailing_cols=1, reject_rung0_below_gate=True
+        )

@@ -10,6 +10,7 @@ from .load import (
 )
 from .whisper import (
     cross_kv,
+    decoder_chunk,
     decoder_full,
     decoder_prefill,
     decoder_step,
@@ -28,6 +29,7 @@ __all__ = [
     "params_from_numpy",
     "read_safetensors",
     "cross_kv",
+    "decoder_chunk",
     "decoder_full",
     "decoder_prefill",
     "decoder_step",

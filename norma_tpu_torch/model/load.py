@@ -41,10 +41,13 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10_000) -> np.n
 class Params(nn.Module):
     """A nested parameter tree: dict keys become child modules (subtrees)
     or buffers (tensors).  Supports ``tree[key]``, ``key in tree`` and
-    :meth:`items`, so model code reads it like the JAX pytree."""
+    :meth:`items` (in the source dict's key order, as the JAX pytree's
+    dicts keep it: a params file lists its tensors in that order), so model
+    code reads it like the JAX pytree."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
+        self._order = list(tree)
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, Params(v))
@@ -62,8 +65,8 @@ class Params(nn.Module):
         return key in self._buffers or key in self._modules
 
     def items(self) -> Iterator[Tuple[str, Any]]:
-        yield from self._buffers.items()
-        yield from self._modules.items()
+        for k in self._order:
+            yield k, self[k]
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Per-layer view of a stacked layer tree: ``{name: w[i]}``."""
@@ -123,7 +126,9 @@ def params_from_numpy(
 
 
 def _stack(layer_dicts) -> NumpyTree:
-    return {k: np.stack([d[k] for d in layer_dicts]) for k in layer_dicts[0]}
+    """Per-layer dicts -> one dict of [L, ...] stacks, keys sorted (the JAX
+    package stacks with ``jax.tree.map``, which sorts a dict's keys)."""
+    return {k: np.stack([d[k] for d in layer_dicts]) for k in sorted(layer_dicts[0])}
 
 
 def init_params_numpy(cfg: WhisperConfig, seed: int = 0) -> NumpyTree:

@@ -27,8 +27,9 @@ self-K/V.
 
 Differences from the JAX form, all outcome-neutral:
   - the layer scans are Python loops over per-layer views;
-  - :func:`decoder_step` writes the step's K/V row into the caches IN PLACE
-    and returns the same tensors (JAX returns updated copies).
+  - :func:`decoder_step` and :func:`decoder_chunk` (the speculative verify
+    pass) write their K/V rows into the caches IN PLACE and return the same
+    tensors (JAX returns updated copies).
 """
 
 from __future__ import annotations
@@ -601,6 +602,88 @@ def decoder_step(
 
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
     return logits_head(dec, x[:, 0, :]), cache_k, cache_v
+
+
+@torch.no_grad()
+def decoder_chunk(
+    params: Params,
+    cfg: WhisperConfig,
+    toks: torch.Tensor,  # [B, C] int — tokens at positions pos[b] .. pos[b]+C-1
+    pos: torch.Tensor,  # [B] int per-row start positions, on the device
+    cache_k: torch.Tensor,  # [L, B, T, D]
+    cache_v: torch.Tensor,
+    xk,  # [L, B, Ta, D], or an int8 {"q", "s"} dict stacked over layers
+    xv,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token incremental decode with PER-ROW positions: the
+    speculative verify pass (``decode/speculative.py``) scores row b's C
+    tokens in one forward.  Causal within the chunk; cache rows beyond each
+    query's position are masked out.  Returns (logits [B, C, V] f32 —
+    logits[:, j] predicts position pos+j+1 — and the SAME caches with rows
+    [pos[b], pos[b]+C) of every layer written in place).
+
+    The positions stay on the device (the row writes are a ``scatter_``,
+    the mask a compare), so a captured CUDA graph replays a chunk at any
+    positions.  The caches may be longer than ``cfg.max_target_positions``
+    (the speculative loop pads them by the chunk width); the embedding
+    gather alone is clamped at ``max_target_positions - 1``: positions past
+    it occur only on rows whose results a round discards.  Every write
+    must fall inside the cache (the caller's slack keeps it there).
+
+    Self-attention is the plain masked :func:`attention` (the self-decode
+    kernel is single-query); an int8 cross-K/V dict runs the plain
+    :func:`cross_q8_attn` per layer (the stacked kernel layout is
+    single-query and refused); an int8 self-KV cache raises, as in the JAX
+    package.  Logits go through :func:`logits_head` (the w8 / w4 kernels
+    on the card for quantized heads).
+    """
+    dec = params["decoder"]
+    n_heads = cfg.decoder_attention_heads
+    if isinstance(cache_k, dict):
+        raise NotImplementedError(
+            "decoder_chunk does not support the int8 self-KV cache "
+            "(quantize_self_kv): the chunked verify path keeps bf16/f32 caches"
+        )
+    if isinstance(xk, dict) and ("codes" in xk or "codes4" in xk):
+        raise ValueError("decoder_chunk: the cross kernel layout is single-query; pass plain int8 dicts")
+    B, C = toks.shape
+    T, D = cache_k.shape[2], cache_k.shape[3]
+    dev = toks.device
+    pos_idx = pos.long()[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
+    emb_idx = pos_idx.clamp(max=cfg.max_target_positions - 1)
+    x = dec["tok_emb"][toks.long()] + dec["pos_emb"][emb_idx]
+    # Query at chunk offset c (global pos + c) sees cache keys <= pos + c.
+    key_idx = torch.arange(T, device=dev)
+    key_mask = torch.where(
+        key_idx[None, None, None, :] <= pos_idx[:, None, :, None], 0.0, float("-inf")
+    )  # [B, 1, C, T]
+    rows = pos_idx[:, :, None].expand(B, C, D)
+
+    if isinstance(xk, dict):
+        _cross_impl(cfg)
+
+        def cross_attn(xq, li):
+            kq = {k: v[li] for k, v in xk.items()}
+            vq = {k: v[li] for k, v in xv.items()}
+            return cross_q8_attn(cfg, xq, kq, vq, n_heads)
+    else:
+
+        def cross_attn(xq, li):
+            return attention(xq, xk[li], xv[li], n_heads)
+
+    layers = dec["layers"]
+    for li in range(cfg.decoder_layers):
+        lp = layers.layer(li)
+        h = layer_norm(x, lp["attn_ln_g"], lp["attn_ln_b"])
+        q, k, v = qkv_proj(lp, h)
+        cache_k[li].scatter_(1, rows, k.to(cache_k.dtype))
+        cache_v[li].scatter_(1, rows, v.to(cache_v.dtype))
+        a = attention(q, cache_k[li], cache_v[li], n_heads, key_mask)
+        x = x + ldense(lp, "o_w", a, lp["o_b"])
+        x = _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li))
+
+    x = layer_norm(x, dec["ln_g"], dec["ln_b"])
+    return logits_head(dec, x), cache_k, cache_v
 
 
 @torch.no_grad()

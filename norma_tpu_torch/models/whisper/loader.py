@@ -3,33 +3,31 @@
 
 Resolve config/tokenizer/weights (a local directory, or the HF hub at a
 pinned revision), parse the config, load the weights onto the selected
-device, apply the quantization tiers, resolve the special tokens and build
-the decode engine (which builds the suppression masks from the config's
-suppress list, as ``monolingual.rs:252-296`` does).
-
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP queue 1):
-GGUF q8_0 checkpoints (``quantized_ext``, the JAX package's
-``model/gguf.py``), pre-quantized params files (``model/serialize.py``) and
-speculative draft checkpoints (``decode/speculative.py``).
+device (an HF safetensors checkpoint, a GGUF q8_0 one, or a pre-quantized
+params file), apply the quantization tiers, resolve the special tokens and
+build the decode engine (which builds the suppression masks from the
+config's suppress list, as ``monolingual.rs:252-296`` does): a
+:class:`~norma_tpu_torch.decode.DecodeEngine`, or with a draft checkpoint a
+:class:`~norma_tpu_torch.decode.SpeculativeEngine`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import logging
 import os
-import struct
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from ...constants import TRANSCRIBE_TOKEN
-from ...decode import DecodeEngine, LanguageState, SpecialTokens
+from ...decode import DecodeEngine, LanguageState, SpecialTokens, SpeculativeEngine
 from ...errors import MelBinsError, WhisperError
 from ...model.config import WhisperConfig
+from ...model.gguf import load_gguf_q8
 from ...model.load import fuse_qkv, load_safetensors
+from ...model.serialize import load_params_file, peek_format
 from ...model.quant import (
     quantize_decoder as _quantize_decoder,
     quantize_encoder as _quantize_encoder,
@@ -48,17 +46,6 @@ logger = logging.getLogger("norma_tpu_torch.loader")
 # The JAX package's dtype names, so a Definition's to_dict() loads in either.
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _DTYPE_FROM_NAME = {v: k for k, v in _DTYPE_NAMES.items()}
-
-# The key a pre-quantized params file carries in its safetensors metadata
-# (the JAX package's model/serialize.py FORMAT_KEY).
-_PARAMS_FORMAT_KEY = "norma_tpu_format"
-
-
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to norma_tpu_torch yet (ROADMAP queue 1: the JAX package's {module})"
-    )
-
 
 def definition_ext_to_dict(defn) -> dict:
     """Serialize the extension fields both Definitions share (the JAX
@@ -155,20 +142,59 @@ def resolve_files(
     return CheckpointFiles(*(_hub_download(repo_id, n, revision) for n in names))
 
 
-def _is_params_file(path: str) -> bool:
-    """Whether a .safetensors file is a pre-quantized params file (its
-    metadata carries the params-file format key); reads the header only."""
-    with open(path, "rb") as f:
-        head = f.read(8)
-        if len(head) < 8:
-            return False
-        (n,) = struct.unpack("<Q", head)
-        try:
-            header = json.loads(f.read(n).decode("utf-8"))
-        except (UnicodeDecodeError, json.JSONDecodeError):
-            return False
-    meta = header.get("__metadata__") if isinstance(header, dict) else None
-    return bool(isinstance(meta, dict) and meta.get(_PARAMS_FORMAT_KEY))
+async def resolve_files_async(
+    repo_id: str,
+    revision: str,
+    quantized_ext: Optional[str],
+    local_dir: Optional[str] = None,
+) -> CheckpointFiles:
+    """:func:`resolve_files` with the three hub fetches running concurrently
+    (each in a thread), so several loads awaited together overlap."""
+    import asyncio
+
+    names = _file_names(quantized_ext)
+    if local_dir is not None:
+        return _local_files(local_dir, names)
+    paths = await asyncio.gather(
+        *(asyncio.to_thread(_hub_download, repo_id, n, revision) for n in names)
+    )
+    return CheckpointFiles(*paths)
+
+
+_SELF_KV_WITH_DRAFT = (
+    "quantize_self_kv is not supported with speculative decoding (the "
+    "draft/verify cache paths keep bf16/f32 self-KV); checked before any file is read"
+)
+
+
+def _warn_prequantized(meta: dict, dtype, quantize_logits, quantize_decoder, quantize_encoder) -> None:
+    """A params file fixes its dtype and quant tiers at conversion time;
+    the Definition's dtype= and quantize_* flags are not applied to it.
+    Warn where they ask for something the file does not have."""
+    file_dt = meta.get("dtype")
+    want_dt = _DTYPE_NAMES.get(dtype, str(dtype))
+    if file_dt and file_dt != want_dt:
+        logger.warning(
+            "pre-quantized params file was converted at dtype=%s; the requested "
+            "dtype=%s is ignored (re-run tools/quantize_checkpoint.py --dtype to change it)",
+            file_dt, want_dt,
+        )
+    want_tiers = set()
+    if quantize_decoder:
+        want_tiers.add("decoder-w8")
+        if quantize_logits == "int4":
+            want_tiers.add("logits-int4")
+    elif quantize_logits:
+        want_tiers.add("logits-int4" if quantize_logits == "int4" else "logits-w8")
+    if quantize_encoder:
+        want_tiers.add("encoder-w8a8")
+    file_tiers = {t for t in (meta.get("quant") or "").split("+") if t and t != "none"}
+    if want_tiers - file_tiers:
+        logger.warning(
+            "pre-quantized params file has quant tiers %s; the requested %s are "
+            "ignored (re-run tools/quantize_checkpoint.py with the matching flags)",
+            sorted(file_tiers) or "none", sorted(want_tiers - file_tiers),
+        )
 
 
 @instrument(
@@ -206,7 +232,10 @@ def build_model(
     the model detects the language per utterance (Detect).  ``files``
     short-circuits resolution.  The quantization tiers apply in the JAX
     package's order: fused QKV, then the decoder (its int8 or int4 head)
-    or the head alone, then the encoder.
+    or the head alone, then the encoder; a params file is loaded as it was
+    converted.  ``draft_repo_id`` / ``draft_local_dir`` / ``draft_files``
+    select a draft checkpoint (an HF safetensors or a params file) and the
+    speculative engine, proposing ``spec_k`` tokens per round.
     """
     # True/"int8" -> per-channel int8 head; "int4" -> blockwise int4.
     # Validated before anything is read.
@@ -214,10 +243,9 @@ def build_model(
         raise ValueError(
             f"quantize_logits={quantize_logits!r}: expected True, False, 'int8' or 'int4'"
         )
-    if draft_repo_id is not None or draft_files is not None or draft_local_dir is not None:
-        raise _not_ported("speculative decoding with a draft checkpoint", "decode/speculative.py")
-    if quantized_ext is not None:
-        raise _not_ported(f"the GGUF q8_0 checkpoint ({quantized_ext!r})", "model/gguf.py")
+    draft = draft_repo_id is not None or draft_files is not None or draft_local_dir is not None
+    if draft and quantize_self_kv:
+        raise ValueError(_SELF_KV_WITH_DRAFT)
     if files is None:
         files = resolve_files(repo_id, revision, quantized_ext, local_dir)
     cfg = WhisperConfig.from_json(files.config)
@@ -246,18 +274,27 @@ def build_model(
     tokenizer = WhisperTokenizer.from_file(files.tokenizer)
 
     dev = device.to_torch_device()
-    if _is_params_file(files.weights):
-        raise _not_ported("a pre-quantized params file", "model/serialize.py")
-    params = fuse_qkv(load_safetensors(files.weights, cfg, dtype, dev))
-    if quantize_decoder:
-        # An int4 head request composes with the int8 layers.
-        params = _quantize_decoder(params, logits="int4" if quantize_logits == "int4" else "int8")
-    elif quantize_logits == "int4":
-        params = quantize_logits_head_int4(params)
-    elif quantize_logits:
-        params = quantize_logits_head(params)
-    if quantize_encoder:
-        params = _quantize_encoder(params)
+    meta = None if quantized_ext is not None else peek_format(files.weights)
+    if meta is not None:
+        # A params file (tools/quantize_checkpoint.py): loaded as stored,
+        # with no HF-name mapping, QKV fusion or re-quantization.
+        params, meta = load_params_file(files.weights, dev)
+        _warn_prequantized(meta, dtype, quantize_logits, quantize_decoder, quantize_encoder)
+    else:
+        if quantized_ext is not None:  # GGUF q8_0, dequantized to dtype
+            params = load_gguf_q8(files.weights, cfg, dtype, dev)
+        else:
+            params = load_safetensors(files.weights, cfg, dtype, dev)
+        params = fuse_qkv(params)
+        if quantize_decoder:
+            # An int4 head request composes with the int8 layers.
+            params = _quantize_decoder(params, logits="int4" if quantize_logits == "int4" else "int8")
+        elif quantize_logits == "int4":
+            params = quantize_logits_head_int4(params)
+        elif quantize_logits:
+            params = quantize_logits_head(params)
+        if quantize_encoder:
+            params = _quantize_encoder(params)
 
     st = SpecialTokens.from_tokenizer(tokenizer, task_token_str)
     lang_token_ids = [token_id(tokenizer, lang.token()) for lang in ALL_LANGUAGES]
@@ -265,13 +302,31 @@ def build_model(
         lang_state = LanguageState(const=token_id(tokenizer, const_language_token_str))
     else:
         lang_state = LanguageState()
-    engine = DecodeEngine(
-        params, cfg, st,
-        language_token_ids=lang_token_ids,
-        mel_center=mel_center,
-        quantize_cross_kv=quantize_cross_kv,
-        quantize_self_kv=quantize_self_kv,
-    )
+    if draft:
+        # A shallow same-vocab draft: speculative greedy decoding, token for
+        # token the target's own.  config_overrides apply to the target only.
+        if draft_files is None:
+            draft_files = resolve_files(draft_repo_id, draft_revision, None, draft_local_dir)
+        draft_cfg = WhisperConfig.from_json(draft_files.config)
+        if peek_format(draft_files.weights):
+            draft_params, _ = load_params_file(draft_files.weights, dev)
+        else:
+            draft_params = fuse_qkv(load_safetensors(draft_files.weights, draft_cfg, dtype, dev))
+        engine = SpeculativeEngine(
+            params, cfg, draft_params, draft_cfg, st,
+            language_token_ids=lang_token_ids,
+            mel_center=mel_center,
+            quantize_cross_kv=quantize_cross_kv,
+            spec_k=spec_k,
+        )
+    else:
+        engine = DecodeEngine(
+            params, cfg, st,
+            language_token_ids=lang_token_ids,
+            mel_center=mel_center,
+            quantize_cross_kv=quantize_cross_kv,
+            quantize_self_kv=quantize_self_kv,
+        )
     return WhisperModel(
         engine,
         tokenizer,
@@ -280,3 +335,32 @@ def build_model(
         seed=seed,
         timestamps=timestamps,
     )
+
+
+async def build_model_async(**kwargs) -> WhisperModel:
+    """:func:`build_model` with the checkpoint files resolved concurrently
+    (a speculative build's draft files alongside the target's), then the
+    build in a thread off the event loop."""
+    import asyncio
+
+    draft_wanted = (
+        kwargs.get("draft_repo_id") is not None or kwargs.get("draft_local_dir") is not None
+    ) and kwargs.get("draft_files") is None
+    # Before any coroutine exists: a raise after would leak one never awaited.
+    if draft_wanted and kwargs.get("quantize_self_kv"):
+        raise ValueError(_SELF_KV_WITH_DRAFT)
+    target = resolve_files_async(
+        kwargs["repo_id"], kwargs["revision"], kwargs["quantized_ext"], kwargs.get("local_dir")
+    )
+    if draft_wanted:
+        files, draft_files = await asyncio.gather(
+            target,
+            resolve_files_async(
+                kwargs.get("draft_repo_id"), kwargs.get("draft_revision", "main"), None,
+                kwargs.get("draft_local_dir"),
+            ),
+        )
+        kwargs["draft_files"] = draft_files
+    else:
+        files = await target
+    return await asyncio.to_thread(build_model, files=files, **kwargs)

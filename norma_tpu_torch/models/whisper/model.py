@@ -57,7 +57,8 @@ class WhisperModel(Model):
         kernel build (``ops/_build.py``), CUDA context and library
         initialization, allocator growth at this batch width.  Detect-mode
         models also run the known-language variant they switch to after
-        the first window.  The batching scheduler calls
+        the first window, and a speculative engine also runs its t>0
+        fallback (``warmup_fallback``).  The batching scheduler calls
         ``warmup(batch=b)`` per bucket."""
         lf = self.longform
         audio = torch.from_numpy(
@@ -69,3 +70,6 @@ class WhisperModel(Model):
         )
         if lang is None and lf.language_tokens:
             self.engine.transcribe_window(audio, [int(lf.language_tokens[0])] * batch, seed=0)
+        if hasattr(self.engine, "warmup_fallback"):
+            # A speculative engine's t>0 fallback, which silence never reaches.
+            self.engine.warmup_fallback(batch)

@@ -133,8 +133,8 @@ class Definition(ModelDefinition):
         self.config_overrides = dict(config_overrides) if config_overrides else None
         # Speculative decoding: ``draft`` is an HF repo id of a shallow
         # same-vocab checkpoint, or "auto" to pair the official distil
-        # draft (medium.en only).  Building such a model raises: the JAX
-        # package's decode/speculative.py is not ported yet.
+        # draft (medium.en only).  The model then decodes with the
+        # speculative engine (decode/speculative.py).
         if draft == "auto":
             draft = {
                 ModelType.MEDIUM_EN: "distil-whisper/distil-medium.en",
@@ -213,6 +213,13 @@ class Definition(ModelDefinition):
 
     def blocking_try_to_model(self) -> WhisperModel:
         return build_model(**self._build_kwargs())
+
+    async def try_to_model(self) -> WhisperModel:
+        """The build with the checkpoint files (and a draft's) resolved
+        concurrently, then constructed off the event loop."""
+        from .loader import build_model_async
+
+        return await build_model_async(**self._build_kwargs())
 
     # Optional (de)serialization (reference serde feature, monolingual.rs:29).
     def to_dict(self) -> dict:

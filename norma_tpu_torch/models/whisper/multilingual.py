@@ -126,8 +126,8 @@ class Definition(ModelDefinition):
         self.quantize_self_kv = quantize_self_kv
         # Speculative decoding: ``draft`` is an HF repo id of a shallow
         # same-vocab checkpoint, or "auto" to pair the official distil
-        # draft (large-v2/v3 only).  Building such a model raises: the JAX
-        # package's decode/speculative.py is not ported yet.
+        # draft (large-v2/v3 only).  The model then decodes with the
+        # speculative engine (decode/speculative.py).
         if draft == "auto":
             draft = {
                 ModelType.LARGE_V2: "distil-whisper/distil-large-v2",
@@ -191,6 +191,13 @@ class Definition(ModelDefinition):
 
     def blocking_try_to_model(self) -> WhisperModel:
         return build_model(**self._build_kwargs())
+
+    async def try_to_model(self) -> WhisperModel:
+        """The build with the checkpoint files (and a draft's) resolved
+        concurrently, then constructed off the event loop."""
+        from .loader import build_model_async
+
+        return await build_model_async(**self._build_kwargs())
 
     # Optional (de)serialization (reference serde feature).
     def to_dict(self) -> dict:

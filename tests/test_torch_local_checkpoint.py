@@ -10,9 +10,15 @@ Definitions at f32, on the CPU.
     with a peaked softmax and EOT suppressed, so every window decodes at
     rung 0 and the strings are deterministic);
   - config_overrides, the decode_buckets default, a missing file and a bad
-    quantize_logits raise or land as in the JAX package; the GGUF,
-    pre-quantized and draft branches raise NotImplementedError; a JAX
-    Definition's to_dict() loads through the port's from_dict.
+    quantize_logits raise or land as in the JAX package; a JAX
+    Definition's to_dict() loads through the port's from_dict;
+  - the GGUF q8_0 Definition, a pre-quantized params file (written by the
+    JAX package's serializer, as tools/quantize_checkpoint.py does) and a
+    speculative Definition (a draft checkpoint, HF or params file) give the
+    JAX package's greedy tokens and transcripts; the params file is loaded
+    as stored (no re-quantization, warnings for a dtype or tier it lacks);
+    draft="auto" maps as in the JAX package; quantize_self_kv with a draft
+    raises before any file is read; config_overrides reach the target only.
 """
 
 import json
@@ -203,18 +209,123 @@ def test_loader_errors(ckpt, tmp_path):
 
 
 def test_unported_branches_raise(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="gguf"):
-        monolingual.Definition(monolingual.ModelType.QUANTIZED_TINY_EN, CPU, local_dir=ckpt).blocking_try_to_model()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=ckpt, draft="x",
+    """The loader's former NotImplementedError branches now build models:
+    a GGUF checkpoint, a draft checkpoint and a params file."""
+    from norma_tpu.model.load import load_safetensors as jload
+    from norma_tpu.model.serialize import save_params
+    from norma_tpu.models.whisper.loader import WhisperConfig as JaxConfig
+    from norma_tpu_torch.decode import DecodeEngine, SpeculativeEngine
+
+    g = tmp_path / "gguf"
+    g.mkdir()
+    make_checkpoint_dir(g, quantized_ext="tiny-en")
+    m = monolingual.Definition(monolingual.ModelType.QUANTIZED_TINY_EN, CPU, local_dir=str(g)).blocking_try_to_model()
+    assert type(m.engine) is DecodeEngine
+    m = monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=ckpt, draft="x",
                                draft_local_dir=ckpt).blocking_try_to_model()
-    # A params file: a safetensors whose metadata carries the format key.
+    assert isinstance(m.engine, SpeculativeEngine)
+    pf = tmp_path / "pf"
+    pf.mkdir()
     for f in ("config.json", "tokenizer.json"):
-        shutil.copy(f"{ckpt}/{f}", tmp_path / f)
-    header = json.dumps({"__metadata__": {"norma_tpu_format": "params-v1"}}).encode()
-    (tmp_path / "model.safetensors").write_bytes(struct.pack("<Q", len(header)) + header)
-    with pytest.raises(NotImplementedError, match="serialize"):
-        monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=str(tmp_path)).blocking_try_to_model()
+        shutil.copy(f"{ckpt}/{f}", pf / f)
+    save_params(str(pf / "model.safetensors"), jload(f"{ckpt}/model.safetensors",
+                                                     JaxConfig.from_json(f"{ckpt}/config.json")))
+    m = monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=str(pf)).blocking_try_to_model()
+    assert "q_w" in m.engine.params["decoder"]["layers"]  # as stored: not fused
+
+
+def test_gguf_definition_matches_jax(tmp_path):
+    make_checkpoint_dir(tmp_path, quantized_ext="tiny-en")
+    kw = dict(local_dir=str(tmp_path), quantize_decoder=True)
+    jm, pm = _pair(jmono.Definition(jmono.ModelType.QUANTIZED_TINY_EN, JCPU, **kw),
+                   monolingual.Definition(monolingual.ModelType.QUANTIZED_TINY_EN, CPU, **kw))
+    assert "qkv_w_q" in pm.engine.params["decoder"]["layers"]
+    lang = pm.longform.lang.const
+    for seed in (1, 2):
+        got = _greedy(pm.engine, _audio(seed), lang)
+        assert got == _greedy(jm.engine, _audio(seed), lang) and len(got) > 10
+
+
+@pytest.fixture(scope="module")
+def params_file_ckpt(tmp_path_factory, ckpt):
+    """The fixture checkpoint converted the way tools/quantize_checkpoint.py
+    converts (JAX: fuse_qkv, int8 decoder + int4 head, f32), beside its
+    config and tokenizer."""
+    from norma_tpu.model import fuse_qkv as jfuse
+    from norma_tpu.model.load import load_safetensors as jload
+    from norma_tpu.model.quant import quantize_decoder as jqd
+    from norma_tpu.model.serialize import save_params
+    from norma_tpu.models.whisper.loader import WhisperConfig as JaxConfig
+
+    d = tmp_path_factory.mktemp("params_file")
+    for f in ("config.json", "tokenizer.json"):
+        shutil.copy(f"{ckpt}/{f}", d / f)
+    p = jqd(jfuse(jload(f"{ckpt}/model.safetensors", JaxConfig.from_json(f"{ckpt}/config.json"))), logits="int4")
+    save_params(str(d / "model.safetensors"), p, metadata={"quant": "decoder-w8+logits-int4", "dtype": "f32"})
+    return str(d)
+
+
+def test_params_file_definition_matches_jax(params_file_ckpt, caplog):
+    """A params file loads as stored (its tiers, no re-quantization) and
+    decodes as the JAX package does; asking for a dtype or a tier the file
+    lacks warns, as in the JAX package."""
+    import logging
+
+    kw = dict(local_dir=params_file_ckpt)
+    jm, pm = _pair(jmono.Definition(jmono.ModelType.TINY_EN, JCPU, **kw),
+                   monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, **kw))
+    dec = pm.engine.params["decoder"]
+    assert "tok_emb_q4" in dec and "qkv_w_q" in dec["layers"] and "qkv_w" not in dec["layers"]
+    lang = pm.longform.lang.const
+    for seed in (1, 2):
+        got = _greedy(pm.engine, _audio(seed), lang)
+        assert got == _greedy(jm.engine, _audio(seed), lang) and len(got) > 10
+    with caplog.at_level(logging.WARNING, logger="norma_tpu_torch.loader"):
+        monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=params_file_ckpt, dtype=torch.bfloat16,
+                               quantize_encoder=True).blocking_try_to_model()
+    text = caplog.text
+    assert "dtype=f32" in text and "dtype=bf16 is ignored" in text and "encoder-w8a8" in text
+
+
+def test_speculative_definitions_match_jax(ckpt, params_file_ckpt):
+    """draft_local_dir selects the speculative engine through the public
+    path; a self-draft (every proposal accepted) and a params-file draft
+    both transcribe exactly as the plain model and as the JAX package's
+    speculative model."""
+    from norma_tpu_torch.decode import SpeculativeEngine
+
+    base = monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=ckpt).blocking_try_to_model()
+    audio = _audio(5)
+    want = base.transcribe(audio, final_chunk=True)
+    for draft_dir in (ckpt, params_file_ckpt):
+        kw = dict(local_dir=ckpt, draft=None, draft_local_dir=draft_dir, spec_k=3)
+        jm, pm = _pair(jmono.Definition(jmono.ModelType.TINY_EN, JCPU, **kw),
+                       monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, **kw))
+        assert isinstance(pm.engine, SpeculativeEngine) and pm.engine.spec_k == 3
+        got = pm.transcribe(audio, final_chunk=True)
+        assert got == want == jm.transcribe(audio, final_chunk=True)
+        assert pm.engine.last_spec_rounds is not None
+
+
+def test_speculative_auto_draft_mapping_and_guards(ckpt, tmp_path):
+    assert multilingual.Definition(multilingual.ModelType.LARGE_V3, CPU, draft="auto").draft == \
+        "distil-whisper/distil-large-v3"
+    assert monolingual.Definition(monolingual.ModelType.MEDIUM_EN, CPU, draft="auto").draft == \
+        "distil-whisper/distil-medium.en"
+    for bad in (lambda: multilingual.Definition(multilingual.ModelType.TINY, CPU, draft="auto"),
+                lambda: monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, draft="auto")):
+        with pytest.raises(ValueError, match="no official distil draft"):
+            bad()
+    # quantize_self_kv with a draft: refused before any file is read (the
+    # directory does not even exist).
+    with pytest.raises(ValueError, match="quantize_self_kv"):
+        monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=str(tmp_path / "missing"), draft="x",
+                               draft_local_dir=str(tmp_path / "missing"), quantize_self_kv=True
+                               ).blocking_try_to_model()
+    # config_overrides reach the target's config only.
+    m = monolingual.Definition(monolingual.ModelType.TINY_EN, CPU, local_dir=ckpt, draft_local_dir=ckpt,
+                               config_overrides={"cross_kv_impl": "chunked"}).blocking_try_to_model()
+    assert m.engine.cfg.cross_kv_impl == "chunked" and m.engine.draft_cfg.cross_kv_impl == "einsum"
 
 
 def test_jax_definition_payload_round_trips(ckpt):
