@@ -749,6 +749,7 @@ class DecodeEngine:
     # chunk, the final copy and the host unpack.
     supports_async_window = True
 
+    @torch.no_grad()
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
         """Run the window up to its packed device result, without the final
         device->host copy; :meth:`transcribe_window_fetch` completes it."""

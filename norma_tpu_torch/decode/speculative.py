@@ -442,6 +442,7 @@ class SpeculativeEngine(DecodeEngine):
         col = lambda t: t.to(torch.float32)[:, None]
         return torch.cat([btoks.to(torch.float32), col(bn), col(bavg), col(brung)], dim=1)
 
+    @torch.no_grad()
     def warmup_fallback(self, batch: int = 1) -> None:
         """Run the t>0 fallback once at ``batch`` rows.  Silence never
         reaches it (the no-speech gate), so a warm-up of zeros alone would
@@ -467,6 +468,7 @@ class SpeculativeEngine(DecodeEngine):
             "seed": lambda a: a["seed"],
         }
     )
+    @torch.no_grad()
     def transcribe_window(
         self, audio, langs, seed: int, n_active: Optional[int] = None
     ) -> Tuple[List[Optional[DecodingResult]], dict]:

@@ -6,6 +6,7 @@ from .load import (
     load_safetensors,
     params_from_hf_tensors,
     params_from_numpy,
+    params_to_numpy,
     read_safetensors,
 )
 from .whisper import (
@@ -27,6 +28,7 @@ __all__ = [
     "load_safetensors",
     "params_from_hf_tensors",
     "params_from_numpy",
+    "params_to_numpy",
     "read_safetensors",
     "cross_kv",
     "decoder_chunk",

@@ -125,6 +125,21 @@ def params_from_numpy(
     return Params(conv(("",), tree))
 
 
+def params_to_numpy(params: Params) -> NumpyTree:
+    """The inverse of :func:`params_from_numpy`: a :class:`Params` tree as
+    nested numpy arrays on the host, in the tree's key order.  Floating
+    leaves come back f32 (bf16 widens exactly), integer leaves (int8 codes)
+    as they are; the values are detached from any autograd graph."""
+
+    def conv(v):
+        if isinstance(v, Params):
+            return {k: conv(x) for k, x in v.items()}
+        t = v.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    return conv(params)
+
+
 def _stack(layer_dicts) -> NumpyTree:
     """Per-layer dicts -> one dict of [L, ...] stacks, keys sorted (the JAX
     package stacks with ``jax.tree.map``, which sorts a dict's keys)."""

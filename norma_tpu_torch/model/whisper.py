@@ -3,7 +3,12 @@
 Functions take a :class:`~norma_tpu_torch.model.load.Params` tree and keep
 the JAX package's layouts at their boundaries: mel [B, n_mels, T], audio
 features [B, Ta, D], cross-K/V and self-attention caches stacked as
-[L, B, T, D].  Inference only (no autograd).
+[L, B, T, D].  :func:`encode`, :func:`cross_kv` and :func:`decoder_prefill`
+are differentiable on the plain routes (a config without kernel knobs;
+``tools/accuracy_flip_rate.py`` fits through them); the kernel wrappers
+refuse a gradient (``ops.inference_only``), the token loop runs without
+autograd, and the inference entry points (``DecodeEngine``,
+``SpeculativeEngine``, ``WhisperModel``) run under ``torch.no_grad``.
 
 Every product accumulates in f32 and is rounded once to the activation
 dtype, after the bias add (the JAX package's ``preferred_element_type``):
@@ -276,7 +281,6 @@ def _encoder_flash(cfg: WhisperConfig) -> bool:
     return impl in _FLASH_IMPLS or bool(cfg.flash_attention)
 
 
-@torch.no_grad()
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel: [B, n_mels, T_frames] -> audio features [B, T_frames//2, D]."""
     flash = _encoder_flash(cfg)
@@ -330,7 +334,6 @@ def _cross_proj(layers: Params, name: str, xa: torch.Tensor, bias) -> torch.Tens
     return torch.stack(out)
 
 
-@torch.no_grad()
 def cross_kv(
     params: Params, cfg: WhisperConfig, xa: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -458,7 +461,6 @@ def _decoder_layer_cross_mlp(lp: Layer, x: torch.Tensor, cross_attn: Callable) -
     return x + _mlp(lp, h)
 
 
-@torch.no_grad()
 def decoder_prefill(
     params: Params,
     cfg: WhisperConfig,

@@ -47,10 +47,12 @@ class WhisperModel(Model):
             "final_chunk": lambda a: a["final_chunk"],
         }
     )  # reference #[instrument(fields(...))], model.rs:54
+    @torch.no_grad()
     def transcribe(self, data: np.ndarray, final_chunk: bool) -> str:
         return self.longform.transcribe(np.asarray(data, np.float32), final_chunk)
 
     @instrument
+    @torch.no_grad()
     def warmup(self, batch: int = 1) -> None:
         """Run one silent window through the serving path at ``batch``
         streams, so the first real chunk pays no first-use costs: the

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, inference_only
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIM = 64
@@ -100,7 +100,7 @@ def flash_attention_torch(
     return o.transpose(1, 2).reshape(B, T, D).to(q.dtype)
 
 
-@torch.no_grad()
+@inference_only
 def flash_self_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int
 ) -> torch.Tensor:

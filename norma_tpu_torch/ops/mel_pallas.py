@@ -28,7 +28,7 @@ import torch
 from ..constants import HOP_LENGTH, N_FFT, N_FRAMES, N_FREQS
 from ..frontend.filters import mel_filterbank
 from ..frontend.mel import hann_window
-from . import _build
+from . import _build, inference_only
 
 # The matrices' padded bin count (201 -> 256, the JAX package's lane pad).
 _KP = 256
@@ -89,7 +89,7 @@ def log_mel_dft(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAMES)
     return _epilogue(torch.log(torch.clamp(mel, min=1e-10)) / np.float32(np.log(10.0)))
 
 
-@torch.no_grad()
+@inference_only
 def log_mel_pallas(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAMES) -> torch.Tensor:
     """Same contract as :func:`log_mel_dft`.  CUDA tensors launch the
     kernel, CPU tensors run the plain version."""

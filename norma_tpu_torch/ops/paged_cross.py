@@ -38,7 +38,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import _build
+from . import _build, inference_only
 
 XKV = Dict[str, torch.Tensor]
 
@@ -205,7 +205,7 @@ def cross_attention_decode_torch(
     return o.to(q.dtype).reshape(G * B, 1, D)
 
 
-@torch.no_grad()
+@inference_only
 def cross_attention_q8_kernel_stacked(
     q: torch.Tensor,
     kp: XKV,

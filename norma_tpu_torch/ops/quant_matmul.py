@@ -53,7 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, inference_only
 
 
 def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -223,7 +223,7 @@ def w8_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return w8_dense_torch(x.to(torch.bfloat16), q, scale)
 
 
-@torch.no_grad()
+@inference_only
 def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`w8_dense_torch`, x f32 or bf16.  CUDA
     tensors launch the w8 kernel, CPU tensors run the plain version.  The
@@ -323,7 +323,7 @@ def w4_matmul_torch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return y.reshape(*x.shape[:-1], N)
 
 
-@torch.no_grad()
+@inference_only
 def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`w4_matmul_torch`, x f32 or bf16.  CUDA
     tensors launch the w4 kernel (bf16 scales; launch shape from
@@ -447,7 +447,7 @@ def q8a8_dense_torch(
     return y.to(out_dtype).reshape(*xq.shape[:-1], N)
 
 
-@torch.no_grad()
+@inference_only
 def q8a8_dense(
     xq: torch.Tensor,
     xs: torch.Tensor,
@@ -494,7 +494,7 @@ def q8a8_dense(
 q8a8_dense.launches = 0
 
 
-@torch.no_grad()
+@inference_only
 def q8a8_qkv(
     xq: torch.Tensor,
     xs: torch.Tensor,

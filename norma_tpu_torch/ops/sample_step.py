@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, inference_only
 
 _INF = float("inf")
 
@@ -163,7 +163,7 @@ def _validate(ll, masks, rows, temp, step) -> None:
         raise ValueError(f"all tensors must be on one device, got {devs}")
 
 
-@torch.no_grad()
+@inference_only
 def sample_step(
     ll: torch.Tensor,
     m_suppress: torch.Tensor,

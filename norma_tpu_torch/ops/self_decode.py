@@ -33,7 +33,7 @@ from typing import List, Tuple
 
 import torch
 
-from . import _build
+from . import _build, inference_only
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -157,7 +157,7 @@ def self_attention_decode_torch(
     return o.reshape(B, 1, D).to(q.dtype), cache_k, cache_v
 
 
-@torch.no_grad()
+@inference_only
 def self_attention_decode(
     q: torch.Tensor,
     k_new: torch.Tensor,

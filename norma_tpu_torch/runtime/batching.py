@@ -17,11 +17,11 @@ ladder in lockstep — a gated stream never serializes the round on the
 scheduler thread.
 
 Port notes: one card only (``mesh=`` raises; multi-GPU is ROADMAP queue 1
-item 12); round windows go to the engine's device as tensors; the SLA round
-cap counts streams, not bucket widths; there is no ``from_definition``
-(the port has no checkpoint loader yet).  The engine's window splits into
+item 8); round windows go to the engine's device as tensors; the SLA round
+cap counts streams, not bucket widths.  The engine's window splits into
 dispatch and fetch, so rounds pipeline as in the JAX package, but the
-eager token loop finishes the window's device work inside the dispatch.
+token loop's per-chunk host reads finish the window's device work inside
+the dispatch.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ class _Stream:
         self.want_decode = False
         self.source_closed = False
         self.dead = False
+        self.served = False  # taken by a round (dispatched or failed)
         self.seed = sid * 100_003
         # Latency bookkeeping (metrics()): admission time, when the
         # current ready period began (want_decode False->True), and
@@ -129,7 +130,7 @@ class BatchedTranscriber:
         if mesh is not None:
             raise NormaError(
                 "BatchedTranscriber(mesh=...) is not supported by the PyTorch port "
-                "(one card; multi-GPU is ROADMAP queue 1 item 12)"
+                "(one card; multi-GPU is ROADMAP queue 1 item 8)"
             )
         if not isinstance(model, WhisperModel):
             raise NormaError("BatchedTranscriber requires a WhisperModel")
@@ -281,12 +282,14 @@ class BatchedTranscriber:
                 # closed transcriber), so stop again — idempotent — outside
                 # the lock (it joins the worker thread).
                 closed_raced = True
-                # A stream the teardown already retired was served: its
-                # sender is closed, so its handle's receiver ends (a fast
-                # source can fill the ring and a fatal round retire the
-                # stream before start() returns).  One still registered was
-                # never seen by the teardown: it is refused.
-                retired = sid not in self._streams
+                # A stream that a round took before the teardown retired it
+                # was served: its sender is closed, so its handle's receiver
+                # ends (a fast source can fill the ring and a fatal round
+                # retire the stream before start() returns).  Any other
+                # (still registered, or retired unserved because close()
+                # stopped its pipeline before start() ran) is refused, as
+                # in the JAX package.
+                retired = sid not in self._streams and stream.served
                 self._streams.pop(sid, None)
         if closed_raced:
             pipeline.stop()
@@ -396,6 +399,8 @@ class BatchedTranscriber:
             start = self._round_rr % len(ready)
             ready = (ready + ready)[start : start + cap]
             self._round_rr += cap
+        for s in ready:
+            s.served = True
         return ready
 
     def _sla_round_cap(self) -> int:

@@ -17,9 +17,9 @@ Both are built on ``threading.Condition`` so waits are REAL blocking waits
 woken by send/close notifications — the reference's tokio/thingbuf channels
 never poll, and neither do these (no internal wake-up ticks).
 
-(A copy of ``norma_tpu/runtime/channels.py``.  The JAX package's C++
-lock-free SPSC ring for its microphone path is not ported: this Python
-implementation serves every source here.)
+(A copy of ``norma_tpu/runtime/channels.py``.)  A C++ lock-free SPSC ring
+(``audio/native``) backs the real-time microphone path; this Python
+implementation serves every other source and is the portable fallback.
 """
 
 from __future__ import annotations

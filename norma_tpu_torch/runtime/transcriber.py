@@ -18,11 +18,11 @@ shape and semantics:
 The reference's poisoned-mutex self-healing (lib.rs:436-442 etc.) has no
 Python analogue — locks cannot poison here.
 
-Extension over the reference: ``Settings.source`` injects any
-``AudioSource`` (file/synthetic).  ``Settings.source=None``, the
-microphone, raises ``NotImplementedError``: the JAX package's device
-selection and native capture ring (``audio/device.py``, ``audio/native``)
-are not ported yet (ROADMAP queue 1).
+``Settings.source=None`` (the default) captures the microphone through the
+native ALSA runtime (``audio/native``: the device ranked and opened as the
+reference's ``create_stream`` does, lib.rs:502-557).  Extension over the
+reference: ``Settings.source`` may inject any ``AudioSource``
+(file/synthetic) instead.
 """
 
 from __future__ import annotations
@@ -233,8 +233,24 @@ class Transcriber:
 
     @instrument(name="create_stream")  # reference lib.rs:502
     def _open_stream(self, settings: Settings):
-        """Build the capture pipeline over the injected source; returns
-        (pipeline, ring)."""
+        """Build the capture pipeline; returns (pipeline, ring).
+
+        Injected sources run the Python DSP pipeline; the microphone
+        (``settings.source is None``) is fully native: C++ ALSA
+        capture/mixdown/resample/pack into a lock-free ring
+        (``audio/native``).
+        """
+        if settings.source is None:
+            from ..audio.native.alsa import open_native_mic
+
+            return open_native_mic(
+                settings,
+                self._model.SAMPLE_RATE,
+                self._model.dtype,
+                self._params.data_buffer_size,
+                self._params.get_max_chunk_len(),
+            )
+
         from ..audio.pipeline import StreamPipeline
 
         ring = RecycledRing(
@@ -366,11 +382,6 @@ class TranscriberHandle:
         self, settings: Optional[Settings] = None, timeout: Optional[float] = 30.0
     ) -> StringReceiver:
         settings = settings if settings is not None else Settings()
-        if settings.source is None:
-            raise NotImplementedError(
-                "the microphone source is not ported to norma_tpu_torch yet (ROADMAP queue 1: the "
-                "JAX package's audio/device.py and audio/native); pass Settings(source=...)"
-            )
         with self._stream_state.lock:
             running = self._stream_state.pipeline is not None
         if running:

@@ -1,0 +1,9 @@
+"""The port's accuracy and serving tools, each run as
+``python -m norma_tpu_torch.tools.<name>``:
+
+  - ``eval_wer``: corpus WER over a manifest or a LibriSpeech directory;
+  - ``accuracy_flip_rate``: greedy-token flip rates of the quant tiers
+    against the bf16 engine, on seeded and on fitted weights;
+  - ``soak_serving``: minutes of real-time streams through
+    ``BatchedTranscriber`` with liveness, loss, memory and latency checks.
+"""

@@ -1,11 +1,16 @@
-"""The port imports neither jax nor norma_tpu, nor ``tokenizers``.
+"""The port imports neither jax nor norma_tpu, nor ``tokenizers`` or
+``optax``, nor anything from ``tests/``.
 
 A static scan of every import statement under norma_tpu_torch/ (a
 ``sys.modules`` check cannot show this: the test process has jax loaded
-already).  ``norma_tpu/__init__.py`` imports jax, so importing any
-``norma_tpu`` module would pull it in.  The port reads tokenizer.json
-itself, so it needs no ``tokenizers``; ``huggingface_hub`` (an optional
-download) is imported only inside the loader's hub-download function.
+already), its tools (``tools/``), native audio runtime (``audio/native/``)
+and WER metric (``eval/``) included.  ``norma_tpu/__init__.py`` imports
+jax, so importing any ``norma_tpu`` module would pull it in.  The port
+reads tokenizer.json itself, so it needs no ``tokenizers``; its fit runs
+``torch.optim``, so it needs no ``optax``; its tools build their own
+models, so they need none of the tests' helpers.  ``huggingface_hub`` (an
+optional download) is imported only inside the loader's hub-download
+function.
 """
 
 import ast
@@ -14,7 +19,11 @@ import os
 import pytest
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "norma_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "norma_tpu", "tokenizers")
+TESTS = os.path.join(os.path.dirname(PKG), "tests")
+# The tests' own modules (helpers, checkpoint_fixture, ...) and the package
+# name a checkout's tests/ would import as.
+TEST_MODULES = ("tests",) + tuple(sorted(f[:-3] for f in os.listdir(TESTS) if f.endswith(".py")))
+FORBIDDEN = ("jax", "jaxlib", "norma_tpu", "tokenizers", "optax") + TEST_MODULES
 LAZY = {"huggingface_hub": ("models/whisper/loader.py", "_hub_download")}
 
 
@@ -55,7 +64,9 @@ def test_package_has_modules():
     for want in ("model/whisper.py", "ops/sample_step.py", "ops/self_decode.py",
                  "decode/engine.py", "decode/longform.py", "models/whisper/model.py",
                  "models/whisper/loader.py", "models/whisper/tokenizer.py", "runtime/transcriber.py",
-                 "ops/mel_pallas.py"):
+                 "ops/mel_pallas.py", "dtype.py", "audio/device.py", "audio/native/__init__.py",
+                 "audio/native/alsa.py", "audio/native/wrappers.py", "eval/wer.py", "tools/eval_wer.py",
+                 "tools/accuracy_flip_rate.py", "tools/soak_serving.py"):
         assert want in names
 
 
@@ -76,6 +87,9 @@ def test_lazy_imports_stay_in_their_function(path):
 def test_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("def f():\n    from norma_tpu.model import encode\n    import jax.numpy as jnp\n"
-                 "import tokenizers\n")
-    assert set(_imported_roots(str(p))) == {"norma_tpu", "jax", "tokenizers"}
-    assert set(_imports(str(p))) == {("norma_tpu", "f"), ("jax", "f"), ("tokenizers", None)}
+                 "import tokenizers\nimport optax\nfrom helpers import tiny_config\n")
+    assert set(_imported_roots(str(p))) == {"norma_tpu", "jax", "tokenizers", "optax", "helpers"}
+    assert set(_imports(str(p))) == {("norma_tpu", "f"), ("jax", "f"), ("tokenizers", None), ("optax", None),
+                                     ("helpers", None)}
+    assert {"helpers", "checkpoint_fixture", "torch_port_helpers", "tests"} <= set(TEST_MODULES)
+    assert set(_imported_roots(str(p))) <= set(FORBIDDEN)

@@ -5,8 +5,9 @@ tests/test_api_surface.py that the port's slice carries.
 
 A SyntheticSource replaces the microphone; the protocol asserted is the
 reference's: non-empty output, only MSG / FINAL_MSG strings, and exactly
-one final message after stop().  The microphone itself (Settings.source =
-None) is not ported and raises.
+one final message after stop().  ``Settings()`` (the microphone) reaches
+the native capture (``audio/native/alsa.py::open_native_mic``), here faked;
+tests/test_torch_native_stub.py drives it through the stub libasound.
 """
 
 import asyncio
@@ -135,14 +136,46 @@ def test_transcribe_error_surfaces_via_join():
     assert stream.blocking_recv(timeout=0.5) is None  # torn down on error
 
 
-def test_microphone_source_not_ported():
+@pytest.mark.parametrize("settings", [Settings(), None], ids=["Settings()", "no-arguments"])
+def test_microphone_settings_reach_native_mic(settings, monkeypatch):
+    """``Settings()`` (and ``blocking_start()``) open the microphone through
+    ``audio/native/alsa.py::open_native_mic`` with the model's rate, dtype,
+    ring size and chunk length, as the JAX package's ``_open_stream`` does;
+    a fake native side (no toolchain needed) feeds two full chunks and the
+    final short one, then closes its ring."""
+    from norma_tpu_torch.audio.native import alsa
+    from norma_tpu_torch.runtime.channels import RecycledRing
+
+    calls = []
+
+    class FakeMic:
+        stopped = False
+
+        def stop(self):
+            self.stopped = True
+
+    def fake_open(settings, model_rate, model_dtype, n_slots, chunk_len):
+        calls.append((settings, model_rate, np.dtype(model_dtype), n_slots, chunk_len))
+        ring = RecycledRing(n_slots + 2, chunk_len, model_dtype)
+        for n in (chunk_len, chunk_len, chunk_len // 3):
+            ring.try_send(np.zeros(n, model_dtype), n)
+        ring.close()
+        mic = FakeMic()
+        calls.append(mic)
+        return mic, ring
+
+    monkeypatch.setattr(alsa, "open_native_mic", fake_open)
     jh, th = Transcriber.blocking_spawn(MockDef())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.blocking_start(Settings())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.blocking_start()
+    res = list(th.blocking_start(settings) if settings is not None else th.blocking_start())
     th.close()
     jh.join(timeout=10)
+    assert res == [MSG, MSG, FINAL_MSG]
+    (s, rate, dtype, n_slots, chunk_len), mic = calls
+    assert s == Settings() and s.source is None
+    p = MockDef().common_params()
+    assert (rate, dtype, n_slots, chunk_len) == (44_100, np.dtype(np.float64), p.data_buffer_size,
+                                                 p.get_max_chunk_len())
+    assert mic.stopped, "the stream's end must stop the native capture"
 
 
 def test_common_params_clamps():
