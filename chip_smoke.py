@@ -15,9 +15,10 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      greedy_only with per-row steps; t>0 mask support and exact replay from
      the kernel's own Philox uniforms; uniformity of those uniforms,
      per-row independence); times at 6 and 8 rows host-launched and from
-     CUDA graphs, by cluster size against the plan's, and the Philox probe
-     (philox_uniform) host-launched and device-only (torch.profiler) with
-     its bound;
+     CUDA graphs, by cluster size against the plan's; the Philox probe
+     (philox_uniform) bit for bit against its plain version
+     (philox_uniform_torch) at 6/1/64 x V, an odd V and V=7, host-launched
+     against it and device-only (torch.profiler) with its bound;
   3. self_decode kernel vs its plain version at distil-large-v3 widths
      (f32 and bf16, bucket views, in-place row write; every position of a
      128-row crop at rows 1 and 6, host and device positions; the served
@@ -76,8 +77,12 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      at 6/8/16 rows against bf16 cuBLAS on a bf16 weight, with the bound;
  12. log_mel kernel: a B=8 batch of 30 s windows through log_mel_pallas
      (its own path; the kernel is on no serving path, as in the JAX
-     package), then kernel vs log_mel_dft and vs frontend/mel.py at B 1/8,
-     80 and 128 mels;
+     package), then kernel vs log_mel_dft and vs frontend/mel.py at B 1/8
+     and on a silent row beside a loud one, 80 and 128 mels; times at B=8
+     and B=1 host-launched against the plain version and device-only
+     (torch.profiler, the log-mel launch and its clamp), the bound of its
+     three TF32 passes beside the first form's f32 bound, and the rFFT
+     frontend's time;
  13. the public entry point at full width: a distil-large-v3-shaped
      checkpoint (config.json, a WordLevel tokenizer.json, BF16
      model.safetensors of seeded random weights) written to a temporary
@@ -134,8 +139,10 @@ card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is the count
 from the path that runs it, its counters set to 0 just before: phase 5
 (sample_step, self_decode), phase 9 (cross_decode, flash_encoder, q8a8),
-phase 13 (w4_matmul, w8_matmul) and, for the log-mel kernel that no
-serving path runs, phase 12's own batch.
+phase 13 (w4_matmul, w8_matmul) and, for the two kernels that no serving
+path runs, their own paths: phase 12's batch (log_mel) and phase 2's
+replay of the sampler's draws (philox_uniform).  Phases 9 and 17 also
+print the CUDA graphs the engine captured after warmup().
 """
 
 from __future__ import annotations
@@ -196,14 +203,16 @@ def turns(plain, kernel):
 # The H100 SXM's published peaks at 700 W (NVIDIA's data sheet, dense):
 # HBM bytes/s and operations/s by operand type.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 
 
-def bound(nbytes: float, ops: float = 0.0, kind: str = "bf16"):
+def bound(nbytes: float, ops=0.0, kind: str = "bf16"):
     """(bound_ms, bound_by): the least time for ``nbytes`` of HBM traffic
     (each input read once, each output written once) and ``ops``
-    operations of ``kind`` on the card, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[kind] * 1e3
+    operations of ``kind`` on the card (or a {kind: ops} dict, their times
+    summed), whichever is larger."""
+    ops = ops if isinstance(ops, dict) else {kind: ops}
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,25 +225,36 @@ KERNEL_FUNCS = {
     "sample_step": ("sample_step_kernel",), "self_decode": ("self_decode_kernel",),
     "cross_decode": ("cross_decode_kernel",), "flash_encoder": ("flash_encoder",),
     "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_mma_kernel",),
-    "w4_matmul": ("w4_mma_kernel",), "log_mel": ("log_mel_kernel",),
+    "w4_matmul": ("w4_mma_kernel",), "log_mel": ("log_mel_kernel", "log_mel_clamp_kernel"),
     "philox_uniform": ("philox_uniform_kernel",),
 }
 
 
 def device_profile(fn, names):
-    """Run ``fn`` once under torch.profiler; per kernel of ``names``:
-    device-only ms per launch of its main function, launches, and device ms
-    in all (its split-sum pass included).  None where the profiler shows no
-    device time ("not measured")."""
+    """Run ``fn`` under torch.profiler; per kernel of ``names``: device-only
+    ms per launch of its main function, launches, device ms in all (its
+    split-sum pass included) and ``tries``, the profiles it took.  None
+    where the profiler shows no device time ("not measured").  On the H100
+    a profile late in a long process has come back without a kernel's
+    device events while the kernel launched (its wrapper's count says so;
+    the cause is not known), so a profile missing one of ``names`` is taken
+    again, three at most.  ``missed`` holds, per profile that came back
+    short, how many events in it had device time (0: the whole session
+    lost its device events), and the text beside each figure shows it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    missed = []
+    for tries in range(1, 4):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()]
+        if all(any(KERNEL_FUNCS[n][0] in k and us > 0 for k, _, us in events) for n in names):
+            break
+        missed.append(sum(c for _, c, us in events if us > 0))
     out = {}
-    events = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()]
     for name in names:
         funcs = KERNEL_FUNCS[name]
         main = [(c, us) for k, c, us in events if funcs[0] in k and us > 0]
@@ -244,14 +264,22 @@ def device_profile(fn, names):
             continue
         n = sum(c for c, _ in main)
         total = sum(us for _, us in main)
-        out[name] = dict(launches=n, ms_per_launch=total / n / 1e3, ms_total=(total + sum(rest)) / 1e3)
+        out[name] = dict(launches=n, ms_per_launch=total / n / 1e3, ms_total=(total + sum(rest)) / 1e3, tries=tries,
+                         missed=missed)
     return out
+
+
+def tries_text(d) -> str:
+    """Beside a device-only figure that took more than one profile: how
+    many, and the device events each short one held."""
+    return "" if d is None or d["tries"] == 1 else (
+        f" ({d['tries']} profiles taken; device events in the short ones: {d['missed']})")
 
 
 def profile_text(prof) -> str:
     return "; ".join(
         f"{k}: not measured" if v is None else
-        f"{k}: {v['ms_per_launch']:.4f} ms x {v['launches']} ({v['ms_total']:.1f} ms)"
+        f"{k}: {v['ms_per_launch']:.4f} ms x {v['launches']} ({v['ms_total']:.1f} ms){tries_text(v)}"
         for k, v in prof.items()
     )
 
@@ -391,6 +419,8 @@ def phase_sample_step(rec, dev):
     # uniforms (>= 2000 at 48 rows).
     draws = replay_ok = replay_n = 0
     shapes = [(B, V3) for B in SS_ROWS] + [(8, SS_ODD_V)]
+    # The probe's own path is this replay: its launches count from here.
+    ss.philox_uniform.launches = 0
     for B, V in shapes:
         masks = _v3_masks(dev, V)
         for p1, p2, lts, step in cases:
@@ -431,8 +461,20 @@ def phase_sample_step(rec, dev):
                                             u=u)
             replay_ok += int((pn == kn).sum())
             replay_n += B
+    pu_launches = ss.philox_uniform.launches
     if replay_ok != replay_n:
         raise AssertionError(f"Philox replay agreed on {replay_ok}/{replay_n} draws")
+    # The probe against its plain version (Philox4x32-10 in PyTorch integer
+    # arithmetic, on the card): bit for bit, at the replay's shape, one row,
+    # 64 rows, an odd V and a V below one group of four.
+    pu_err = 0.0
+    for rows, V in ((6, V3), (1, V3), (64, V3), (6, SS_ODD_V), (3, 7)):
+        pseed, pstep = 0x123456789ABCDEF0 + rows, 11 + V % 5
+        ku = ss.philox_uniform(pseed, pstep, rows, V, dev)
+        pu = ss.philox_uniform_torch(pseed, pstep, rows, V, dev)
+        if ku.shape != (rows, V) or not torch.equal(ku.view(torch.int32), pu.view(torch.int32)):
+            raise AssertionError(f"philox_uniform differs from philox_uniform_torch at {rows} x {V}")
+        pu_err = max(pu_err, float((ku - pu).abs().max()))
     masks = _v3_masks(dev)
     # The speculative verify chunk's rows (B x (K+1)): greedy_only, per-row
     # steps and grammar states, as a round runs them; CUDA-graph ms.
@@ -493,7 +535,8 @@ def phase_sample_step(rec, dev):
                         bound_by=b_by, cluster=plan(B, V3)["cluster"], cluster_ms=sweep)
     # The Philox probe (philox_uniform, the port of u_kernel): 6 rows of V
     # uniforms; bound: the [6, V] f32 output written once.
-    pu_ms = cuda_ms(lambda: ss.philox_uniform(7, 3, 6, V3, dev))
+    pu_ms, pu_plain_ms = turns(lambda: ss.philox_uniform_torch(7, 3, 6, V3, dev),
+                               lambda: ss.philox_uniform(7, 3, 6, V3, dev))
     pu_bound, pu_by = bound(6 * V3 * 4)
     pu_prof = device_profile(lambda: [ss.philox_uniform(7, i, 6, V3, dev) for i in range(20)], ["philox_uniform"])
     rec.setdefault("profile", {}).update(pu_prof)
@@ -501,8 +544,9 @@ def phase_sample_step(rec, dev):
     t6 = times[6]
     rec["sample_step"] = dict(max_abs_err=max_err, ms=t6["ms"], plain_ms=t6["plain_ms"], bound_ms=t6["bound_ms"],
                               bound_by=t6["bound_by"], library_ms=None)
-    rec["sample_step_detail"] = dict(times=times, philox_uniform=dict(ms=pu_ms, bound_ms=pu_bound, bound_by=pu_by),
-                                     verify_ms=verify_ms)
+    rec["philox_uniform"] = dict(launches=pu_launches, max_abs_err=pu_err, ms=pu_ms, plain_ms=pu_plain_ms,
+                                 bound_ms=pu_bound, bound_by=pu_by, library_ms=None)
+    rec["sample_step_detail"] = dict(times=times, verify_ms=verify_ms)
     tt = "; ".join(
         f"{B} rows: host-launched {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, CUDA graph {v['graph_ms']:.4f} "
         f"ms (greedy {v['graph_greedy_ms']:.4f}), bound {v['bound_ms']:.4f} ms ({v['bound_by']}); by cluster "
@@ -511,9 +555,10 @@ def phase_sample_step(rec, dev):
     log(f"phase 2 sample_step: ok greedy exact at rows {list(SS_ROWS)} x V={V3} and 8 x V={SS_ODD_V} (NaN, "
         f"all-masked, step 0, per-row steps), max_abs_err(prob)={max_err:.3g}; t>0 {draws} draws in support, "
         f"Philox replay {replay_ok}/{replay_n}; u min={umin:.5f} max={umax:.5f} mean={umean:.5f}; {tt}; "
-        f"philox_uniform 6 x {V3}: {pu_ms:.4f} ms host-launched, device-only "
-        f"{'not measured' if pu_dev is None else format(pu_dev['ms_per_launch'], '.4f')} ms per launch (bound "
-        f"{pu_bound:.4f} ms, {pu_by}); verify rows greedy_only, "
+        f"philox_uniform: {pu_launches} launches on the replay, bit-equal to philox_uniform_torch at 6/1/64 x {V3}, "
+        f"6 x {SS_ODD_V} and 3 x 7; 6 x {V3}: {pu_ms:.4f} ms host-launched vs plain {pu_plain_ms:.4f} ms, "
+        f"device-only {'not measured' if pu_dev is None else format(pu_dev['ms_per_launch'], '.4f')} ms per launch"
+        f"{tries_text(pu_dev)} (first form 0.0089), bound {pu_bound:.4f} ms ({pu_by}); verify rows greedy_only, "
         f"per-row steps, exact vs plain, CUDA graph ms " + ", ".join(f"{R}: {v:.4f}" for R, v in verify_ms.items()))
 
 
@@ -1351,6 +1396,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
         # ---- the main path: counts from zero ----
         for c in counters:
             c.launches = 0
+        captures0 = engine.graph_captures
         if cuda:
             torch.cuda.reset_peak_memory_stats(engine.device)
         w_start = time.perf_counter()
@@ -1366,6 +1412,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
         sync()
         wall_s = time.perf_counter() - w_start
         launches = {c.__name__: c.launches for c in counters}
+        captures = engine.graph_captures - captures0
         peak = torch.cuda.max_memory_allocated(engine.device) if cuda else 0
         # ---- end of the main path ----
         metrics = bt.metrics()
@@ -1384,7 +1431,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
             raise AssertionError(f"stream {i}: fed {fed.get(id(s.state), 0)} + dropped "
                                  f"{dropped.get(id(s.ring), 0)} samples != produced {total}")
     return dict(rounds=rounds, texts=texts, metrics=metrics, alive=alive, pad_bad=pad_bad,
-                launches=launches, peak=peak, wall_s=wall_s, warm_s=warm_s, accounting=accounting,
+                launches=launches, captures=captures, peak=peak, wall_s=wall_s, warm_s=warm_s, accounting=accounting,
                 stream_rounds=[applied.get(id(s.state), 0) for s in streams],
                 ring_drops=sum(a[3] for a in accounting), bt_closed=not bt._thread.is_alive())
 
@@ -1455,6 +1502,8 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
     n_streams = 8
     rep = serve_streams(model, n_streams, seconds)
     check_served(rep, n_streams)
+    if rep["captures"]:  # warmup() captures every graph a served round replays
+        raise AssertionError(f"{rep['captures']} CUDA graphs captured during the served rounds, after warmup")
     rec["serving"] = {k: v for k, v in rep.items() if k not in ("texts",)}
     for r in rep["rounds"]:
         log(f"  served round: B={r['B']} n_active={r['n_active']} wall_ms={r['ms']:.1f} "
@@ -1581,7 +1630,8 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
     log(f"phase 9 serving: ok d_model={cfg.d_model} enc={cfg.encoder_layers} dec={cfg.decoder_layers} bf16 "
         f"w8a8/int8 + int8 cross-K/V kernel layout, BatchedTranscriber(max_streams=8) warmup "
         f"{rep['warm_s']:.1f} s; {n_streams} streams {seconds[0]:g}-{seconds[1]:g} s fed at {FEED_SPEED:g}x real time "
-        f"served in {rep['wall_s']:.1f} s over {len(rep['rounds'])} rounds ({b8_txt}); rounds per stream "
+        f"served in {rep['wall_s']:.1f} s over {len(rep['rounds'])} rounds ({b8_txt}); CUDA graphs captured "
+        f"during the served rounds (after warmup): {rep['captures']}; rounds per stream "
         f"{rep['stream_rounds']}; no audio or transcript drops; every receiver closed; "
         f"peak_mem={rep['peak'] / 2**30:.2f} GiB; launches={rep['launches']}; text chars={chars}; "
         f"int4 B=1 window(s) {int4_ms:.1f} ms, {int4_steps} steps, {int4_launches} cross launches, "
@@ -1875,45 +1925,76 @@ def phase_log_mel(rec, dev):
     launches = mp.log_mel_pallas.launches
     # ---- end of its path ----
     # Tolerance 5e-4 in whisper units, the JAX package's bound between two
-    # f32 algorithms of this transform (tests/test_mel_pallas.py): exact f32
-    # both, other summation orders, magnified by log10 in low-power bins.
+    # f32 algorithms of this transform (tests/test_mel_pallas.py): the
+    # kernel's three TF32 passes and the plain version's exact f32 sum in
+    # other orders, magnified by log10 in low-power bins.  Cases: B 1 and 8,
+    # and a row silent throughout beside a loud one (each row's clamp is
+    # its own).
+    silent = np.zeros_like(raw[0])
+    cases = [(8, list(range(8)), batch), (1, [0], batch[:1]),
+             (2, ["silent", 2], torch.from_numpy(np.stack([mp.pad_for_pallas(silent), mp.pad_for_pallas(raw[2])])).to(dev))]
     worst, n_cases = {"dft": 0.0, "rfft": 0.0}, 0
     for n_mels in (80, 128):
-        for B in (1, 8):
-            ko = mels[n_mels][:B] if B == 8 else mp.log_mel_pallas(batch[:1], n_mels=n_mels)
-            po = mp.log_mel_dft(batch[:B], n_mels=n_mels)
-            ro = log_mel_spectrogram(
-                torch.from_numpy(np.stack([prepare_audio(a) for a in raw[:B]])).to(dev), n_mels=n_mels
-            )
+        for B, rows, audio in cases:
+            ko = mels[n_mels] if B == 8 else mp.log_mel_pallas(audio, n_mels=n_mels)
+            po = mp.log_mel_dft(audio, n_mels=n_mels)
+            pcm = [silent if r == "silent" else raw[r] for r in rows]
+            ro = log_mel_spectrogram(torch.from_numpy(np.stack([prepare_audio(a) for a in pcm])).to(dev), n_mels=n_mels)
             torch.cuda.synchronize()
             if ko.shape != (B, n_mels, 3000) or not torch.isfinite(ko).all():
                 raise AssertionError(f"log_mel B={B} mels={n_mels}: bad output")
             for name, ref in (("dft", po), ("rfft", ro)):
                 err = float((ko - ref).abs().max())
                 if not err <= 5e-4:
-                    raise AssertionError(f"log_mel B={B} mels={n_mels} vs {name}: err {err}")
+                    raise AssertionError(f"log_mel B={B} rows {rows} mels={n_mels} vs {name}: err {err}")
                 worst[name] = max(worst[name], err)
+            # The silent row: log10(1e-10) = -10 throughout, its own max, so
+            # (-10 + 4) / 4 = -1.5 everywhere (to f32 rounding of the log).
+            if "silent" in rows and not (bool((ko[0] == ko[0, 0, 0]).all()) and abs(float(ko[0, 0, 0]) + 1.5) < 1e-6):
+                raise AssertionError(f"log_mel: the silent row is not -1.5 throughout: {ko[0].min()} .. {ko[0].max()}")
             n_cases += 1
     k_ms, p_ms = turns(lambda: mp.log_mel_dft(batch, n_mels=128), lambda: mp.log_mel_pallas(batch, n_mels=128))
     b1 = batch[:1].contiguous()
     k1_ms, p1_ms = turns(lambda: mp.log_mel_dft(b1, n_mels=128), lambda: mp.log_mel_pallas(b1, n_mels=128))
     rfft_ms = cuda_ms(lambda: log_mel_spectrogram(batch[:, : (3000 - 1) * 160 + 400], n_mels=128))
-    # Bound: the Hann-folded DFT (cos and sin, 400 x 201) and the mel
-    # projection as exact f32 operations on the CUDA cores, against the PCM
-    # in, the matrices and the [8, 128, 3000] output.
-    B8, n_fft, n_freq, frames = batch.shape[0], 400, 201, 3000
-    ops = B8 * frames * (2 * n_fft * n_freq * 2 + n_freq * 128 * 2)
-    b_ms, b_by = bound(nbytes(batch) + 4 * (2 * n_fft * n_freq + n_freq * 128) + 4 * B8 * 128 * frames, ops, "f32")
+    # Bound: the DFT as three TF32 passes (cos and sin, 400 x 201, per
+    # frame) on the tensor cores, plus the mel projection's f32 operations
+    # over the filters' bin ranges; against the PCM read once and the
+    # [B, 128, 3000] log-mel written once.  The first form's bound (all of
+    # it as f32 on the CUDA cores, dense mel, the matrices read once) beside
+    # it for comparison.
+    n_fft, n_freq, frames = 400, 201, 3000
+    nnz = int(mp._mel_ranges(128)[1].sum())
+    bounds = {}
+    for B, audio in ((8, batch), (1, b1)):
+        tf32_ops = B * frames * 2 * n_fft * 2 * n_freq * 3
+        io = nbytes(audio) + 4 * B * 128 * frames
+        bounds[B] = bound(io, {"tf32": tf32_ops, "f32": B * frames * 2 * nnz})
+    b_ms, b_by = bounds[8]
+    first_ops = 8 * frames * (2 * n_fft * n_freq * 2 + n_freq * 128 * 2)
+    first_ms, _ = bound(nbytes(batch) + 4 * (2 * n_fft * n_freq + n_freq * 128) + 4 * 8 * 128 * frames,
+                        first_ops, "f32")
     prof = device_profile(lambda: [mp.log_mel_pallas(batch, n_mels=128) for _ in range(5)], ["log_mel"])
+    prof1 = device_profile(lambda: [mp.log_mel_pallas(b1, n_mels=128) for _ in range(5)], ["log_mel"])["log_mel"]
     rec.setdefault("profile", {}).update(prof)
+    d8 = prof["log_mel"]
+    dev_txt = lambda d: "not measured" if d is None else (
+        f"{d['ms_per_launch']:.4f} ms log-mel + {d['ms_total'] / d['launches'] - d['ms_per_launch']:.4f} ms clamp "
+        f"= {d['ms_total'] / d['launches']:.4f} ms a call{tries_text(d)}")
+    share = "" if d8 is None else f", {b_ms / (d8['ms_total'] / d8['launches']):.0%} of it"
     rec["log_mel"] = dict(launches=launches, max_abs_err=worst["dft"], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=None)
-    rec["log_mel_detail"] = dict(err_vs_rfft=worst["rfft"], b1_ms=k1_ms, b1_plain_ms=p1_ms, rfft_b8_ms=rfft_ms)
+    rec["log_mel_detail"] = dict(err_vs_rfft=worst["rfft"], b1_ms=k1_ms, b1_plain_ms=p1_ms, rfft_b8_ms=rfft_ms,
+                                 b1_bound_ms=bounds[1][0], first_form_bound_ms=first_ms,
+                                 device_b8=d8, device_b1=prof1)
     log(f"phase 12 log_mel: ok path B=8 x 30 s at 80 and 128 mels ({launches} launches); {n_cases} cases "
-        f"(B 1/8, 80/128 mels): max err vs log_mel_dft {worst['dft']:.3g}, vs frontend/mel.py rFFT "
-        f"{worst['rfft']:.3g}; B=8 128 mels: kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms (rFFT frontend "
-        f"{rfft_ms:.3f} ms); B=1: kernel {k1_ms:.3f} ms vs plain {p1_ms:.3f} ms; B=8 bound {b_ms:.4f} ms ({b_by}); "
-        f"profiler {profile_text(prof)}")
+        f"(B 1/8, a silent row beside a loud one, 80/128 mels): max err vs log_mel_dft {worst['dft']:.3g}, vs "
+        f"frontend/mel.py rFFT {worst['rfft']:.3g}; B=8 128 mels: kernel {k_ms:.4f} ms vs plain {p_ms:.4f} ms "
+        f"(rFFT frontend rfft_b8_ms {rfft_ms:.4f} ms); B=1: kernel {k1_ms:.4f} ms vs plain {p1_ms:.4f} ms; "
+        f"device-only B=8 {dev_txt(d8)} (first form 1.2876 ms){share}; B=1 {dev_txt(prof1)}; bound B=8 "
+        f"{b_ms:.4f} ms ({b_by}: 3 TF32 passes of the DFT at 495 TFLOP/s, the {nnz} mel weights in f32, PCM in "
+        f"and log-mel out at 3.35 TB/s), B=1 {bounds[1][0]:.4f} ms; the first form's bound (CUDA-core f32, "
+        f"dense mel) {first_ms:.4f} ms")
 
 
 # large-v3's special-token names beyond the text ids, in id order from the
@@ -2943,11 +3024,14 @@ def phase_soak(rec, dev, argv=None):
     wall_s = time.perf_counter() - t0
     if "SOAK PASS" not in buf.getvalue():
         raise AssertionError("the soak did not print SOAK PASS")
+    if summary["graph_captures_after_warmup"]:
+        raise AssertionError(f"the soak captured {summary['graph_captures_after_warmup']} CUDA graphs after warmup")
     launches = {k: c.launches for k, c in counters.items()}
     m = summary["metrics"]
     rec["soak"] = dict(wall_s=wall_s, summary=summary, launches=launches)
     log(f"phase 17 soak: ok SOAK PASS ({' '.join(argv)}): {summary['streams']} streams in {summary['waves']} waves, "
-        f"{summary['empty']} without output; latency {json.dumps(m['latency'])}; round cost EMA ms by bucket "
+        f"{summary['empty']} without output; CUDA graphs captured after warmup "
+        f"{summary['graph_captures_after_warmup']}; latency {json.dumps(m['latency'])}; round cost EMA ms by bucket "
         f"{m['round_cost_ema_ms']}; RSS growth {summary['rss_growth_mb']:.1f} MB; drops transcript "
         f"{m['transcript_drops']} audio {m['audio_drops']}; launches={launches}; {wall_s:.1f} s; "
         f"{smi_line() if cuda else 'cpu'}")
@@ -3043,6 +3127,8 @@ def main(argv=None) -> int:
              replaces="norma_tpu/ops/quant_matmul.py:51", **rec["w8_matmul"]),
         dict(name="log_mel", route="cuda", source="norma_tpu_torch/csrc/log_mel.cu",
              replaces="norma_tpu/ops/mel_pallas.py:88", **rec["log_mel"]),
+        dict(name="philox_uniform", route="cuda", source="norma_tpu_torch/csrc/sample_step.cu",
+             replaces="tools/verify_sample_kernel_tpu.py:120", **rec["philox_uniform"]),
     ]
     served = rec["serving"]["launches"]
     for k, fn in zip(kernels[2:], ("cross_attention_q8_kernel_stacked", "flash_self_attention", "q8a8_dense")):
@@ -3053,6 +3139,7 @@ def main(argv=None) -> int:
     prof = rec.get("profile", {})
     log("device-only ms per launch (torch.profiler; phase 9's B=8 window, phases 10 and 12): " + "; ".join(
         f"{k['name']}: {'not measured' if prof.get(k['name']) is None else format(prof[k['name']]['ms_per_launch'], '.4f')}"
+        f"{tries_text(prof.get(k['name']))}"
         for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(rec["smi"])

@@ -39,7 +39,7 @@ compiled with ``nvcc`` at first use into ``build/norma_tpu_torch/``
 PyTorch version instead.
 """
 
-from . import audio, input, models, tracing
+from . import audio, eval, input, models, tracing
 from .errors import (
     NormaError,
     NoStreamRunning,
@@ -55,6 +55,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "audio",
+    "eval",
     "input",
     "models",
     "tracing",

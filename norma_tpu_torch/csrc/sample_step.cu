@@ -277,20 +277,39 @@ __global__ void __launch_bounds__(kThreads) sample_step_kernel(
   cluster.sync();  // no CTA leaves while rank 0 reads its parts
 }
 
-// The uniform draws the sampler uses for (seed, step, row r, token j): the
-// port of tools/verify_sample_kernel_tpu.py's u_kernel probe.
-__global__ void philox_uniform_kernel(unsigned long long seed, int step, int V,
-                                      float* __restrict__ out) {
-  const int r = blockIdx.x;
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  const int groups = (V + 3) / 4;
-  for (int c = threadIdx.x; c < groups; c += blockDim.x) {
-    const uint4 bits = norma::philox4x32_10(
-        make_uint4((uint32_t)c, (uint32_t)r, (uint32_t)step, 0u), key);
-    for (int w = 0; w < 4; ++w) {
-      const int j = 4 * c + w;
-      if (j < V) out[(size_t)r * V + j] = norma::uniform_from_bits(norma::word(bits, w));
-    }
+// The uniform draws the sampler uses for (seed, step, row r, token j):
+// u[r, j] = uniform_from_bits(word j % 4 of Philox4x32-10 at counter
+// (j / 4, r, step, 0), key (seed bits 0-31, 32-63)), as pass 4 above draws
+// them.  Replaces the TPU probe tools/verify_sample_kernel_tpu.py:120
+// (u_kernel, pl.pallas_call at :128).  Bound by its [rows, V] f32 store:
+// 1.24 MB at 6 x 51866, ~0.4 us at 3.35 TB/s, so at that shape the launch
+// dominates.  Design: one Philox group per thread over rows x ceil(V / 4)
+// groups (6 x 12967 threads: ~300 blocks, all of the card), each group's
+// four uniforms in the widest store the row's alignment allows (16 bytes
+// where r * V is a multiple of 4, else two 8-byte stores where it is even,
+// else four scalar ones; the ragged end of a row scalar).
+__global__ void __launch_bounds__(256) philox_uniform_kernel(unsigned long long seed, int step, int V,
+                                                            float* __restrict__ out) {
+  const int r = blockIdx.y;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = 4 * c;
+  if (j >= V) return;
+  const uint4 bits = norma::philox4x32_10(make_uint4((uint32_t)c, (uint32_t)r, (uint32_t)step, 0u),
+                                          make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
+  const float u0 = norma::uniform_from_bits(bits.x), u1 = norma::uniform_from_bits(bits.y);
+  const float u2 = norma::uniform_from_bits(bits.z), u3 = norma::uniform_from_bits(bits.w);
+  float* p = out + (size_t)r * V + j;
+  const uintptr_t a = (uintptr_t)p;
+  if (j + 4 <= V && (a & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = make_float4(u0, u1, u2, u3);
+  } else if (j + 4 <= V && (a & 7) == 0) {
+    reinterpret_cast<float2*>(p)[0] = make_float2(u0, u1);
+    reinterpret_cast<float2*>(p)[1] = make_float2(u2, u3);
+  } else {
+    const float u[4] = {u0, u1, u2, u3};
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (j + w < V) p[w] = u[w];
   }
 }
 
@@ -343,7 +362,9 @@ extern "C" int norma_sample_step(
 
 extern "C" int norma_philox_uniform(unsigned long long seed, int step, int rows,
                                     int V, float* out, void* stream) {
-  philox_uniform_kernel<<<rows, 256, 0, (cudaStream_t)stream>>>(seed, step, V, out);
+  if (rows <= 0 || rows > 65535 || V <= 0) return (int)cudaErrorInvalidValue;
+  const int groups = (V + 3) / 4;
+  philox_uniform_kernel<<<dim3((groups + 255) / 256, rows), 256, 0, (cudaStream_t)stream>>>(seed, step, V, out);
   return (int)cudaGetLastError();
 }
 

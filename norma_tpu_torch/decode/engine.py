@@ -270,9 +270,11 @@ class DecodeEngine:
             if language_token_ids is not None
             else None
         )
-        # Counters: device->host reads, and decode steps run.
+        # Counters: device->host reads, decode steps run, and CUDA graphs
+        # captured (keys added to a loop buffer's ``graphs``).
         self.host_syncs = 0
         self.decode_steps = 0
+        self.graph_captures = 0
         # The token loop: steps per chunk, and on CUDA its static buffers
         # (by input signature) with their captured graphs.
         self._loop_chunk = LOOP_CHUNK
@@ -489,6 +491,7 @@ class DecodeEngine:
         for c, n in before.items():
             c.launches = n
         buf.graphs[key] = graph
+        self.graph_captures += 1
 
     def _loop_step(self, buf, S: int, n_rungs: int, greedy_only: bool, generator) -> None:
         """One step of the token loop on ``buf``'s tensors, in place: the

@@ -95,7 +95,8 @@ SIGNATURES = {
     ],
     "norma_log_mel": [
         P, I64, I64,  # audio, row stride, samples per row
-        P, P, P, P,  # cos, sin, mel matrices, out
+        P, P, P, P, I,  # cos/sin fragments, mel start, count, weights, weights per mel
+        P, P,  # row max scratch, out
         I, I, I,  # B, T, n_mels
         P,  # stream
     ],

@@ -1,21 +1,26 @@
 """Fused log-mel frontend as one kernel (``norma_tpu/ops/mel_pallas.py``).
 
 The whole frontend (framing, hann-folded DFT, power spectrum, mel
-filterbank, log10) as one pass, with the DFT written as two products
-against precomputed cos/sin matrices (:func:`_dft_mats`):
+filterbank, log10, the dynamic-range clamp) as one pass, with the DFT
+written as two products against precomputed cos/sin matrices
+(:func:`_dft_mats`):
 
   - :func:`log_mel_dft` — the plain PyTorch version (the CPU path and the
-    kernel's oracle): the frame matrix, three f32 matmuls, log10;
+    kernel's oracle): the frame matrix, three exact f32 matmuls, log10 and
+    :func:`_epilogue`'s clamp;
   - :func:`log_mel_pallas` — the wrapper: the CUDA kernel
-    (``csrc/log_mel.cu``, exact f32, frames read by stride from the padded
-    PCM) for CUDA tensors, the plain version for CPU tensors; any other
+    (``csrc/log_mel.cu``: frames read by stride from the padded PCM, the
+    DFT on TF32 tensor cores in three error-compensated passes, the mel
+    projection over each filter's bin range, then a second launch for the
+    clamp) for CUDA tensors, the plain version for CPU tensors; any other
     device raises.  ``log_mel_pallas.launches`` counts kernel launches.
 
-Both emit log10 mel power and leave the global dynamic-range clamp (max -
-8, + 4, / 4) to :func:`_epilogue`, as the JAX package leaves it to XLA.
-The serving path keeps ``frontend/mel.py``'s ``torch.fft`` (the JAX
-package's frontend is its rFFT too); this kernel is the port of the TPU
-one, held against both by the tests and the chip smoke run.
+The kernel's tables come from the same matrices: :func:`_dft_frags` (the
+cos/sin in the kernel's mma fragment order) and :func:`_mel_ranges`
+(each filter's first bin, bin count and weights).  The serving path keeps
+``frontend/mel.py``'s ``torch.fft`` (the JAX package's frontend is its
+rFFT too); this kernel is the port of the TPU one, held against both by the
+tests and the chip smoke run.
 """
 
 from __future__ import annotations
@@ -56,6 +61,59 @@ def _dft_mats(n_mels: int):
 def _mats_on(n_mels: int, dev: torch.device):
     """:func:`_dft_mats` on ``dev`` (copied once per device)."""
     return tuple(torch.from_numpy(m).to(dev) for m in _dft_mats(n_mels))
+
+
+# csrc/log_mel.cu's launch shape: a block of 13 warps per 64 frames of one
+# row, warp w owning bins 16w .. 16w + 15 (208 bins), 50 k8 steps of the
+# 400 samples; shared memory holds the block's samples split hi/lo, in hop
+# chunks at a pitch of 164 floats, and a ring of 4 k steps of each
+# thread's 32 bytes of the fragment table.
+LM_FRAMES, LM_WARPS, LM_KSTEPS, LM_PITCH, LM_STAGES = 64, 13, N_FFT // 8, 164, 4
+
+
+@functools.lru_cache(maxsize=1)
+def _dft_frags() -> np.ndarray:
+    """The hann-folded cos/sin of :func:`_dft_mats` in the kernel's mma
+    fragment order, [warp 13][k step 50][half 2][lane 32][4] f32.  Lane
+    (g, t) = (lane // 4, lane % 4) of warp w at k step s holds, for the
+    tiles cos bins 16w + 0..7, cos 16w + 8..15 (half 0), sin 16w + 0..7,
+    sin 16w + 8..15 (half 1), the B fragment of ``mma.m16n8k8``: b0 =
+    sample 8s + t and b1 = sample 8s + t + 4 of bin (tile start + g).  A
+    half is 512 contiguous bytes, one 16-byte copy a lane."""
+    cos_m, sin_m, _ = _dft_mats(80)
+    w = np.arange(LM_WARPS)[:, None, None, None]
+    ks = np.arange(LM_KSTEPS)[None, :, None, None]
+    lane = np.arange(32)[None, None, :, None]
+    i = np.arange(8)[None, None, None, :]
+    k = 8 * ks + lane % 4 + 4 * (i % 2)
+    n = 16 * w + 8 * ((i // 2) % 2) + lane // 4
+    v = np.where(i < 4, cos_m[k, n], sin_m[k, n]).astype(np.float32)  # [w, ks, lane, 8]
+    return np.ascontiguousarray(v.reshape(LM_WARPS, LM_KSTEPS, 32, 2, 4).transpose(0, 1, 3, 2, 4))
+
+
+@functools.lru_cache(maxsize=4)
+def _mel_ranges(n_mels: int):
+    """Each mel filter's bins as (start [n_mels] int32, count [n_mels]
+    int32, weights [n_mels, max count] f32): filter m is ``mel_p``'s column
+    m over bins start .. start + count - 1 (its first to its last nonzero,
+    zero-padded past count; an empty filter has count 0)."""
+    mel_p = _dft_mats(n_mels)[2][:N_FREQS]
+    start = np.zeros(n_mels, np.int32)
+    count = np.zeros(n_mels, np.int32)
+    for m in range(n_mels):
+        nz = np.flatnonzero(mel_p[:, m])
+        if nz.size:
+            start[m], count[m] = nz[0], nz[-1] - nz[0] + 1
+    weights = np.zeros((n_mels, max(int(count.max()), 1)), np.float32)
+    for m in range(n_mels):
+        weights[m, : count[m]] = mel_p[start[m] : start[m] + count[m], m]
+    return start, count, weights
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables_on(n_mels: int, dev: torch.device):
+    """(fragment-order cos/sin, mel start, count, weights) on ``dev``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (_dft_frags(), *_mel_ranges(n_mels)))
 
 
 def _as_batch(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -102,15 +160,17 @@ def log_mel_pallas(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAM
     if audio.stride(1) != 1:
         audio = audio.contiguous()
     B = audio.shape[0]
-    cos_m, sin_m, mel_p = _mats_on(n_mels, dev)
-    out = torch.empty((B, n_frames, n_mels), dtype=torch.float32, device=dev)
+    frags, start, count, weights = _kernel_tables_on(n_mels, dev)
+    out = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=dev)
+    row_max = torch.empty(B, dtype=torch.int32, device=dev)  # zeroed by the launcher
     code = _build.lib().norma_log_mel(
-        audio.data_ptr(), audio.stride(0), audio.shape[1], cos_m.data_ptr(), sin_m.data_ptr(),
-        mel_p.data_ptr(), out.data_ptr(), B, n_frames, n_mels, _build.stream_ptr(dev),
+        audio.data_ptr(), audio.stride(0), audio.shape[1], frags.data_ptr(), start.data_ptr(),
+        count.data_ptr(), weights.data_ptr(), weights.shape[1], row_max.data_ptr(), out.data_ptr(),
+        B, n_frames, n_mels, _build.stream_ptr(dev),
     )
     _build.check(code, "log_mel kernel")
     log_mel_pallas.launches += 1
-    return _epilogue(out)
+    return out
 
 
 log_mel_pallas.launches = 0

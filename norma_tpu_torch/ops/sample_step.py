@@ -18,7 +18,9 @@ sampling and the chosen token's probability:
     back.  ``sample_step.launches`` counts
     kernel launches;
   - :func:`philox_uniform` — the kernel's uniforms for (seed, step, row,
-    token), so a test can feed the plain version the kernel's exact draws.
+    token), so a test can feed the plain version the kernel's exact draws:
+    the probe kernel for CUDA devices, :func:`philox_uniform_torch` (Philox
+    in PyTorch integer arithmetic, bit-equal) for the CPU.
 
 Grammar semantics (in prob space, post-softmax):
   - base = probs + suppress_mask                      (model.rs:331-334)
@@ -225,17 +227,78 @@ def sample_step(
 sample_step.launches = 0
 
 
+# Philox4x32-10 (Salmon et al., SC'11), as csrc/common.cuh has it.
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mul_hi_lo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of the 64-bit product m * x, m and x below
+    2^32, in int64 without overflow: x in 16-bit limbs, each partial
+    product below 2^48."""
+    p_lo = m * (x & 0xFFFF)
+    mid = m * (x >> 16) + (p_lo >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32_10(ctr: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
+    """Philox4x32-10 over counters ``ctr`` [..., 4] (int64 holding uint32
+    words) with the 64-bit key (k0, k1) -> the four 32-bit outputs [..., 4]
+    as int64."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = key[0] & _U32, key[1] & _U32
+    for _ in range(10):
+        hi0, lo0 = _mul_hi_lo(_PHILOX_M0, c0)
+        hi1, lo1 = _mul_hi_lo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _U32, (k1 + _PHILOX_W1) & _U32
+    return torch.stack((c0, c1, c2, c3), -1)
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits (int64 holding uint32) -> f32 uniforms in [1e-12, 1):
+    the top 23 bits times 2^-23, clamped away from 0 (``norma::
+    uniform_from_bits``; the JAX package's ``uniform_from_bits``)."""
+    return torch.clamp((bits >> 9).to(torch.float32) * (1.0 / (1 << 23)), min=1e-12)
+
+
+@torch.no_grad()
+def philox_uniform_torch(seed: int, step: int, rows: int, V: int, device="cpu") -> torch.Tensor:
+    """Plain version of the Philox probe: uniforms [rows, V] f32, token j of
+    row r from word j % 4 of Philox4x32-10 at counter (j // 4, r, step, 0)
+    and key (seed bits 0-31, 32-63) -- the sampling kernel's t>0 draws."""
+    seed &= 0xFFFFFFFFFFFFFFFF
+    groups = -(-V // 4)
+    c = torch.arange(groups, dtype=torch.int64, device=device)[None].expand(rows, groups)
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None].expand(rows, groups)
+    ctr = torch.stack((c, r, torch.full_like(c, int(step) & _U32), torch.zeros_like(c)), -1)
+    bits = philox4x32_10(ctr, (seed & _U32, seed >> 32))
+    return uniform_from_bits(bits.reshape(rows, 4 * groups)[:, :V]).contiguous()
+
+
 @torch.no_grad()
 def philox_uniform(seed: int, step: int, rows: int, V: int, device) -> torch.Tensor:
     """The uniforms [rows, V] the CUDA sampler draws at (seed, step): feed
-    them to :func:`sample_step_torch` as ``u`` to replay a kernel draw."""
+    them to :func:`sample_step_torch` as ``u`` to replay a kernel draw.  A
+    CUDA device launches the probe kernel (``philox_uniform.launches``
+    counts it), the CPU runs :func:`philox_uniform_torch`; any other device
+    raises."""
     device = torch.device(device)
+    if device.type == "cpu":
+        return philox_uniform_torch(seed, step, rows, V)
     if device.type != "cuda":
-        raise ValueError(f"philox_uniform runs on CUDA only, got {device}")
+        raise ValueError(f"philox_uniform: unsupported device {device}")
+    if rows <= 0 or V <= 0 or rows > 65535:
+        raise ValueError(f"philox_uniform: rows must be in 1..65535 and V positive, got {rows}, {V}")
     out = torch.empty((rows, V), dtype=torch.float32, device=device)
     code = _build.lib().norma_philox_uniform(
         seed & 0xFFFFFFFFFFFFFFFF, int(step), rows, V, out.data_ptr(),
         _build.stream_ptr(device),
     )
     _build.check(code, "philox_uniform kernel")
+    philox_uniform.launches += 1
     return out
+
+
+philox_uniform.launches = 0

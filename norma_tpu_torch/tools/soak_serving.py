@@ -140,6 +140,7 @@ def main(argv=None) -> dict:
     # model.warmup): a bucket's first use mid-wave (graph captures,
     # allocator growth) would stall real-time sources into ring overflow.
     bt.warmup()
+    captures0 = model.engine.graph_captures
     deadline = time.monotonic() + args.minutes * 60.0
     results = {}
     threads = []
@@ -187,10 +188,12 @@ def main(argv=None) -> dict:
 
     m = bt.metrics()
     bt.close()
+    # CUDA graphs the live rounds captured: keys bt.warmup() did not reach.
+    captures = model.engine.graph_captures - captures0
     grew = rss_mb() - (rss0 or rss_mb())
     empty = [tag for tag, segs in results.items() if not segs]
     print(f"# done: {started} streams, {len(results)} drained, "
-          f"rss growth {grew:.0f} MB, metrics {m}", flush=True)
+          f"rss growth {grew:.0f} MB, graph captures after warmup {captures}, metrics {m}", flush=True)
     assert len(results) == started, (len(results), started)
     # "No output" is a legitimate outcome for a window that fails the
     # avg_logprob gate at every temperature (the reference returns None and
@@ -229,7 +232,8 @@ def main(argv=None) -> dict:
         "soak ran decode rounds but recorded no ready->applied latency"
     )
     print("SOAK PASS", flush=True)
-    return {"streams": started, "waves": wave, "rss_growth_mb": grew, "empty": len(empty), "metrics": m}
+    return {"streams": started, "waves": wave, "rss_growth_mb": grew, "empty": len(empty),
+            "graph_captures_after_warmup": captures, "metrics": m}
 
 
 if __name__ == "__main__":

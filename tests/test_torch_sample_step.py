@@ -212,3 +212,88 @@ def test_sample_step_plan(B, V):
 def test_sample_step_plan_rejects_rows_past_the_clusters():
     with pytest.raises(ValueError, match="slices"):
         ss.sample_step_plan(1, 16 * 229376 // 4 + 4)
+
+
+# -- The Philox probe's plain version (philox_uniform_torch) -------------------
+
+# Random123's known-answer vectors for Philox4x32-10: (counter, key, output).
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PHILOX_KAT)))
+def test_philox_known_answers(case):
+    ctr, key, want = PHILOX_KAT[case]
+    got = ss.philox4x32_10(torch.tensor([ctr], dtype=torch.int64), key)[0]
+    assert [int(x) for x in got] == list(want)
+
+
+def test_uniform_from_bits_bit_equal_to_jax():
+    """The port's bits -> uniform against the JAX package's helper (run in a
+    Pallas kernel in interpret mode, as the TPU probe runs it)."""
+    from jax.experimental import pallas as pl
+
+    from norma_tpu.ops.sample_step import uniform_from_bits as jax_uniform
+
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2**32, (8, 128), dtype=np.uint64).astype(np.uint32)
+    bits[0, :8] = [0, 1, 511, 512, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0x12345678]
+
+    def kern(b_ref, o_ref):
+        o_ref[:] = jax_uniform(b_ref[:])
+
+    want = np.asarray(pl.pallas_call(kern, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+                                     interpret=True)(jnp.asarray(bits.view(np.int32))))
+    got = n(ss.uniform_from_bits(torch.from_numpy(bits.astype(np.int64))))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("rows, V, seed, step", [(6, 51866, 7, 3), (1, 513, 1234 + (5 << 32), 5), (3, 4, 0, 0)])
+def test_philox_uniform_layout(rows, V, seed, step):
+    """Token j of row r is word j % 4 of the group at counter (j // 4, r,
+    step, 0), key (seed low, seed high); philox_uniform runs the plain
+    version on the CPU."""
+    u = ss.philox_uniform_torch(seed, step, rows, V)
+    assert u.dtype == torch.float32 and tuple(u.shape) == (rows, V) and u.is_contiguous()
+    np.testing.assert_array_equal(n(ss.philox_uniform(seed, step, rows, V, "cpu")), n(u))
+    rng = np.random.default_rng(V)
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for r, j in [(0, 0), (rows - 1, V - 1)] + [(int(rng.integers(rows)), int(rng.integers(V))) for _ in range(6)]:
+        word = ss.philox4x32_10(torch.tensor([[j // 4, r, step, 0]], dtype=torch.int64), key)[0, j % 4]
+        want = max(float(np.float32(int(word) >> 9) * np.float32(2.0**-23)), 1e-12)
+        assert float(u[r, j]) == np.float32(want), (r, j)
+
+
+def test_philox_uniform_rejects_other_devices():
+    with pytest.raises(ValueError, match="device"):
+        ss.philox_uniform(0, 0, 2, 8, "meta")
+
+
+def test_sampling_law_with_philox_uniforms():
+    """sample_step_torch fed the probe's plain uniforms (one step per draw,
+    as the kernel keys them) draws from softmax(masked / t): the
+    chi-square pattern of test_sampling_law_chi_square."""
+    rng = np.random.default_rng(2)
+    row = rng.normal(0, 1, V).astype(np.float32)
+    row[:40] += 6.0
+    N, temp = 6000, 0.7
+    u = ss.philox_uniform_torch(1234, 3, N, V)
+    rows = (torch.full((N,), x, dtype=torch.int32) for x in (100, 101, 0))
+    nxt, _, _ = ss.sample_step_torch(
+        t(np.tile(row, (N, 1))), *(t(m) for m in M4), *rows, 3, torch.full((N,), temp),
+        eot=ST.eot, no_timestamps=ST.no_timestamps, u=u,
+    )
+    logits = _masked_text_case(row).astype(np.float64) / temp
+    p = np.exp(logits - logits[np.isfinite(logits)].max())
+    p /= p.sum()
+    counts = np.bincount(n(nxt), minlength=V)
+    assert counts[p == 0].sum() == 0
+    big = p * N >= 5
+    f_obs = np.append(counts[big], counts[~big].sum())
+    f_exp = np.append(p[big] * N, p[~big].sum() * N)
+    keep = f_exp > 0
+    assert stats.chisquare(f_obs[keep], f_exp[keep]).pvalue > 1e-3
