@@ -95,6 +95,13 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      window again, graph against eager (tokens equal); then one window
      of multilingual.Definition in detect mode with quantize_self_kv and
      the int4 head (the self-decode kernel stays off on the int8 cache);
+     then the port's offline quantizer (python -m
+     norma_tpu_torch.tools.quantize_checkpoint, --decoder --logits int4
+     --encoder, the tiers this Definition quantized in memory) on the
+     checkpoint, its output served through a Definition's local_dir
+     decoding the first streamed window to the same tokens, and
+     norma_tpu_torch/examples/file_transcribe.py in a subprocess on the
+     checkpoint and a 12 s WAV: exit 0 and at least one streamed line;
  14. speculative decoding at full width: a large-v3 target (32/32 layers)
      and a distil-large-v3-shaped draft (2 decoder layers sharing the
      target's encoder), seeded random weights drawn on the card with a
@@ -132,7 +139,16 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      with 30 GB of the card held must give the same weights bit for bit;
  17. the port's soak tool (norma_tpu_torch/tools/soak_serving.py) for one
      minute with 8 real-time streams on distil-large-v3 at mtp 136 (EOT
-     unreachable, seed 0, bf16, fused QKV): it must print SOAK PASS.
+     unreachable, seed 0, bf16, fused QKV): it must print SOAK PASS;
+ 18. (run right after phase 9, whose engine it then frees) the device
+     report (norma_tpu_torch/tracing.py) on phase 9's engine:
+     one eager and one graph B=8 window through profiled_device_ms
+     (traces under build/traces/): per served kernel, the report's kernel
+     events equal the wrapper's launch counter over the same window, and
+     the graph window's equal the eager window's; device-busy ms <= wall
+     ms; the device ms per window, the top 12 kernels, the named regions'
+     device span and busy ms (window_front, token_loop, ladder_finish) and
+     the idle share, beside the card's name and power limit.
 
 Then one JSON line with each kernel's launches, error and times, the
 card's ``nvidia-smi`` name/power-limit line, and last
@@ -230,30 +246,24 @@ KERNEL_FUNCS = {
 }
 
 
-def device_profile(fn, names):
-    """Run ``fn`` under torch.profiler; per kernel of ``names``: device-only
-    ms per launch of its main function, launches, device ms in all (its
-    split-sum pass included) and ``tries``, the profiles it took.  None
-    where the profiler shows no device time ("not measured").  On the H100
-    a profile late in a long process has come back without a kernel's
-    device events while the kernel launched (its wrapper's count says so;
-    the cause is not known), so a profile missing one of ``names`` is taken
-    again, three at most.  ``missed`` holds, per profile that came back
-    short, how many events in it had device time (0: the whole session
-    lost its device events), and the text beside each figure shows it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+TRACES = os.path.join(ROOT, "build", "traces")
 
-    missed = []
-    for tries in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()]
-        if all(any(KERNEL_FUNCS[n][0] in k and us > 0 for k, _, us in events) for n in names):
-            break
-        missed.append(sum(c for _, c, us in events if us > 0))
+
+def device_profile(fn, names, tag="profile"):
+    """Run ``fn`` once through the package's measurement path
+    (``norma_tpu_torch.tracing.profiled_device_ms``, traces under
+    build/traces/<tag>); per kernel of ``names``: device-only ms per launch
+    of its main function, launches, device ms in all (its split-sum pass
+    included), ``tries``, the sessions it took, and ``missed``, the device
+    events each session that lost some held (a session that loses device
+    events is taken again, twice at most).  None where the report shows
+    no device time ("not measured")."""
+    from norma_tpu_torch import tracing
+
+    d = os.path.join(TRACES, tag)
+    tracing.profiled_device_ms(fn, 1, d)
+    tries, missed = tracing.last_profile["sessions"], list(tracing.last_profile["lost"])
+    events = [(k, c, t * 1e3) for k, (t, c) in tracing.device_time_report(d).items()]
     out = {}
     for name in names:
         funcs = KERNEL_FUNCS[name]
@@ -270,8 +280,8 @@ def device_profile(fn, names):
 
 
 def tries_text(d) -> str:
-    """Beside a device-only figure that took more than one profile: how
-    many, and the device events each short one held."""
+    """Beside a device-only figure that took more than one profiler
+    session: how many, and the device events each short one held."""
     return "" if d is None or d["tries"] == 1 else (
         f" ({d['tries']} profiles taken; device events in the short ones: {d['missed']})")
 
@@ -284,23 +294,29 @@ def profile_text(prof) -> str:
     )
 
 
-def idle_share(fn):
-    """Run ``fn`` once under torch.profiler: (wall ms, device-busy ms, idle
-    share, kernels seen).  Busy is the sum of the CUDA kernels', copies'
-    and fills' device time; the idle share is 1 - busy / wall."""
+def idle_share(fn, tag="idle"):
+    """Run ``fn`` once under ``norma_tpu_torch.tracing.profile`` (traces
+    under build/traces/<tag>): (wall ms, device-busy ms, idle share, device
+    events).  Busy is the sum of the kernels', copies' and fills' device
+    time in the report; the idle share is 1 - busy / wall."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from norma_tpu_torch import tracing
+
+    d = os.path.join(TRACES, tag)
+    wall = []
+
+    def timed():
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in dev) / 1e3
-    return wall, busy, 1.0 - busy / wall, len(dev)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    busy, _ = tracing.profiled_device_ms(timed, 1, d)
+    rep = tracing.device_time_report_multi(d, tracing.BUSY_LINES)
+    n = sum(c for line in rep.values() for _, c in line.values())
+    return wall[-1], busy, 1.0 - busy / wall[-1], n
 
 
 def window_modes(engine, audio, langs, seed, n_active=None):
@@ -538,7 +554,8 @@ def phase_sample_step(rec, dev):
     pu_ms, pu_plain_ms = turns(lambda: ss.philox_uniform_torch(7, 3, 6, V3, dev),
                                lambda: ss.philox_uniform(7, 3, 6, V3, dev))
     pu_bound, pu_by = bound(6 * V3 * 4)
-    pu_prof = device_profile(lambda: [ss.philox_uniform(7, i, 6, V3, dev) for i in range(20)], ["philox_uniform"])
+    pu_prof = device_profile(lambda: [ss.philox_uniform(7, i, 6, V3, dev) for i in range(20)], ["philox_uniform"],
+                             "philox")
     rec.setdefault("profile", {}).update(pu_prof)
     pu_dev = pu_prof["philox_uniform"]
     t6 = times[6]
@@ -913,10 +930,10 @@ def phase_slice(rec, dev):
             walls.append((time.perf_counter() - w0) * 1e3)
         chunk_ms[k] = walls
     engine._loop_chunk = k0
-    idle = {"graph": idle_share(lambda: engine.transcribe_window(one, lang1, 5))}
+    idle = {"graph": idle_share(lambda: engine.transcribe_window(one, lang1, 5), "slice_graph")}
     engine._token_loop = engine._token_loop_eager
     try:
-        idle["eager"] = idle_share(lambda: engine.transcribe_window(one, lang1, 5))
+        idle["eager"] = idle_share(lambda: engine.transcribe_window(one, lang1, 5), "slice_eager")
     finally:
         engine.__dict__.pop("_token_loop", None)
     rec["slice"] = dict(windows_b1=b1, window_b8=b8, peak_bytes=peak, launches=launches, step_logit_err=step_err,
@@ -1607,17 +1624,20 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
     if cuda:
         rows_t = torch.from_numpy(rows).to(dev)
         modes = window_modes(engine, rows_t, [lang_ids[0]] * 8, 1)
-        idle["graph"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1))
+        idle["graph"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1),
+                                   "serving_graph")
         engine._token_loop = engine._token_loop_eager
         try:
-            idle["eager"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1))
+            idle["eager"] = idle_share(lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1),
+                                       "serving_eager")
             prof = device_profile(
                 lambda: engine.transcribe_window(rows_t, [lang_ids[0]] * 8, seed=1),
-                ["sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul"],
+                ["sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul"], "serving_profile",
             )
         finally:
             engine.__dict__.pop("_token_loop", None)
         rec.setdefault("profile", {}).update(prof)
+        rec["serving_window"] = (engine, rows_t, [lang_ids[0]] * 8)  # phase 18's window
     b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
     b8_ms = dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8)) if b8 else None
     rec["serving"].update(int4_ms=int4_ms, int4_steps=int4_steps, int4_launches=int4_launches,
@@ -1775,7 +1795,7 @@ def phase_w4(rec, dev):
         del wt, t4l, t8l
     # Host-launched back-to-back calls (the wrapper's Python included).
     host_k, host_p = turns(lambda: qm.w4_matmul_torch(x6, q4, s4), lambda: qm.w4_matmul(x6, q4, s4))
-    prof = device_profile(lambda: [qm.w4_matmul(x6, q4, s4) for _ in range(20)], ["w4_matmul"])
+    prof = device_profile(lambda: [qm.w4_matmul(x6, q4, s4) for _ in range(20)], ["w4_matmul"], "w4")
     rec.setdefault("profile", {}).update(prof)
     t6 = times[6]
     head_bytes = dict(int4=q4.shape[0] * HEAD_N + 2 * s4.numel(), int8=q8.shape[0] * HEAD_N + 4 * s8.numel(),
@@ -1974,8 +1994,9 @@ def phase_log_mel(rec, dev):
     first_ops = 8 * frames * (2 * n_fft * n_freq * 2 + n_freq * 128 * 2)
     first_ms, _ = bound(nbytes(batch) + 4 * (2 * n_fft * n_freq + n_freq * 128) + 4 * 8 * 128 * frames,
                         first_ops, "f32")
-    prof = device_profile(lambda: [mp.log_mel_pallas(batch, n_mels=128) for _ in range(5)], ["log_mel"])
-    prof1 = device_profile(lambda: [mp.log_mel_pallas(b1, n_mels=128) for _ in range(5)], ["log_mel"])["log_mel"]
+    prof = device_profile(lambda: [mp.log_mel_pallas(batch, n_mels=128) for _ in range(5)], ["log_mel"], "log_mel_b8")
+    prof1 = device_profile(lambda: [mp.log_mel_pallas(b1, n_mels=128) for _ in range(5)], ["log_mel"],
+                           "log_mel_b1")["log_mel"]
     rec.setdefault("profile", {}).update(prof)
     d8 = prof["log_mel"]
     dev_txt = lambda d: "not measured" if d is None else (
@@ -2240,6 +2261,9 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
             raise AssertionError("the self-decode kernel ran on an int8 self-KV cache")
         if mmodel.longform.buf.size or mmodel.longform.lang.detected is not None:
             raise AssertionError("detect-mode window did not drain or did not clear its language")
+        del mmodel
+        quant = quantized_checkpoint(d, defn, first, engine, device, dtype)
+        example = file_transcribe_example(d, cuda)
     rec["definition"] = dict(windows=windows, modes=modes13, wall_s=wall_s, fed_s=fed[0] / 16000, peak_bytes=peak,
                              launches=launches, head_bytes=head_bytes, ckpt_bytes=nbytes, write_s=write_s,
                              load_s=load_s, multi_ms=multi_ms, multi_steps=multi_steps)
@@ -2253,6 +2277,73 @@ def phase_definition(rec, dev, ckpt_dir=None, stream_s=36.0, min_fed_s=35.0, dty
         f"{len(mtext)} chars")
     if modes13:
         log(f"  definition window, graph vs per-step eager loop (tokens equal): {modes_text(modes13)}")
+    log(f"  quantize_checkpoint {' '.join(quant['flags'])}: {quant['tool_s']:.1f} s, {quant['bytes'] / 2**30:.2f} GiB "
+        f"params file; Definition(local_dir=<its output>) loaded in {quant['load_s']:.1f} s; the first streamed "
+        f"window decodes the same tokens as the model quantized in memory ({quant['tokens']} tokens)")
+    log(f"  norma_tpu_torch/examples/file_transcribe.py on this checkpoint, {example['audio_s']:g} s WAV: exit 0 in "
+        f"{example['wall_s']:.1f} s, {len(example['lines'])} streamed line(s)")
+    rec["definition"].update(quant=quant, example={k: v for k, v in example.items() if k != "lines"})
+
+
+def quantized_checkpoint(d, defn, window, engine, device, dtype):
+    """The port's offline quantizer on the checkpoint in ``d`` with the
+    tiers ``defn`` quantized in memory (``engine``'s model); its output,
+    served through a Definition's ``local_dir``, must decode ``window``
+    (the first streamed window) to the same tokens."""
+    import torch
+
+    from norma_tpu_torch.models.whisper import monolingual
+    from norma_tpu_torch.tools import quantize_checkpoint
+
+    flags = ["--dtype", "bf16" if dtype == torch.bfloat16 else "f32", "--decoder", "--logits", "int4", "--encoder"]
+    out = os.path.join(d, "quantized")
+    t0 = time.perf_counter()
+    path = quantize_checkpoint.main([d, out] + flags)
+    tool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qmodel = monolingual.Definition(
+        monolingual.ModelType.DISTIL_LARGE_EN_V3, device, local_dir=out, dtype=dtype, quantize_decoder=True,
+        quantize_logits="int4", quantize_encoder=True, quantize_cross_kv=defn.quantize_cross_kv,
+        config_overrides=defn.config_overrides,
+    ).blocking_try_to_model()
+    load_s = time.perf_counter() - t0
+    want, _ = engine.transcribe_window(window["audio"], window["langs"], 0)
+    got, _ = qmodel.engine.transcribe_window(window["audio"], window["langs"], 0)
+    want, got = [r and r.tokens for r in want], [r and r.tokens for r in got]
+    if got != want:
+        raise AssertionError(f"the quantized checkpoint decodes other tokens: {got} vs {want}")
+    return dict(flags=flags, tool_s=tool_s, load_s=load_s, bytes=os.path.getsize(path),
+                tokens=sum(len(t or []) for t in want))
+
+
+def file_transcribe_example(d, cuda, seconds=12.0):
+    """``python -m norma_tpu_torch.examples.file_transcribe WAV d`` in a
+    subprocess, on a WAV it writes (a tone and noise, 16-bit mono 16 kHz):
+    exit 0 and at least one streamed line."""
+    import wave
+
+    import numpy as np
+
+    sr = 16000
+    t = np.arange(int(seconds * sr)) / sr
+    pcm = 0.3 * np.sin(2 * np.pi * 300 * t) + 0.05 * np.random.default_rng(15).standard_normal(t.size)
+    wav = os.path.join(d, "example.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((pcm * 32767).astype(np.int16).tobytes())
+    env = dict(os.environ)
+    if not cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""  # the example's SelectedDevice.auto() then takes the CPU
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "norma_tpu_torch.examples.file_transcribe", wav, d], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    lines = [x for x in r.stdout.splitlines() if x.strip()]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"file_transcribe exited {r.returncode} with {len(lines)} lines; stderr: {r.stderr[-2000:]}")
+    return dict(audio_s=seconds, wall_s=wall_s, lines=lines)
 
 
 # --------------------------------------------------------------------------
@@ -3037,6 +3128,105 @@ def phase_soak(rec, dev, argv=None):
         f"{smi_line() if cuda else 'cpu'}")
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the device report (norma_tpu_torch.tracing) on phase 9's served
+# configuration.
+# --------------------------------------------------------------------------
+
+# The served kernels (phase 9's counters) and the engine's named regions.
+SERVED_KERNELS = ("sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul")
+REGIONS = ("window_front", "token_loop", "ladder_finish")
+
+
+def region_ms(trace_dir):
+    """Per named region of the trace: (count, device span ms, device-busy
+    ms), the span from its ``gpu_user_annotation`` events and the busy time
+    of the kernels, copies and fills that fall inside those spans."""
+    from norma_tpu_torch import tracing
+
+    spans, busy = {}, []
+    for _, ev in tracing.trace_events(trace_dir):
+        t0, t1 = float(ev.get("ts", 0.0)), float(ev.get("ts", 0.0)) + float(ev.get("dur", 0.0))
+        if ev.get("cat") == "gpu_user_annotation" and ev.get("name") in REGIONS:
+            spans.setdefault(ev["name"], []).append((t0, t1))
+        elif ev.get("cat") in tracing.BUSY_LINES:
+            busy.append((t0, t1))
+    busy.sort()
+    out = {}
+    for name, sp in spans.items():
+        inside = sum(max(0.0, min(e, b1) - max(s, b0)) for s, e in sp for b0, b1 in busy if b0 < e and b1 > s)
+        out[name] = (len(sp), sum(e - s for s, e in sp) / 1e3, inside / 1e3)
+    return out
+
+
+def phase_device_report(rec, dev):
+    """One eager and one graph B=8 window of phase 9's served engine through
+    the package's measurement path (tracing.profiled_device_ms, traces
+    under build/traces/report_*): per served kernel, the report's kernel
+    events must equal the wrapper's launch counter over the same window,
+    and the graph window's must equal the eager window's (the kernels inside
+    graph replays are seen); device-busy ms <= wall ms; the three named
+    regions are on the device timeline."""
+    import torch
+
+    from norma_tpu_torch import tracing
+
+    if "serving_window" not in rec:
+        raise RuntimeError("device_report needs the serving phase: it profiles phase 9's served engine")
+    engine, rows_t, langs = rec.pop("serving_window")
+    counters = kernel_counters()
+    res = {}
+    for mode in ("eager", "graph"):
+        walls, counts = [], {}
+
+        def window():
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.transcribe_window(rows_t, langs, seed=1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts.update({k: c.launches for k, c in counters.items()})
+
+        d = os.path.join(TRACES, f"report_{mode}")
+        if mode == "eager":
+            engine._token_loop = engine._token_loop_eager
+        try:
+            busy, top = tracing.profiled_device_ms(window, 1, d, ops=12)
+        finally:
+            engine.__dict__.pop("_token_loop", None)
+        rep = tracing.device_time_report(d)
+        seen = {k: sum(c for name, (_, c) in rep.items() if KERNEL_FUNCS[k][0] in name) for k in SERVED_KERNELS}
+        res[mode] = dict(wall_ms=walls[-1], busy_ms=busy, idle=1.0 - busy / walls[-1], counters=counts, seen=seen,
+                         top=top, regions=region_ms(d), sessions=tracing.last_profile["sessions"],
+                         lost=list(tracing.last_profile["lost"]), kernels=sum(c for _, c in rep.values()),
+                         launch_to_start_us=tracing.last_session["launch_to_start_us"])
+        off = {k: (seen[k], counts[k]) for k in SERVED_KERNELS if seen[k] != counts[k] or counts[k] <= 0}
+        if off:
+            raise AssertionError(f"{mode} window: report launches != wrapper counters (report, counter): {off}")
+        if busy > walls[-1]:
+            raise AssertionError(f"{mode} window: device busy {busy:.1f} ms > wall {walls[-1]:.1f} ms")
+        missing = set(REGIONS) - set(res[mode]["regions"])
+        if missing:
+            raise AssertionError(f"{mode} window: regions {sorted(missing)} not on the device timeline")
+    if res["graph"]["seen"] != res["eager"]["seen"]:
+        raise AssertionError(f"graph window launches {res['graph']['seen']} != eager {res['eager']['seen']}")
+    rec["device_report"] = res
+    smi = smi_line()
+    for mode, r in res.items():
+        lost = "" if r["sessions"] == 1 else f" (device events in the lost ones: {r['lost']})"
+        log(f"phase 18 device report, {mode} B=8 window: wall {r['wall_ms']:.1f} ms, device busy {r['busy_ms']:.1f} ms "
+            f"(idle {r['idle']:.1%}), {r['kernels']} kernel events, {r['sessions']} profiler session(s){lost}, least "
+            f"launch-to-start {r['launch_to_start_us']:.1f} us; "
+            f"launches (report = counters) {r['seen']}; regions (count, device span ms, busy ms) "
+            + "; ".join(f"{k} {v[0]} x {v[1]:.1f} / {v[2]:.1f}" for k, v in r["regions"].items()) + f"; {smi}")
+        log(f"  top 12 kernels ({mode}, ms per window, launches): " + "; ".join(
+            f"{row['op'][:60]} {row['ms_per_call']:.3f} x {row['n']}" for row in r["top"]))
+    log(f"phase 18 device report: ok; graph window launches equal the eager window's and the counters "
+        f"({res['graph']['seen']}); {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3074,6 +3264,9 @@ def main(argv=None) -> int:
         ("flash_encoder", lambda: phase_flash_encoder(rec, dev)),
         ("q8a8", lambda: phase_q8a8(rec, dev)),
         ("serving", lambda: phase_serving(rec, dev)),
+        # Phase 18 profiles phase 9's engine and frees it before phase 10,
+        # so the later phases' memory peaks do not hold it.
+        ("device_report", lambda: phase_device_report(rec, dev)),
         ("w4_matmul", lambda: phase_w4(rec, dev)),
         ("w8_matmul", lambda: phase_w8(rec, dev)),
         ("log_mel", lambda: phase_log_mel(rec, dev)),

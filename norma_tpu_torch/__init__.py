@@ -29,6 +29,13 @@ to find:
   - ``runtime.transcriber`` ``Transcriber`` (the public entry point)
   - ``runtime.batching``    ``BatchedTranscriber`` (multi-stream serving)
   - ``ops.mel_pallas``      the fused log-mel frontend (CUDA kernel)
+  - ``tracing``             spans, and the device report over
+                            ``torch.profiler`` (``profile``, ``annotate``,
+                            ``device_time_report``, ``profiled_device_ms``)
+  - ``tools``               ``quantize_checkpoint`` (the offline
+                            quantizer), WER, flip rates, the serving soak
+  - ``examples``            the six examples, run as
+                            ``python -m norma_tpu_torch.examples.<name>``
   - ``audio``, ``runtime.channels``, ``errors``, ``input``  copies of the
                             JAX package's numpy-only modules
 

@@ -67,7 +67,7 @@ from ..ops import flash_encoder, mel_pallas, paged_cross, quant_matmul, self_dec
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
-from ..tracing import decode_telemetry, instrument
+from ..tracing import annotate, decode_telemetry, instrument
 from .masks import SpecialTokens, build_masks
 
 logger = logging.getLogger(__name__)
@@ -425,12 +425,13 @@ class DecodeEngine:
         plan, buf, generator = self._loop_start(
             ins, self._loop_buffers(*ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
         )
-        for S, k in plan:
-            self.host_syncs += 1
-            if not bool((~buf.fin).any()):
-                break
-            self._run_chunk(buf, S, k, n_rungs, greedy_only, generator)
-            self.decode_steps += k
+        with annotate("token_loop"):
+            for S, k in plan:
+                self.host_syncs += 1
+                if not bool((~buf.fin).any()):
+                    break
+                self._run_chunk(buf, S, k, n_rungs, greedy_only, generator)
+                self.decode_steps += k
         return buf.tokens.clone(), buf.n.clone(), buf.slp.clone()
 
     def _loop_start(self, ins, buf, n0, prev1, prev2, temp, seed, fin_init, greedy_only):
@@ -543,13 +544,14 @@ class DecodeEngine:
         plan, buf, generator = self._loop_start(
             ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
         )
-        for S, k in plan:
-            for _ in range(k):
-                self.host_syncs += 1
-                if not bool((~buf.fin).any()):
-                    return buf.tokens, buf.n, buf.slp
-                self._loop_step(buf, S, n_rungs, greedy_only, generator)
-                self.decode_steps += 1
+        with annotate("token_loop"):
+            for S, k in plan:
+                for _ in range(k):
+                    self.host_syncs += 1
+                    if not bool((~buf.fin).any()):
+                        return buf.tokens, buf.n, buf.slp
+                    self._loop_step(buf, S, n_rungs, greedy_only, generator)
+                    self.decode_steps += 1
         return buf.tokens, buf.n, buf.slp
 
     def _window_front(self, audio, langs, *, detect: bool):
@@ -606,12 +608,13 @@ class DecodeEngine:
         cfg = self.cfg
         B = audio.shape[0]
         dev = audio.device
-        feats, xk, xv, prefix, langs, lang_probs = self._window_front(
-            audio, langs, detect=detect
-        )
-        cache_k, cache_v, next_logits, nsp = self._prefill_kv(prefix, xk, xv)
-        if self.quantize_cross_kv:  # loop-side only; prefill/detect are unquantized
-            xk, xv = self._quantize_xkv(xk, xv)
+        with annotate("window_front"):  # mel, encoder, cross-K/V, detection, prefill
+            feats, xk, xv, prefix, langs, lang_probs = self._window_front(
+                audio, langs, detect=detect
+            )
+            cache_k, cache_v, next_logits, nsp = self._prefill_kv(prefix, xk, xv)
+            if self.quantize_cross_kv:  # loop-side only; prefill/detect are unquantized
+                xk, xv = self._quantize_xkv(xk, xv)
 
         Tmax = cfg.max_target_positions
         tokens_init = torch.zeros((B, Tmax), dtype=torch.int32, device=dev)
@@ -632,23 +635,25 @@ class DecodeEngine:
                 temps_row, _rung_seed(seed, 0),
                 n_rungs=R, fin_init=gated0.repeat(R),
             )
-            avg = slp / torch.clamp(n, min=1).to(torch.float32)
-            # A NaN avg (grammar deadlock) compares False => accepted, as
-            # the reference's f64 comparison does.
-            acc = (~(avg < LOGPROB_THRESHOLD)).reshape(R, B)
-            any_acc = acc.any(0)
-            first_r = acc.to(torch.int32).argmax(0)  # first accepting rung
-            sel = first_r * B + torch.arange(B, device=dev)
-            brung = torch.where(any_acc, first_r, -1)
-            btoks = torch.where(any_acc[:, None], toks[sel], tokens_init)
-            bn = torch.where(any_acc, n[sel], 3)
-            bavg = torch.where(any_acc, avg[sel], 0.0)
-            return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
+            with annotate("ladder_finish"):
+                avg = slp / torch.clamp(n, min=1).to(torch.float32)
+                # A NaN avg (grammar deadlock) compares False => accepted, as
+                # the reference's f64 comparison does.
+                acc = (~(avg < LOGPROB_THRESHOLD)).reshape(R, B)
+                any_acc = acc.any(0)
+                first_r = acc.to(torch.int32).argmax(0)  # first accepting rung
+                sel = first_r * B + torch.arange(B, device=dev)
+                brung = torch.where(any_acc, first_r, -1)
+                btoks = torch.where(any_acc[:, None], toks[sel], tokens_init)
+                bn = torch.where(any_acc, n[sel], 3)
+                bavg = torch.where(any_acc, avg[sel], 0.0)
+                return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
         btoks, bn, bavg, brung = self._sequential_rungs(
             xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0,
         )
-        return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
+        with annotate("ladder_finish"):
+            return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
     def _sequential_rungs(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0,

@@ -108,14 +108,16 @@ def params_from_numpy(
     Floating weights are cast to ``dtype`` (None keeps each leaf's dtype);
     quantization scales keep their own dtype whatever ``dtype`` is
     (:func:`_scale_dtype`: bf16 for the int4 head, f32 otherwise), and
-    integer leaves (int8 codes) keep theirs."""
+    integer leaves (int8 codes) keep theirs.  The encoder's positions stay
+    f32 at every ``dtype``, as the JAX package's loaders keep them (the
+    encoder casts them to its dtype where it adds them)."""
 
     def conv(path, v):
         if isinstance(v, dict):
             return {k: conv(path + (k,), x) for k, x in v.items()}
         t = _tensor(v)
         if t.is_floating_point():
-            sd = _scale_dtype(path)
+            sd = torch.float32 if path == ("", "encoder", "pos") and dtype is not None else _scale_dtype(path)
             if sd is not None:
                 t = t.to(sd)
             elif dtype is not None:
@@ -237,16 +239,23 @@ def fuse_qkv(params: Params) -> Params:
     ``q_w``/``k_w``/``v_w`` [L, D, D] -> ``qkv_w`` [L, D, 3, D] and
     ``q_b``/``v_b`` -> ``qkv_b`` [L, 3, D] with zeros in the K slot
     (whisper's k_proj has no bias), so the decode step streams one weight
-    and issues one matmul (``model/whisper.py::qkv_proj``).  Idempotent;
-    returns a new tree sharing the untouched tensors.
+    and issues one matmul (``model/whisper.py::qkv_proj``).  Int8 layers
+    (``q_w_q``/``q_w_s`` from :func:`~norma_tpu_torch.model.quant.quantize_decoder`)
+    fuse the same way, their per-out-channel scales stacked alike.
+    Idempotent; returns a new tree sharing the untouched tensors.
     """
 
     def fuse(layers: Params) -> Dict[str, Any]:
         d = dict(layers.items())
         if "q_w" in d:
             d["qkv_w"] = torch.stack([d.pop("q_w"), d.pop("k_w"), d.pop("v_w")], dim=2)
-            v_b = d.pop("v_b")
-            d["qkv_b"] = torch.stack([d.pop("q_b"), torch.zeros_like(v_b), v_b], dim=1)
+        elif "q_w_q" in d:
+            d["qkv_w_q"] = torch.stack([d.pop("q_w_q"), d.pop("k_w_q"), d.pop("v_w_q")], dim=2)
+            d["qkv_w_s"] = torch.stack([d.pop("q_w_s"), d.pop("k_w_s"), d.pop("v_w_s")], dim=1)
+        else:
+            return d
+        v_b = d.pop("v_b")
+        d["qkv_b"] = torch.stack([d.pop("q_b"), torch.zeros_like(v_b), v_b], dim=1)
         return d
 
     tree = {}

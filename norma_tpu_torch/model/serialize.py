@@ -6,9 +6,9 @@ re-quantization).
 Format: standard safetensors; tensor names are ``/``-joined tree paths
 (``decoder/layers/fc1_w_q``) in the tree's key order, and ``__metadata__``
 carries ``{"norma_tpu_format": "params-v1", ...}``, the marker the loader
-detects.  The JAX package's ``tools/quantize_checkpoint.py`` writes such
-files; this module writes byte-equal ones from the same params, and reads
-either.
+detects.  ``norma_tpu_torch.tools.quantize_checkpoint`` writes such files
+through this module, byte-equal to the JAX package's
+``tools/quantize_checkpoint.py``; it reads either.
 
 Codes are stored in their logical layout ([in, out], C order): a head's
 pitched rows (``ops/quant_matmul.py::pitched_codes``) and the engine's

@@ -176,7 +176,7 @@ def _warn_prequantized(meta: dict, dtype, quantize_logits, quantize_decoder, qua
     if file_dt and file_dt != want_dt:
         logger.warning(
             "pre-quantized params file was converted at dtype=%s; the requested "
-            "dtype=%s is ignored (re-run tools/quantize_checkpoint.py --dtype to change it)",
+            "dtype=%s is ignored (re-run python -m norma_tpu_torch.tools.quantize_checkpoint --dtype to change it)",
             file_dt, want_dt,
         )
     want_tiers = set()
@@ -192,7 +192,7 @@ def _warn_prequantized(meta: dict, dtype, quantize_logits, quantize_decoder, qua
     if want_tiers - file_tiers:
         logger.warning(
             "pre-quantized params file has quant tiers %s; the requested %s are "
-            "ignored (re-run tools/quantize_checkpoint.py with the matching flags)",
+            "ignored (re-run python -m norma_tpu_torch.tools.quantize_checkpoint with the matching flags)",
             sorted(file_tiers) or "none", sorted(want_tiers - file_tiers),
         )
 
@@ -276,7 +276,7 @@ def build_model(
     dev = device.to_torch_device()
     meta = None if quantized_ext is not None else peek_format(files.weights)
     if meta is not None:
-        # A params file (tools/quantize_checkpoint.py): loaded as stored,
+        # A params file (norma_tpu_torch.tools.quantize_checkpoint): loaded as stored,
         # with no HF-name mapping, QKV fusion or re-quantization.
         params, meta = load_params_file(files.weights, dev)
         _warn_prequantized(meta, dtype, quantize_logits, quantize_decoder, quantize_encoder)

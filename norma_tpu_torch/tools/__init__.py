@@ -5,5 +5,7 @@
   - ``accuracy_flip_rate``: greedy-token flip rates of the quant tiers
     against the bf16 engine, on seeded and on fitted weights;
   - ``soak_serving``: minutes of real-time streams through
-    ``BatchedTranscriber`` with liveness, loss, memory and latency checks.
+    ``BatchedTranscriber`` with liveness, loss, memory and latency checks;
+  - ``quantize_checkpoint``: an HF or GGUF checkpoint -> a pre-quantized
+    params file, byte-equal to the JAX package's tool (host only).
 """

@@ -375,8 +375,9 @@ def test_bf16_decoder_step_logits_match_jax(params):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_quantized_weight_carry_keeps_dtypes(params, dtype):
     """quantize_decoder(quantize_encoder(fuse_qkv(params))) crosses from
-    JAX bit-equal: int8 codes stay int8, scales stay f32 in an f32 and a
-    bf16 model, and the other weights take the model dtype."""
+    JAX bit-equal: int8 codes stay int8, scales and the encoder's
+    positions stay f32 in an f32 and a bf16 model (as the JAX package's
+    loaders keep them), and the other weights take the model dtype."""
     jp, _ = params
     jtree = jquant.quantize_decoder(jquant.quantize_encoder(jload.fuse_qkv(jp)))
     pp = port_params(jtree, dtype)
@@ -389,7 +390,7 @@ def test_quantized_weight_carry_keeps_dtypes(params, dtype):
         if w.dtype == np.int8:
             assert g.dtype == torch.int8, k
             np.testing.assert_array_equal(g.numpy(), w, err_msg=k)
-        elif name.endswith("_s") or name == "s":
+        elif name.endswith("_s") or name == "s" or k == "encoder.pos":
             assert g.dtype == torch.float32, k
             np.testing.assert_array_equal(g.numpy(), w, err_msg=k)
         else:
