@@ -140,6 +140,24 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
  17. the port's soak tool (norma_tpu_torch/tools/soak_serving.py) for one
      minute with 8 real-time streams on distil-large-v3 at mtp 136 (EOT
      unreachable, seed 0, bf16, fused QKV): it must print SOAK PASS;
+ 19. data parallelism (last; ~100 s): the serving config of phase 9 on
+     a dp=2 mesh of virtual devices (cuda:0 named twice), and on a mesh
+     over every card where there are several.  A padded B=8 window (5
+     active) through DecodeEngine on shard_params: each replica's rows
+     bit for bit equal to a one-device engine's on the same 4 rows, and
+     each replica alone moves the six serving kernels' counters; the same
+     window one engine against two replicas, walls in turns and the idle
+     share (tracing.idle_share: overlapping streams counted once).  Then
+     BatchedTranscriber(max_streams=8, mesh=...) after warmup() serving
+     phase 9's 8 lockstep streams (on the virtual mesh, and over every
+     card where 8 streams divide over them): phase 9's checks, no CUDA
+     graph captured after warmup, the B=8 round median beside phase 9's,
+     the peak memory.  With several cards, sample_step on each other
+     card's tensors from cuda:0 (the launch's device guard).  Then phase 5's f32 config (weights drawn on the card):
+     the dp=2 greedy tokens at B=8 equal the one-device engine's;
+     norma_tpu_torch.parallel.dryrun_multichip on the card; and the
+     engine's host reads must let another Python thread run while they
+     wait on the card (replicas wait in their own threads);
  18. (run right after phase 9, whose engine it then frees) the device
      report (norma_tpu_torch/tracing.py) on phase 9's engine:
      one eager and one graph B=8 window through profiled_device_ms
@@ -1338,12 +1356,14 @@ class LockstepFeed:
         self._thread.join(timeout=10)
 
 
-def serve_streams(model, n_streams, seconds, timeout=600.0):
+def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
     """Serve ``n_streams`` concurrent synthetic streams, fed in lockstep
-    (LockstepFeed), through a BatchedTranscriber(max_streams=8) after
-    warmup().  Returns a report:
+    (LockstepFeed), through a BatchedTranscriber(max_streams=8, mesh=mesh)
+    after warmup().  Returns a report:
     per-round records, rounds per stream, texts, metrics, drop accounting,
-    launch counts."""
+    launch counts.  On a mesh a round's wall runs from the first replica's
+    start to the last one's end (each replica's stream synchronized), its
+    steps and host syncs summed over the replicas."""
     import threading
 
     import torch
@@ -1357,7 +1377,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
     engine = model.engine
     cuda = engine.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    bt = batching.BatchedTranscriber(model, max_streams=8)
+    bt = batching.BatchedTranscriber(model, max_streams=8, mesh=mesh)
     t0 = time.perf_counter()
     bt.warmup()
     warm_s = time.perf_counter() - t0
@@ -1404,6 +1424,40 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
     counters = (sample_step.sample_step, self_decode.self_attention_decode,
                 paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
                 quant_matmul.q8a8_dense, quant_matmul.w8_matmul)
+    spans, restore = {}, []
+    if mesh is not None:
+        # The dp engine's dispatch returns at once: time each replica's part
+        # in its own thread, its stream synchronized (the k-th part of every
+        # replica is round k's: every round's batch divides over dp).
+        for i, rep in enumerate(engine.replicas):
+            e = rep.engine
+            part = e.transcribe_window_async
+
+            def timed_part(audio, langs, seed, n_active=None, i=i, e=e, part=part):
+                s0, h0, w0 = e.decode_steps, e.host_syncs, time.perf_counter()
+                out = part(audio, langs, seed, n_active)
+                if cuda:
+                    torch.cuda.current_stream().synchronize()  # the replica's stream
+                spans.setdefault(i, []).append((w0, time.perf_counter(), e.decode_steps - s0, e.host_syncs - h0))
+                return out
+
+            e.transcribe_window_async = timed_part
+            restore.append(e)
+        rounds_n = {}
+
+        def timed_async(audio, langs, seed, n_active=None):
+            out = inner_async(audio, langs, seed, n_active)
+            rounds_n[id(out)] = n_active
+            rounds.append(dict(B=int(audio.shape[0]), n_active=n_active))
+            return out
+
+        def checked_fetch(pending):
+            drs, info = inner_fetch(pending)
+            n = rounds_n.pop(id(pending))
+            if n is not None and any(d is not None for d in drs[n:]):
+                pad_bad.append((len(drs), n))
+            return drs, info
+
     engine.transcribe_window_async, engine.transcribe_window_fetch = timed_async, checked_fetch
     LongFormDecoder.feed, RecycledRing.try_send, LongFormDecoder.apply_result = feed, try_send, apply_result
     sr = 16000
@@ -1435,9 +1489,17 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
         metrics = bt.metrics()
     finally:
         engine.transcribe_window_async, engine.transcribe_window_fetch = inner_async, inner_fetch
+        for e in restore:
+            del e.transcribe_window_async
         LongFormDecoder.feed, RecycledRing.try_send, LongFormDecoder.apply_result = orig_feed, orig_send, orig_apply
         bt.close()
         src.close()
+    if mesh is not None:  # the replicas' spans of every round (warmup's windows ran before the rounds)
+        served = {i: v[-len(rounds):] for i, v in spans.items()} if rounds else {}
+        for k, r in enumerate(rounds):
+            parts = [served[i][k] for i in sorted(served)]
+            r.update(ms=(max(p[1] for p in parts) - min(p[0] for p in parts)) * 1e3,
+                     steps=sum(p[2] for p in parts), syncs=sum(p[3] for p in parts))
     alive = [i for i, th in enumerate(readers) if th.is_alive()]
     accounting = []
     for i, s in enumerate(streams):
@@ -1448,7 +1510,8 @@ def serve_streams(model, n_streams, seconds, timeout=600.0):
             raise AssertionError(f"stream {i}: fed {fed.get(id(s.state), 0)} + dropped "
                                  f"{dropped.get(id(s.ring), 0)} samples != produced {total}")
     return dict(rounds=rounds, texts=texts, metrics=metrics, alive=alive, pad_bad=pad_bad,
-                launches=launches, captures=captures, peak=peak, wall_s=wall_s, warm_s=warm_s, accounting=accounting,
+                launches=launches, captures=captures, peak=peak, peak_device=str(engine.device), wall_s=wall_s,
+                warm_s=warm_s, accounting=accounting,
                 stream_rounds=[applied.get(id(s.state), 0) for s in streams],
                 ring_drops=sum(a[3] for a in accounting), bt_closed=not bt._thread.is_alive())
 
@@ -3227,6 +3290,374 @@ def phase_device_report(rec, dev):
         f"({res['graph']['seen']}); {smi}")
 
 
+# --------------------------------------------------------------------------
+# Phase 19: data parallelism -- replica engines over a mesh's dp axis.
+# --------------------------------------------------------------------------
+
+SERVED_COUNTERS = ("sample_step", "self_attention_decode", "cross_attention_q8_kernel_stacked",
+                   "flash_self_attention", "q8a8_dense", "w8_matmul")
+
+
+def _same_result(a, b) -> bool:
+    """Two DecodingResults bit for bit (tokens, and both floats' bits), or
+    both None."""
+    import numpy as np
+
+    if a is None or b is None:
+        return a is None and b is None
+    bits = lambda x: np.float64(x).tobytes()
+    return (a.tokens == b.tokens and bits(a.avg_logprob) == bits(b.avg_logprob)
+            and bits(a.no_speech_prob) == bits(b.no_speech_prob))
+
+
+def mesh_replica_check(mesh, params, cfg, st, lang_ids, rows, n_active, single):
+    """The serving config's padded window over ``mesh``'s replicas: each
+    replica's rows bit for bit against ``single`` (a one-device engine) on
+    the same rows and active count; then each replica alone, its counters
+    from 0, must move the six serving kernels' counters (on the card: the
+    CPU's plain versions launch nothing).  Returns
+    (per-replica launches, dp engine) -- the caller closes the engine."""
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine
+    from norma_tpu_torch.parallel import shard_params
+
+    from norma_tpu_torch.ops import flash_encoder, paged_cross, quant_matmul, sample_step, self_decode
+
+    counters = (sample_step.sample_step, self_decode.self_attention_decode,
+                paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
+                quant_matmul.q8a8_dense, quant_matmul.w8_matmul)
+    dp_eng = DecodeEngine(shard_params(params, mesh), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    dp = mesh.shape["dp"]
+    B = len(rows)
+    b = B // dp
+    langs = [lang_ids[0]] * B
+    got, _ = dp_eng.transcribe_window(rows, langs, seed=1, n_active=n_active)
+    for i in range(dp):
+        na = min(max(n_active - i * b, 0), b)
+        want, _ = single.transcribe_window(rows[i * b:(i + 1) * b], langs[:b], seed=1, n_active=na)
+        bad = [k for k, (w, g) in enumerate(zip(want, got[i * b:(i + 1) * b])) if not _same_result(w, g)]
+        if bad:
+            w, g = want[bad[0]], got[i * b + bad[0]]
+            raise AssertionError(
+                f"replica {i} ({mesh.devices[i, 0]}): rows {bad} differ from the one-device engine's; row {bad[0]}: "
+                f"{None if w is None else (w.tokens[:12], w.avg_logprob)} vs {None if g is None else (g.tokens[:12], g.avg_logprob)}")
+    sync = torch.cuda.synchronize if dp_eng.device.type == "cuda" else (lambda: None)
+    launches = []
+    for i, rep in enumerate(dp_eng.replicas):
+        sync()
+        for c in counters:
+            c.launches = 0
+        rep.submit(rep.engine.transcribe_window, rows[i * b:(i + 1) * b], langs[:b], 1, b).result()
+        sync()
+        counts = {c.__name__: c.launches for c in counters}
+        if rep.device.type == "cuda" and any(v <= 0 for v in counts.values()):
+            raise AssertionError(f"replica {i} alone did not launch every serving kernel: {counts}")
+        launches.append(counts)
+    return launches, dp_eng
+
+
+def wait_gil_probe(wait_ms: float = 200.0):
+    """How far a second Python thread gets while this one waits for the card
+    in each way a host read can wait: {way: (iterations a ms of the wait,
+    wait ms)}.  Data-parallel replicas each wait in their own thread, so a
+    wait that holds the interpreter lock runs them one after another.  The
+    card spins ``wait_ms`` (``torch.cuda._sleep``) before each read."""
+    import threading
+    import types
+
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine
+
+    dev = torch.device("cuda", 0)
+    cycles = int(wait_ms * 1e-3 * torch.cuda.get_device_properties(dev).clock_rate * 1e3)
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda._sleep(1000)  # the spin kernel's first launch loads it
+
+    def poll(t):
+        ev = torch.cuda.Event()
+        ev.record()
+        while not ev.query():
+            time.sleep(0)
+        return t.cpu()
+
+    ways = {
+        "t.cpu()": lambda t: t.cpu(),
+        "bool(t)": lambda t: bool(t),
+        "t.item()": lambda t: t.item(),
+        "pinned + stream.synchronize()": lambda t: (t.to("cpu", non_blocking=True), stream.synchronize()),
+        "event.synchronize()": _event_sync,
+        "event.query() poll": poll,
+        "DecodeEngine._host": lambda t: DecodeEngine._host(types.SimpleNamespace(host_syncs=0), t),
+    }
+    out = {}
+    for name, read in ways.items():
+        torch.cuda.synchronize()
+        stop, count = threading.Event(), [0]
+
+        def spin():
+            while not stop.is_set():
+                count[0] += 1
+
+        th = threading.Thread(target=spin)
+        th.start()
+        time.sleep(0.02)
+        torch.cuda._sleep(cycles)
+        t = torch.ones((), device=dev) > 0
+        c0, w0 = count[0], time.perf_counter()
+        read(t)
+        ms = (time.perf_counter() - w0) * 1e3
+        c1 = count[0]
+        stop.set()
+        th.join()
+        out[name] = ((c1 - c0) / ms, ms)
+    return out
+
+
+def _event_sync(t):
+    import torch
+
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    return t
+
+
+def mesh_device_guard_check():
+    """With cuda:0 current, the sampling kernel on every other card's
+    tensors (the wrapper must enter that card: its launch, its stream and
+    its function attributes are that card's) against its plain version on
+    the host, greedy rows bit for bit; returns the cards checked."""
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.ops.sample_step import sample_step, sample_step_torch
+
+    rng = np.random.default_rng(19)
+    B = 8
+    ll = torch.from_numpy(rng.standard_normal((B, V3)).astype(np.float32) * 4)
+    ints = lambda lo, hi: torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32))
+    p1, p2, lts = ints(0, V3), ints(0, V3), torch.zeros(B, dtype=torch.int32)
+    temp = torch.zeros(B)
+    want = sample_step_torch(ll, *_v3_masks("cpu"), p1, p2, lts, 3, temp, eot=ST_V3["eot"],
+                             no_timestamps=ST_V3["no_timestamps"])
+    checked = []
+    torch.cuda.set_device(0)
+    for i in range(1, torch.cuda.device_count()):
+        d = torch.device("cuda", i)
+        on = lambda t: t.to(d)
+        got = sample_step(on(ll), *_v3_masks(d), on(p1), on(p2), on(lts), 3, on(temp), eot=ST_V3["eot"],
+                          no_timestamps=ST_V3["no_timestamps"], greedy_only=True)
+        torch.cuda.synchronize(d)
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"the launch on {d} left cuda:{torch.cuda.current_device()} current")
+        if not torch.equal(got[0].cpu(), want[0].to(torch.int32)):
+            raise AssertionError(f"sample_step on {d} from cuda:0: {got[0].cpu().tolist()} vs {want[0].tolist()}")
+        checked.append(str(d))
+    return checked
+
+
+def phase_mesh(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, seconds=(20.0, 40.0)):
+    """Data parallelism on the card (phase 19); a CPU rehearsal passes a
+    tiny serving config, its params, tokens, an f32 (cfg, params) pair and
+    shorter streams."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch import tracing
+    from norma_tpu_torch.decode import DecodeEngine, LanguageState, SpecialTokens
+    from norma_tpu_torch.frontend.mel import prepare_audio
+    from norma_tpu_torch.model import PRESETS
+    from norma_tpu_torch.models.whisper import WhisperModel
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+    from norma_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cfg is None:
+        cfg = PRESETS["distil-large-v3"].with_(
+            max_target_positions=448, decode_buckets=(128, 256), encoder_attn_impl="jax_flash",
+            cross_kv_impl="kernel", self_kv_impl="kernel",
+        )
+        st, lang_ids = SpecialTokens(**ST_V3), LANG_IDS_V3
+    t0 = time.perf_counter()
+    if params is None:
+        params = _serving_params(cfg, dev)
+    sync()
+    make_s = time.perf_counter() - t0
+    meshes = [("virtual", make_mesh(dp=2, devices=[dev, dev]))]
+    if cuda and torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh(dp=torch.cuda.device_count())))
+
+    class IdsTokenizer:
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(int(i)) for i in ids)
+
+    sr = 16000
+    n_win = 2 * cfg.max_source_positions
+    n_samp = (n_win - 1) * 160 + 400
+    tt = np.arange(n_samp) / sr
+    audio = (0.15 * np.sin(2 * np.pi * 440 * tt) + 0.05 * np.random.default_rng(4).standard_normal(n_samp)).astype(np.float32)
+    out = {}
+
+    # ---- 1. replicas against a one-device engine, bit for bit ----
+    single = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    served_mesh = meshes[0][1]
+    engines = {}
+    for name, mesh in meshes:
+        dp = mesh.shape["dp"]
+        B = 4 * dp
+        rows = np.stack([prepare_audio(np.roll(audio, sr * i), n_win) for i in range(B)])
+        n_active = B - 3  # the last replica decodes one row beside three pad rows
+        rows[n_active:] = rows[0]
+        launches, dp_eng = mesh_replica_check(mesh, params, cfg, st, lang_ids, rows, n_active, single)
+        walls = {}
+        if name == "virtual":
+            # The same B=8 window, one engine against two replicas on the
+            # card, warm, in turns one, dp, dp, one.
+            for eng in (single, dp_eng):  # graphs at this batch captured before the timed turns
+                eng.transcribe_window(rows, [lang_ids[0]] * B, seed=1, n_active=n_active)
+            for who, eng in (("one", single), ("dp", dp_eng), ("dp", dp_eng), ("one", single)):
+                sync()
+                w0 = time.perf_counter()
+                eng.transcribe_window(rows, [lang_ids[0]] * B, seed=1, n_active=n_active)
+                sync()
+                walls.setdefault(who, []).append((time.perf_counter() - w0) * 1e3)
+        elif cuda:
+            # Over the cards: one row a card, all replicas at once, then each
+            # replica alone in its thread, then one engine on cuda:0 (B=1),
+            # warm, in turns.
+            one_row = [lang_ids[0]]
+            single.transcribe_window(rows[:1], one_row, seed=1)
+            dp_eng.transcribe_window(rows[:dp], one_row * dp, seed=1)
+            for _ in range(2):
+                for who, call in [("one", lambda: single.transcribe_window(rows[:1], one_row, seed=1)),
+                                  ("dp", lambda: dp_eng.transcribe_window(rows[:dp], one_row * dp, seed=1))] + [
+                        (f"replica {i} alone", lambda r=r: r.submit(r.engine.transcribe_window, rows[:1], one_row,
+                                                                     1).result())
+                        for i, r in enumerate(dp_eng.replicas)]:
+                    sync()
+                    w0 = time.perf_counter()
+                    call()
+                    for d in range(torch.cuda.device_count()):
+                        torch.cuda.synchronize(d)
+                    walls.setdefault(who, []).append((time.perf_counter() - w0) * 1e3)
+        if name == "virtual" and cuda:
+            walls["idle"] = {who: tracing.idle_share(
+                lambda eng=eng: eng.transcribe_window(rows, [lang_ids[0]] * B, seed=1, n_active=n_active),
+                os.path.join(TRACES, f"mesh_idle_{who}")) for who, eng in (("one", single), ("dp", dp_eng))}
+        out[name] = dict(devices=[str(d) for d in mesh.devices.flat], launches=launches, walls=walls)
+        log(f"  mesh {name} {out[name]['devices']}: B={B} window ({n_active} active), each replica's rows equal "
+            f"the one-device engine's bit for bit; each replica alone launched {launches}")
+        if "one" in walls:
+            log(f"  mesh {name}: {'that window' if name == 'virtual' else 'one row a replica'}: walls ms in turns, "
+                + ", ".join(f"{who} {[round(x, 1) for x in v]}" for who, v in walls.items() if who != "idle"))
+        for who, v in walls.get("idle", {}).items():
+            log(f"  mesh {name}: {who} window under torch.profiler: wall {v[0]:.1f} ms, device busy (union) "
+                f"{v[1]:.1f} ms of {v[4]:.1f} ms summed device time, idle {v[2]:.1%} ({v[3]} device events)")
+        engines[name] = dp_eng
+    del single
+    gc.collect()
+
+    # ---- 2. the served rounds: on the virtual mesh, and over every card
+    # where the 8 streams divide over them ----
+    p9 = rec.get("serving", {}).get("round_b8_ms")
+    p9_txt = (f"phase 9 (one engine) median {p9['median']:.1f} ms ({p9['min']:.1f}-{p9['max']:.1f}, "
+              f"{p9['n']} rounds)" if p9 else "phase 9 not run")
+    for name, mesh in meshes:
+        eng, dp = engines.pop(name), mesh.shape["dp"]
+        if 8 % dp:
+            eng.close()
+            log(f"  mesh {name}: not served (8 streams do not divide over dp={dp})")
+            continue
+        model = WhisperModel(eng, IdsTokenizer(), LanguageState(const=lang_ids[0]), language_tokens=lang_ids)
+        try:
+            rep = serve_streams(model, 8, seconds, mesh=mesh)
+        finally:
+            eng.close()
+        check_served(rep, 8)
+        if rep["captures"]:
+            raise AssertionError(f"{rep['captures']} CUDA graphs captured during the served dp rounds, after warmup")
+        b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
+        b8_ms = dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8)) if b8 else None
+        out["served" if name == "virtual" else f"served {name}"] = dict(
+            rounds=len(rep["rounds"]), stream_rounds=rep["stream_rounds"], peak=rep["peak"], launches=rep["launches"],
+            warm_s=rep["warm_s"], wall_s=rep["wall_s"], round_b8_ms=b8_ms)
+        b8_txt = (f"median {b8_ms['median']:.1f} ms ({b8_ms['min']:.1f}-{b8_ms['max']:.1f}, {b8_ms['n']} rounds)"
+                  if b8_ms else "no B=8 round")
+        for r in rep["rounds"]:
+            log(f"  mesh {name} served round: B={r['B']} n_active={r['n_active']} wall_ms={r['ms']:.1f} "
+                f"decode_steps={r['steps']} host_syncs={r['syncs']}")
+        log(f"  mesh {name} served: BatchedTranscriber(max_streams=8, mesh=dp{dp} over {name}) warmup "
+            f"{rep['warm_s']:.1f} s; 8 streams {seconds[0]:g}-{seconds[1]:g} s at {FEED_SPEED:g}x real time served in "
+            f"{rep['wall_s']:.1f} s over {len(rep['rounds'])} rounds: B=8 rounds {b8_txt} beside {p9_txt}; rounds per "
+            f"stream {rep['stream_rounds']}; CUDA graphs captured after warmup: {rep['captures']}; no drops; "
+            f"peak_mem on {rep['peak_device']}={rep['peak'] / 2**30:.2f} GiB; launches={rep['launches']}")
+        del model, eng
+    s8 = out["served"]["round_b8_ms"]
+    s8_txt = (f"median {s8['median']:.1f} ms ({s8['min']:.1f}-{s8['max']:.1f}, {s8['n']} rounds)" if s8
+              else "no B=8 round")
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- 3. f32, exact: dp=2 greedy tokens at B=8 against one engine ----
+    if f32 is None:
+        cfg5 = PRESETS["distil-large-v3"].with_(max_target_positions=448, decode_buckets=(128, 256),
+                                                self_kv_impl="kernel")
+        f32 = (cfg5, device_params(cfg5, 5, torch.float32, dev))  # drawn on the card: seconds, not minutes
+    cfg5, params5 = f32
+    rng = np.random.default_rng(0)
+    t30 = np.arange(30 * sr) / sr
+    a5 = (0.15 * np.sin(2 * np.pi * 440 * t30) + 0.05 * rng.standard_normal(30 * sr)).astype(np.float32)
+    batch = np.stack([prepare_audio(a5 * (1.0 + 0.1 * i), 2 * cfg5.max_source_positions) for i in range(8)])
+    one5 = DecodeEngine(params5, cfg5, st, language_token_ids=lang_ids)
+    want = one5.run_loop(one5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+    dp5 = DecodeEngine(shard_params(params5, served_mesh), cfg5, st, language_token_ids=lang_ids)
+    try:
+        got = dp5.run_loop(dp5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+    finally:
+        dp5.close()
+    differ = [k for k, (w, g) in enumerate(zip(want, got)) if w.tokens != g.tokens]
+    if differ:
+        k = differ[0]
+        w_, g_ = want[k].tokens, got[k].tokens
+        i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
+        raise AssertionError(f"f32 dp=2 greedy rows {differ} differ from the one-device engine's at B=8; row {k} "
+                             f"first at position {i}: {w_[i:i + 3]} vs {g_[i:i + 3]}")
+    out["f32"] = dict(rows=len(want), tokens=[len(w.tokens) for w in want])
+    log(f"  mesh f32 (phase 5's config, weights drawn on the card): dp=2 greedy tokens equal the one-device "
+        f"engine's at B=8 ({out['f32']['tokens']} tokens)")
+    del one5, dp5, params5, f32
+    gc.collect()
+
+    if len(meshes) > 1:
+        out["guard"] = mesh_device_guard_check()
+        log(f"  mesh device guard: sample_step on {out['guard']} from cuda:0 equals its plain version")
+
+    # ---- 4. the dry run on the card (virtual devices, and every card) ----
+    out["dryrun"] = [dryrun_multichip(2, devices=[dev, dev])]
+    if len(meshes) > 1:
+        out["dryrun"].append(dryrun_multichip(torch.cuda.device_count()))
+    if cuda:
+        out["waits"] = waits = wait_gil_probe()
+        log("  mesh host waits, another thread's Python iterations a ms while this one waits on the card: "
+            + "; ".join(f"{k} {v[0]:.0f} over {v[1]:.1f} ms" for k, v in waits.items()))
+        held = [k for k in ("bool(t)", "DecodeEngine._host") if waits[k][0] < 1000]
+        if held:
+            raise AssertionError(f"the engine's host reads hold the interpreter lock while they wait: {held}")
+    rec["mesh"] = out
+
+    log(f"phase 19 mesh: ok; serving params {make_s:.1f} s to make; meshes {[n for n, _ in meshes]}; served dp=2 "
+        f"B=8 rounds {s8_txt} beside {p9_txt}; peak_mem={out['served']['peak'] / 2**30:.2f} GiB; f32 tokens equal; "
+        f"{len(out['dryrun'])} dry run(s) ok; {smi_line() if cuda else 'cpu'}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3275,6 +3706,7 @@ def main(argv=None) -> int:
         ("microphone", lambda: phase_microphone(rec, dev)),
         ("accuracy", lambda: phase_accuracy(rec, dev)),
         ("soak", lambda: phase_soak(rec, dev)),
+        ("mesh", lambda: phase_mesh(rec, dev)),
     )
     only = [x for x in args.phases.split(",") if x]
     unknown = set(only) - {name for name, _ in phases}

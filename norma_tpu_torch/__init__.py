@@ -29,6 +29,10 @@ to find:
   - ``runtime.transcriber`` ``Transcriber`` (the public entry point)
   - ``runtime.batching``    ``BatchedTranscriber`` (multi-stream serving)
   - ``ops.mel_pallas``      the fused log-mel frontend (CUDA kernel)
+  - ``parallel``            device meshes, the params' layout over them
+                            (``make_mesh``, ``shard_params``) and data
+                            parallelism: ``DecodeEngine`` on dp-sharded
+                            params runs one replica per dp position
   - ``tracing``             spans, and the device report over
                             ``torch.profiler`` (``profile``, ``annotate``,
                             ``device_time_report``, ``profiled_device_ms``)
@@ -46,7 +50,7 @@ compiled with ``nvcc`` at first use into ``build/norma_tpu_torch/``
 PyTorch version instead.
 """
 
-from . import audio, eval, input, models, tracing
+from . import audio, eval, input, models, parallel, tracing
 from .errors import (
     NormaError,
     NoStreamRunning,
@@ -65,6 +69,7 @@ __all__ = [
     "eval",
     "input",
     "models",
+    "parallel",
     "tracing",
     "BatchedTranscriber",
     "Transcriber",

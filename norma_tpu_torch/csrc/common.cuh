@@ -6,7 +6,45 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace norma {
+
+// ---- host: function attributes per device ---------------------------------
+//
+// cudaFuncSetAttribute acts on the current device only, so a size set while
+// one card was current does not hold on another.  A launcher keeps one
+// FuncAttrs per kernel and calls ensure() before each launch: the first
+// launch on each device that needs more dynamic shared memory than that
+// device allows so far raises it (and allows a non-portable cluster size
+// where asked), under a lock, since replica threads launch concurrently.
+struct FuncAttrs {
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu;
+  int smem[kMaxDevices] = {};
+  bool wide[kMaxDevices] = {};
+
+  template <typename K>
+  cudaError_t ensure(K kern, int bytes, bool nonportable_cluster) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu);
+    if (bytes > smem[dev]) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      smem[dev] = bytes;
+    }
+    if (nonportable_cluster && !wide[dev]) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+      wide[dev] = true;
+    }
+    return cudaSuccess;
+  }
+};
+
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

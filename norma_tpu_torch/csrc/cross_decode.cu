@@ -373,20 +373,10 @@ int launch(const void* q, long long q_rs, const void* kc, const void* vc, long l
            float scale, cudaStream_t stream) {
   const int smem = 4 * G * pitch;
   auto kern = cross_decode_kernel<T, INT4>;
-  // The largest shared memory and cluster set so far (the first launches
-  // of a shape are eager, before any graph captures them).
-  static int sized = 0;
-  static bool wide = false;
-  if (smem > sized) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    sized = smem;
-  }
-  if (cluster > 8 && !wide) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    wide = true;
-  }
+  // Set per device (the first launches of a shape are eager, before any
+  // graph captures them).
+  static norma::FuncAttrs attrs;
+  if (const cudaError_t e = attrs.ensure(kern, smem, cluster > 8); e != cudaSuccess) return (int)e;
   // One CTA per (stream, head) launches without the cluster attribute (each
   // CTA is then its own cluster of one).
   return (int)norma::wstream::launch_cluster_grid(

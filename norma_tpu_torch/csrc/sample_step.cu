@@ -330,18 +330,8 @@ extern "C" int norma_sample_step(
       (long long)cluster * L < V || (long long)L * 4 > kMaxSliceBytes || B > 65535)
     return (int)cudaErrorInvalidValue;
   const int smem = L * 4;
-  static int sized = 0;  // the largest slice set so far (the first launches are eager)
-  static bool wide = false;
-  if (smem > sized) {
-    const cudaError_t e = cudaFuncSetAttribute(sample_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    sized = smem;
-  }
-  if (cluster > 8 && !wide) {
-    const cudaError_t e = cudaFuncSetAttribute(sample_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    wide = true;
-  }
+  static norma::FuncAttrs attrs;  // set per device (the first launches are eager)
+  if (const cudaError_t e = attrs.ensure(sample_step_kernel, smem, cluster > 8); e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster, (unsigned)B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);

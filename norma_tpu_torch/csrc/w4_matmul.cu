@@ -46,6 +46,7 @@
 // Code rows must start 16-byte aligned (ldq a multiple of 16:
 // ops/quant_matmul.py::pitched_codes), blk 32 or 64 (a unit's stages fit
 // the ring beside the next one's first), and K/2 a multiple of blk.
+#include "common.cuh"
 #include "wstream.cuh"
 
 namespace {
@@ -234,12 +235,8 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out, i
   auto* kernel = w4_mma_kernel<RT, F32X>;
   const int smem = S::smem(warps);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static int sized = 0;  // the largest size set so far (the first launches are eager)
-  if (smem > sized) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    sized = smem;
-  }
+  static norma::FuncAttrs attrs;  // set per device (the first launches are eager)
+  if (const cudaError_t e = attrs.ensure(kernel, smem, false); e != cudaSuccess) return e;
   return launch_cluster(kernel, (N + kBN - 1) / kBN, (M + S::kRows - 1) / S::kRows, cluster, warps * 32, smem,
                         stream, x, (const int8_t*)q, (const __nv_bfloat16*)scale, (float*)out, M, N, K, ldq, blk);
 }

@@ -42,6 +42,7 @@
 // Code rows must start 16-byte aligned: the row pitch (ldq) is a multiple
 // of 16 bytes (the int8 head's codes carry such a pitch, ops/quant_matmul.py
 // ::pitched_codes), and K is a multiple of 16.
+#include "common.cuh"
 #include "wstream.cuh"
 
 namespace {
@@ -159,12 +160,8 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* out, i
                    long long ldq, int cluster, cudaStream_t stream) {
   using S = Shape<RT, F32X>;
   auto* kernel = w8_mma_kernel<RT, F32X>;
-  static bool sized = false;  // set once, by the first (eager) launch
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+  static norma::FuncAttrs attrs;  // set per device (the first launches are eager)
+  if (const cudaError_t e = attrs.ensure(kernel, S::kSmem, false); e != cudaSuccess) return e;
   return launch_cluster(kernel, (N + kBN - 1) / kBN, (M + S::kRows - 1) / S::kRows, cluster, kWarps * 32,
                         S::kSmem, stream, x, (const int8_t*)q, (const float*)scale, (float*)out, M, N, K, ldq);
 }

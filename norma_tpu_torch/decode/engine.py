@@ -1,5 +1,6 @@
-"""Whisper decoding engine in PyTorch (``norma_tpu/decode/engine.py``,
-without meshes; speculation is ``decode/speculative.py``).
+"""Whisper decoding engine in PyTorch (``norma_tpu/decode/engine.py``;
+speculation is ``decode/speculative.py``, data parallelism over a mesh
+``parallel/data_parallel.py``).
 
 The reference's per-window decode (``model.rs:164-389``): mel -> encoder ->
 cross-K/V -> optional language detection -> prefill with the no-speech
@@ -63,10 +64,11 @@ from ..model.whisper import (
     quantize_cross_kv4,
     quantize_self_kv_cache,
 )
-from ..ops import flash_encoder, mel_pallas, paged_cross, quant_matmul, self_decode
+from ..ops import _build
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
+from ..parallel.sharding import ShardedParams
 from ..tracing import annotate, decode_telemetry, instrument
 from .masks import SpecialTokens, build_masks
 
@@ -108,16 +110,6 @@ def _rung_seed(seed: int, rung: int) -> int:
 # Steps per chunk of the token loop: one host read of the finished flags,
 # and on CUDA one graph replay, per chunk (PERF.md: chosen on the H100).
 LOOP_CHUNK = 16
-
-
-def _kernel_counters():
-    """Every kernel wrapper's launch counter (a function with ``.launches``)."""
-    return (
-        sample_step, self_decode.self_attention_decode,
-        paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
-        quant_matmul.q8a8_dense, quant_matmul.w8_matmul, quant_matmul.w4_matmul,
-        mel_pallas.log_mel_pallas,
-    )
 
 
 def _signature(x):
@@ -206,7 +198,20 @@ class DecodeEngine:
 
     All functions are batched over a leading stream dimension B; the
     single-stream API uses B=1.
+
+    Params sharded over a mesh (``parallel.shard_params``) give a
+    :class:`~norma_tpu_torch.parallel.data_parallel.DataParallelEngine`
+    instead: one engine of this class per dp position, each on its
+    position's params, device, thread and stream.  The mesh is the
+    params'; a ``mesh`` argument must name the same one.
     """
+
+    def __new__(cls, params=None, *args, mesh=None, **kwargs):
+        if mesh is not None or isinstance(params, ShardedParams):
+            from ..parallel.data_parallel import DataParallelEngine
+
+            return DataParallelEngine(cls, params, *args, mesh=mesh, **kwargs)
+        return super().__new__(cls)
 
     # Ladder policy threshold: total decode rows (streams x rungs) up to
     # which the speculative ladder (all rungs as extra rows of one token
@@ -222,6 +227,7 @@ class DecodeEngine:
         mel_center: bool = False,
         quantize_cross_kv: "bool | str" = False,
         quantize_self_kv: bool = False,
+        mesh=None,  # read by __new__: a single-device engine has none
     ):
         self.cfg = cfg
         self.st = st
@@ -464,33 +470,30 @@ class DecodeEngine:
         graph = buf.graphs.get(key)
         if graph is not None:
             graph.replay()
-            for c, d in buf.launches[key].items():
-                c.launches += d
+            _build.count_all(buf.launches[key])
             return
-        cur = torch.cuda.current_stream()
+        cur = torch.cuda.current_stream(buf.fin.device)
         side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             fn()  # the warm-up is this call's real run
-        before = {c: c.launches for c in _kernel_counters()}
         # One memory pool for all the engine's graphs: a graph's temporaries
         # are dead when it ends (its results are copied into ``buf``) and
         # graphs run one at a time on one stream, so they can share blocks.
+        # Each engine (each data-parallel replica) has its own pool.
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
+        # The wrappers' launches while captured are tallied, not counted;
+        # each replay counts them.
+        with torch.cuda.stream(side), _build.recording_launches() as tally:
             graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
                 fn()
             finally:
                 graph.capture_end()
         cur.wait_stream(side)
-        # The wrappers counted launches while they were captured; they count
-        # them again at each replay.
-        buf.launches[key] = {c: c.launches - n for c, n in before.items() if c.launches != n}
-        for c, n in before.items():
-            c.launches = n
+        buf.launches[key] = tally
         buf.graphs[key] = graph
         self.graph_captures += 1
 

@@ -113,6 +113,11 @@ class SpeculativeEngine(DecodeEngine):
     along ``_K_CHOICES`` between windows from the acceptance telemetry
     (``last_tokens_per_round``).  Committed tokens are identical at every
     K, so K is a performance knob only.
+
+    Target and draft params sharded over one mesh give a data-parallel
+    engine of speculative replicas (``DecodeEngine.__new__``,
+    ``parallel/data_parallel.py``); its telemetry attributes are the first
+    replica's.
     """
 
     #: The K ladder ``spec_k="auto"`` walks.

@@ -61,7 +61,11 @@ class WhisperModel(Model):
         models also run the known-language variant they switch to after
         the first window, and a speculative engine also runs its t>0
         fallback (``warmup_fallback``).  The batching scheduler calls
-        ``warmup(batch=b)`` per bucket."""
+        ``warmup(batch=b)`` per bucket.  A data-parallel engine
+        (``parallel/data_parallel.py``) splits the window, and the
+        fallback's rows, over its replicas as it splits a served round's,
+        so each replica captures the CUDA graphs its share of a round
+        replays."""
         lf = self.longform
         audio = torch.from_numpy(
             np.tile(prepare_audio(np.zeros(lf.window_samples, np.float32), lf.n_frames), (batch, 1))

@@ -11,16 +11,26 @@ of the sources and flags: it is built on first use and again whenever a
 source changes.  Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
 non-zero code.  Nothing here runs at import time.
+
+Every wrapper launches through :func:`launch`, which is safe with several
+devices and several threads: the launch runs with its tensors' device
+current (a kernel launches, and its function attributes are set, on the
+current device; ``csrc/common.cuh::FuncAttrs`` keeps them per device), on
+that device's current stream, and its count is taken under a lock
+(:func:`count`).  :func:`lib` builds and loads under a lock, so two
+threads that reach it first at once run one build.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -103,7 +113,13 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lock = threading.RLock()  # build() and lib(): one build at a time
 build_info: dict = {}
+# Launch counts: each wrapper's ``.launches`` changes under this lock.  A
+# thread recording a CUDA graph capture tallies its launches in
+# ``_capture.tally`` instead (:func:`recording_launches`).
+_count_lock = threading.Lock()
+_capture = threading.local()
 
 
 def _sources():
@@ -133,7 +149,13 @@ def library_path() -> str:
 def build() -> str:
     """Compile the kernels if the current sources have no library yet;
     return the library's path.  Records nvcc's version line, the build
-    seconds and ptxas' resource report in :data:`build_info`."""
+    seconds and ptxas' resource report in :data:`build_info`.  Under a
+    lock: a second caller waits for the first one's build."""
+    with _lock:
+        return _build()
+
+
+def _build() -> str:
     path = library_path()
     if os.path.exists(path):
         build_info.setdefault("seconds", 0.0)
@@ -173,17 +195,18 @@ def build() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, under a lock)."""
     global _lib
-    if _lib is None:
-        cdll = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(cdll, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        cdll.norma_error_string.argtypes = [I]
-        cdll.norma_error_string.restype = ctypes.c_char_p
-        _lib = cdll
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            cdll.norma_error_string.argtypes = [I]
+            cdll.norma_error_string.restype = ctypes.c_char_p
+            _lib = cdll
     return _lib
 
 
@@ -194,7 +217,54 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg}) at launch")
 
 
-def stream_ptr(device) -> int:
+def launch(entry: str, counter, device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device``, with ``device`` the current device, then raise on its
+    error code (:func:`check`) and count one launch on ``counter``.  The
+    device is switched, and switched back, only when another one is
+    current, so a launch on the current card pays nothing for it."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    fn = getattr(lib(), entry)
+    idx = device.index
+    if idx is None or idx == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(idx):
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(code, f"{entry[len('norma_'):]} kernel")
+    count(counter)
+
+
+def count(counter, n: int = 1) -> None:
+    """Add ``n`` launches to ``counter.launches`` under the counters' lock;
+    in a thread recording a capture (:func:`recording_launches`), to the
+    capture's tally instead."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[counter] = tally.get(counter, 0) + n
+        return
+    with _count_lock:
+        counter.launches += n
+
+
+def count_all(tally) -> None:
+    """Add a tally ``{counter: launches}`` to the counters (a graph replay
+    adds the launches its capture recorded)."""
+    with _count_lock:
+        for counter, n in tally.items():
+            counter.launches += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go to the yielded tally
+    ``{counter: launches}``, not to the counters: a CUDA graph capture
+    records its launches once and adds them at each replay
+    (:func:`count_all`).  Other threads keep counting as before."""
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev

@@ -122,14 +122,13 @@ def flash_self_attention(
         for x, what in ((q, "q"), (k, "k"), (v, "v")):
             check_tma_operand(x, what)
     out = torch.empty((B, T, D), dtype=q.dtype, device=dev)
-    code = _build.lib().norma_flash_encoder(
+    _build.launch(
+        "norma_flash_encoder", flash_self_attention, dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         out.data_ptr(), B, T, n_heads, dh, int(q.dtype == torch.bfloat16),
-        float(dh) ** -0.5, _build.stream_ptr(dev),
+        float(dh) ** -0.5,
     )
-    _build.check(code, "flash_encoder kernel")
-    flash_self_attention.launches += 1
     return out
 
 

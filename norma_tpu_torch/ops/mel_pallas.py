@@ -163,13 +163,12 @@ def log_mel_pallas(audio: torch.Tensor, n_mels: int = 80, n_frames: int = N_FRAM
     frags, start, count, weights = _kernel_tables_on(n_mels, dev)
     out = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=dev)
     row_max = torch.empty(B, dtype=torch.int32, device=dev)  # zeroed by the launcher
-    code = _build.lib().norma_log_mel(
+    _build.launch(
+        "norma_log_mel", log_mel_pallas, dev,
         audio.data_ptr(), audio.stride(0), audio.shape[1], frags.data_ptr(), start.data_ptr(),
         count.data_ptr(), weights.data_ptr(), weights.shape[1], row_max.data_ptr(), out.data_ptr(),
-        B, n_frames, n_mels, _build.stream_ptr(dev),
+        B, n_frames, n_mels,
     )
-    _build.check(code, "log_mel kernel")
-    log_mel_pallas.launches += 1
     return out
 
 

@@ -237,14 +237,13 @@ def cross_attention_q8_kernel_stacked(
     ks, vs = kp["s"].contiguous(), vp["s"].contiguous()
     D = H * dh
     out = torch.empty((n_groups * B, 1, D), dtype=q.dtype, device=dev)
-    code = _build.lib().norma_cross_decode(
+    _build.launch(
+        "norma_cross_decode", cross_attention_q8_kernel_stacked, dev,
         q.data_ptr(), q.stride(0), kc.data_ptr(), vc.data_ptr(), kc.stride(0), kc.stride(1),
         ks.data_ptr(), vs.data_ptr(), ks.stride(0), ks.stride(1), out.data_ptr(), D,
         li, B, H, dh, n_groups, Ta, int(q.dtype == torch.bfloat16), int(int4),
-        plan["cluster"], plan["pitch"], float(dh) ** -0.5, _build.stream_ptr(dev),
+        plan["cluster"], plan["pitch"], float(dh) ** -0.5,
     )
-    _build.check(code, "cross_decode kernel")
-    cross_attention_q8_kernel_stacked.launches += 1
     return out
 
 

@@ -250,12 +250,11 @@ def w8_dense(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
         return out.reshape(*x.shape[:-1], N)
     plan = w8_plan(M, N, K)
     scale = scale.contiguous()
-    code = _build.lib().norma_w8_matmul(
+    _build.launch(
+        "norma_w8_matmul", w8_matmul, dev,
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, q.stride(0),
-        plan["rt"], plan["cluster"], int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        plan["rt"], plan["cluster"], int(x.dtype == torch.bfloat16),
     )
-    _build.check(code, "w8 kernel")
-    w8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 
 
@@ -350,12 +349,11 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
     scale = scale.contiguous()
-    code = _build.lib().norma_w4_matmul(
+    _build.launch(
+        "norma_w4_matmul", w4_matmul, dev,
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, q.stride(0), block,
-        plan["rt"], plan["cluster"], plan["warps"], int(x.dtype == torch.bfloat16), _build.stream_ptr(dev),
+        plan["rt"], plan["cluster"], plan["warps"], int(x.dtype == torch.bfloat16),
     )
-    _build.check(code, "w4 kernel")
-    w4_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 
 
@@ -481,13 +479,12 @@ def q8a8_dense(
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out.reshape(*xq.shape[:-1], N)
-    code = _build.lib().norma_q8a8(
+    _build.launch(
+        "norma_q8a8", q8a8_dense, dev,
         x2.data_ptr(), s2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        M, N, K, plan["bn"], int(out_dtype == torch.bfloat16), _build.stream_ptr(dev),
+        M, N, K, plan["bn"], int(out_dtype == torch.bfloat16),
     )
-    _build.check(code, "q8a8 kernel")
-    q8a8_dense.launches += 1
     return out.reshape(*xq.shape[:-1], N)
 
 

@@ -209,7 +209,8 @@ def sample_step(
     dev_seed = isinstance(seed, torch.Tensor)
     if dev_seed and (seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != dev):
         raise ValueError(f"a device seed must be one int64 on {dev}")
-    code = _build.lib().norma_sample_step(
+    _build.launch(
+        "norma_sample_step", sample_step, dev,
         ll.data_ptr(), *(mk.data_ptr() for mk in masks),
         prev1.data_ptr(), prev2.data_ptr(), last_ts.data_ptr(),
         0 if per_row else int(step), step.data_ptr() if per_row else None,
@@ -217,10 +218,7 @@ def sample_step(
         seed.data_ptr() if dev_seed else None,
         B, V, plan["cluster"], plan["slice"], eot, no_timestamps, int(greedy_only),
         nxt.data_ptr(), prob.data_ptr(), dead.data_ptr(),
-        _build.stream_ptr(dev),
     )
-    _build.check(code, "sample_step kernel")
-    sample_step.launches += 1
     return nxt, prob, dead
 
 
@@ -292,12 +290,10 @@ def philox_uniform(seed: int, step: int, rows: int, V: int, device) -> torch.Ten
     if rows <= 0 or V <= 0 or rows > 65535:
         raise ValueError(f"philox_uniform: rows must be in 1..65535 and V positive, got {rows}, {V}")
     out = torch.empty((rows, V), dtype=torch.float32, device=device)
-    code = _build.lib().norma_philox_uniform(
+    _build.launch(
+        "norma_philox_uniform", philox_uniform, device,
         seed & 0xFFFFFFFFFFFFFFFF, int(step), rows, V, out.data_ptr(),
-        _build.stream_ptr(device),
     )
-    _build.check(code, "philox_uniform kernel")
-    philox_uniform.launches += 1
     return out
 
 

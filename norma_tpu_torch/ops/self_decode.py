@@ -187,17 +187,15 @@ def self_attention_decode(
         raise ValueError("the kernel's 16-byte loads need 16-byte aligned caches")
     out = torch.empty((B, 1, D), dtype=q.dtype, device=dev)
     dev_pos = isinstance(pos, torch.Tensor)
-    code = _build.lib().norma_self_decode(
+    _build.launch(
+        "norma_self_decode", self_attention_decode, dev,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
         q.stride(0), k_new.stride(0), v_new.stride(0),
         cache_k.stride(0), cache_k.stride(1), cache_v.stride(0), cache_v.stride(1),
         li, 0 if dev_pos else pos, pos.data_ptr() if dev_pos else None, B, n_heads, dh, T,
         int(cache_k.dtype == torch.bfloat16), plan["cluster"], dh**-0.5,
-        _build.stream_ptr(dev),
     )
-    _build.check(code, "self_decode kernel")
-    self_attention_decode.launches += 1
     return out, cache_k, cache_v
 
 

@@ -16,9 +16,14 @@ per-stream language detection, the no-speech gate and the full temperature
 ladder in lockstep — a gated stream never serializes the round on the
 scheduler thread.
 
-Port notes: one card only (``mesh=`` raises; multi-GPU is ROADMAP queue 1
-item 8); round windows go to the engine's device as tensors; the SLA round
-cap counts streams, not bucket widths.  The engine's window splits into
+With a ``mesh`` (the mesh of the engine's sharded params,
+``parallel.shard_params``), every round's batch is a multiple of its dp
+size and splits over the engine's dp replicas, each decoding its rows on
+its own device, thread and stream (``parallel/data_parallel.py``).
+
+Port notes: round windows go to the engine's device as tensors (as numpy
+to a dp engine, which moves each replica's rows); the SLA round cap
+counts streams, not bucket widths.  The engine's window splits into
 dispatch and fetch, so rounds pipeline as in the JAX package, but the
 token loop's per-chunk host reads finish the window's device work inside
 the dispatch.
@@ -97,7 +102,12 @@ class BatchedTranscriber:
         target_p99_ms: float | None = None,
         first_partial_seconds: float | None = None,
     ) -> None:
-        """``mesh``: not supported (one card); passing one raises.
+        """``mesh``: a ``parallel.Mesh`` with a 'dp' axis; the model's engine
+        must run on params sharded over it (``parallel.shard_params``), and
+        is taken as given when ``mesh`` is None.  Each round's live batch is
+        rounded up to a multiple of dp and split over the engine's dp
+        replicas.  ``max_streams`` must be a multiple of dp.  tp above 1
+        raises (the engine does).
 
         ``max_round_streams`` caps how many ready streams one fused round
         takes — a LATENCY knob: worst-case admission latency is one round's
@@ -127,11 +137,6 @@ class BatchedTranscriber:
         same audio (the same latency/quality trade the reference's
         ``set_responsiveness`` makes, monolingual.rs:146-156) — serving
         deployments should set ~0.3-0.5 (docs/serving.md)."""
-        if mesh is not None:
-            raise NormaError(
-                "BatchedTranscriber(mesh=...) is not supported by the PyTorch port "
-                "(one card; multi-GPU is ROADMAP queue 1 item 8)"
-            )
         if not isinstance(model, WhisperModel):
             raise NormaError("BatchedTranscriber requires a WhisperModel")
         self.model = model
@@ -153,6 +158,16 @@ class BatchedTranscriber:
             else None
         )
         self._round_rr = 0  # rotation cursor for capped rounds
+        engine_mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None and mesh != engine_mesh:
+            raise NormaError(
+                f"the model's engine does not run on mesh {mesh}: build it on "
+                "parallel.shard_params(params, mesh)"
+            )
+        self._mesh = engine_mesh
+        self._dp = engine_mesh.shape["dp"] if engine_mesh is not None else 1
+        if max_streams % self._dp != 0:
+            raise NormaError(f"max_streams={max_streams} not divisible by dp={self._dp}")
         self._base_lang = model.longform.lang
         self._language_tokens = model.longform.language_tokens
         self._streams: Dict[int, _Stream] = {}
@@ -305,9 +320,12 @@ class BatchedTranscriber:
 
     def warmup(self) -> None:
         """Run one silent window at every batch bucket this scheduler can
-        dispatch (one per power-of-two bucket), so no live round pays a
-        first-use cost (the kernel build, CUDA context and library
-        initialization, allocator growth at a new batch width) mid-stream.
+        dispatch (one per power-of-two bucket, dp-rounded), so no live
+        round pays a first-use cost (the kernel build, CUDA context and
+        library initialization, allocator growth at a new batch width, CUDA
+        graph captures) mid-stream.  On a mesh each bucket's window splits
+        over the dp replicas, so every replica warms its share of every
+        bucket.
         """
         # Rounds never take more than max_round_streams ready streams, so
         # larger buckets would be compiled and never dispatched.
@@ -437,9 +455,11 @@ class BatchedTranscriber:
 
     def _round_batch(self, n: int) -> int:
         """The exact batch width a round with ``n`` ready streams dispatches:
-        the power-of-two bucket, capped at max_streams.  Single source of
+        the power-of-two bucket, rounded up to a multiple of dp (which need
+        not be a power of two), capped at max_streams.  Single source of
         truth for _dispatch_round, warmup and the SLA cap."""
-        return self._batch_size(n, self.max_streams)
+        B = max(self._batch_size(n, self.max_streams), self._dp)
+        return min(-(-B // self._dp) * self._dp, self.max_streams)
 
     @instrument(
         fields={"n_ready": lambda a: len(a["ready"])}
@@ -486,7 +506,8 @@ class BatchedTranscriber:
             s.seed += len(TEMPERATURES)
             s.in_flight = True
 
-        audio_t = torch.from_numpy(windows).to(self.engine.device)
+        # A dp engine moves each replica's rows to its own device.
+        audio_t = windows if self._mesh is not None else torch.from_numpy(windows).to(self.engine.device)
         t_dispatch = time.monotonic()
         if self.pipeline_rounds:
             pending = self.engine.transcribe_window_async(

@@ -7,5 +7,12 @@
   - ``soak_serving``: minutes of real-time streams through
     ``BatchedTranscriber`` with liveness, loss, memory and latency checks;
   - ``quantize_checkpoint``: an HF or GGUF checkpoint -> a pre-quantized
-    params file, byte-equal to the JAX package's tool (host only).
+    params file, byte-equal to the JAX package's tool (host only);
+  - ``make_golden``: golden tokens and text from a real checkpoint;
+  - ``coverage_gate``: line coverage of ``norma_tpu_torch/`` over a pytest
+    run, failing below a bar;
+
+and ``first_network_run.sh`` (run as a script; ``--dry-run`` offline):
+the runbook for a machine with egress -- downloads, goldens, the
+quantizer and WER.
 """

@@ -9,7 +9,9 @@
     ``log_dir``) and named regions inside it
   - ``device_time_report`` / ``device_time_report_multi`` /
     ``profiled_device_ms`` — device time by name from those traces: the
-    one measurement path for every device-ms figure.  A CUDA session
+    one measurement path for every device-ms figure; ``idle_share`` — the
+    share of a call's wall time with no device work, overlapping streams
+    counted once  A CUDA session
     checks its own trace and raises :class:`DeviceEventsLost` where a
     launch came back without its device events
 
@@ -313,6 +315,50 @@ def profiled_device_ms(fn, n: int, trace_dir: str, ops: int = 0):
         for k, (t, c) in list(reports["kernel"].items())[:ops]
     ]
     return avg, rows
+
+
+def busy_union_ms(trace_dir: str) -> float:
+    """Milliseconds in which at least one device event (kernel, copy, fill)
+    ran, over the traces under ``trace_dir``: the union of their intervals,
+    so work that overlaps (several streams, as data-parallel replicas on one
+    card run) counts once, where :func:`profiled_device_ms` sums it."""
+    spans = sorted(
+        (float(ev.get("ts", 0.0)), float(ev.get("ts", 0.0)) + float(ev.get("dur", 0.0)))
+        for _, ev in trace_events(trace_dir) if ev.get("cat") in BUSY_LINES
+    )
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def idle_share(fn, trace_dir: str):
+    """Run ``fn`` once under :func:`profile` (through
+    :func:`profiled_device_ms`, so a session that lost device events is
+    taken again), timed by the host clock between two synchronizes.
+    Returns (wall ms, busy ms, idle share, device events, summed ms):
+    busy is :func:`busy_union_ms` over every device of the trace, the idle
+    share ``1 - busy / wall``, summed the device events' total time
+    (summed - busy is the time work overlapped).  Raises ``RuntimeError``
+    without device events."""
+    import torch
+
+    walls = []
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed():
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    summed, _ = profiled_device_ms(timed, 1, trace_dir)
+    busy = busy_union_ms(trace_dir)
+    events = sum(1 for _, ev in trace_events(trace_dir) if ev.get("cat") in BUSY_LINES)
+    return walls[-1], busy, 1.0 - busy / walls[-1], events, summed
 
 
 def device_time_report(trace_dir: str, line: str = "kernel"):

@@ -3,8 +3,9 @@
 The cases of tests/test_batching.py that need no mesh, on the port's tiny
 engine (texty_config + confident_params converted from the JAX package's
 weights, so greedy rung-0 decodes are deterministic and emit text) and
-non-realtime synthetic sources.  Plus the port's own contract: ``mesh=``
-raises, and the SLA round cap counts streams.
+non-realtime synthetic sources.  Plus the port's own contract: a ``mesh=``
+that the model's engine does not run on raises (tests/test_torch_batching_mesh.py
+serves on one), and the SLA round cap counts streams.
 """
 
 import copy
@@ -75,6 +76,7 @@ def test_start_after_close_refused(model):
 
 
 def test_mesh_is_refused(model):
+    # The model's engine runs on plain (unsharded) params: no mesh of its own.
     with pytest.raises(NormaError, match="mesh"):
         BatchedTranscriber(model, max_streams=2, mesh=object())
 

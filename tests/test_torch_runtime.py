@@ -202,7 +202,7 @@ def _params(fn):
 
 def test_top_level_exports():
     assert set(norma_tpu_torch.__all__) == {
-        "audio", "eval", "input", "models", "tracing",
+        "audio", "eval", "input", "models", "parallel", "tracing",
         "BatchedTranscriber", "Transcriber", "TranscriberHandle", "JoinHandle", "StringReceiver",
         "NormaError", "StartError", "StopError", "TranscriberDown", "TranscriberRunning", "NoStreamRunning",
         "__version__",
