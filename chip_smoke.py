@@ -167,6 +167,27 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      ms; the device ms per window, the top 12 kernels, the named regions'
      device span and busy ms (window_front, token_loop, ladder_finish) and
      the idle share, beside the card's name and power limit.
+ 20. tensor parallelism (after phase 19): phase 9's serving config on
+     make_mesh(tp=2) over the card named twice (one process, a
+     LocalGroup): the ranks' encoder outputs bit for bit, a padded B=8
+     window against one engine (prefill logits and no-speech within a
+     stated bf16 tolerance), every serving kernel launched and the
+     encoder's kernels twice one engine's count; BatchedTranscriber(
+     max_streams=8, mesh=tp2) serving 8 lockstep streams (no capture after
+     warmup, the B=8 round median, peak memory); a B=1 window at tp=4
+     (the ragged int8 head, q8a8 at K 320 and N 960) and phase 8's checks
+     at the tp=4 shapes; phase 5's f32 config at tp=2, greedy tokens equal
+     one engine's at B=8.
+ 21. tensor parallelism over the cards (phase 20's second half; with one
+     card it prints that it did not run).  tp=2 over cuda:0,1 (a worker
+     process each, NCCL): the prefill's logits within phase 20's tolerance
+     of one engine's and bit for bit equal to tp=2 in one process, every
+     row of the window equal to that run's, launches per rank, B=1 walls
+     against one engine, each card's idle share and memory, a served run;
+     with four cards, tp=4 and dp2 x tp2 over the cards (logits and
+     no-speech within the tolerance) and phase 19's one row a card with
+     threads of one process against worker processes, in turns, results
+     bit for bit.
 
 Then one JSON line with each kernel's launches, error and times, the
 card's ``nvidia-smi`` name/power-limit line, and last
@@ -1425,6 +1446,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
                 paged_cross.cross_attention_q8_kernel_stacked, flash_encoder.flash_self_attention,
                 quant_matmul.q8a8_dense, quant_matmul.w8_matmul)
     spans, restore = {}, []
+    remote = [r.engine for r in getattr(engine, "replicas", []) if r.remote]
     if mesh is not None:
         # The dp engine's dispatch returns at once: time each replica's part
         # in its own thread, its stream synchronized (the k-th part of every
@@ -1467,6 +1489,8 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
         # ---- the main path: counts from zero ----
         for c in counters:
             c.launches = 0
+        for e in remote:
+            e.launches(reset=True)
         captures0 = engine.graph_captures
         if cuda:
             torch.cuda.reset_peak_memory_stats(engine.device)
@@ -1483,6 +1507,9 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
         sync()
         wall_s = time.perf_counter() - w_start
         launches = {c.__name__: c.launches for c in counters}
+        for e in remote:  # positions in worker processes launch there: every rank's counters
+            for k, n in worker_launches(e.launches(), counters).items():
+                launches[k] += n
         captures = engine.graph_captures - captures0
         peak = torch.cuda.max_memory_allocated(engine.device) if cuda else 0
         # ---- end of the main path ----
@@ -2777,12 +2804,9 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
 
 def kernel_counters():
     """The wrappers whose ``launches`` counters the paths read, by kernel."""
-    from norma_tpu_torch.ops import flash_encoder, paged_cross, quant_matmul, sample_step, self_decode
+    from norma_tpu_torch.ops import launch_counters
 
-    return {"sample_step": sample_step.sample_step, "self_decode": self_decode.self_attention_decode,
-            "cross_decode": paged_cross.cross_attention_q8_kernel_stacked,
-            "flash_encoder": flash_encoder.flash_self_attention, "q8a8": quant_matmul.q8a8_dense,
-            "w8_matmul": quant_matmul.w8_matmul, "w4_matmul": quant_matmul.w4_matmul}
+    return launch_counters()
 
 
 def build_alsa_stub() -> str:
@@ -3315,8 +3339,9 @@ def mesh_replica_check(mesh, params, cfg, st, lang_ids, rows, n_active, single):
     replica's rows bit for bit against ``single`` (a one-device engine) on
     the same rows and active count; then each replica alone, its counters
     from 0, must move the six serving kernels' counters (on the card: the
-    CPU's plain versions launch nothing).  Returns
-    (per-replica launches, dp engine) -- the caller closes the engine."""
+    CPU's plain versions launch nothing; a replica in worker processes
+    counts in its workers).  Returns (per-replica launches, dp engine) --
+    the caller closes the engine."""
     import torch
 
     from norma_tpu_torch.decode import DecodeEngine
@@ -3348,13 +3373,32 @@ def mesh_replica_check(mesh, params, cfg, st, lang_ids, rows, n_active, single):
         sync()
         for c in counters:
             c.launches = 0
+        if rep.remote:
+            rep.engine.launches(reset=True)
         rep.submit(rep.engine.transcribe_window, rows[i * b:(i + 1) * b], langs[:b], 1, b).result()
         sync()
         counts = {c.__name__: c.launches for c in counters}
+        if rep.remote:
+            counts = worker_launches(rep.engine.launches(), counters)
         if rep.device.type == "cuda" and any(v <= 0 for v in counts.values()):
             raise AssertionError(f"replica {i} alone did not launch every serving kernel: {counts}")
         launches.append(counts)
     return launches, dp_eng
+
+
+def worker_launches(ranks, counters):
+    """Worker ranks' launch counters (``WorkerEngine.launches``) summed, by
+    the names of ``counters`` (the parent's wrappers)."""
+    from norma_tpu_torch.ops import launch_counters
+
+    names = {k: c.__name__ for k, c in launch_counters().items()}
+    want = {c.__name__ for c in counters}
+    out = dict.fromkeys(sorted(want), 0)
+    for rank in ranks:
+        for k, n in rank.items():
+            if names[k] in want:
+                out[names[k]] += n
+    return out
 
 
 def wait_gil_probe(wait_ms: float = 200.0):
@@ -3514,6 +3558,8 @@ def phase_mesh(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None
         rows = np.stack([prepare_audio(np.roll(audio, sr * i), n_win) for i in range(B)])
         n_active = B - 3  # the last replica decodes one row beside three pad rows
         rows[n_active:] = rows[0]
+        # Replicas in threads of this process, over the cards too (phase 21
+        # runs worker processes beside them).
         launches, dp_eng = mesh_replica_check(mesh, params, cfg, st, lang_ids, rows, n_active, single)
         walls = {}
         if name == "virtual":
@@ -3658,6 +3704,476 @@ def phase_mesh(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None
         f"{len(out['dryrun'])} dry run(s) ok; {smi_line() if cuda else 'cpu'}")
 
 
+TP4_Q8_SHAPES = ((1280, 960), (320, 1280), (1280, 1280))  # [K, N] of distil-large-v3's w8a8 products at tp=4
+
+
+def tp_window_check(eng, one, rows, langs, n_active, tol):
+    """A padded window on the tp engine ``eng`` beside the one-device engine
+    ``one``: the prefill's logits and no-speech probabilities within ``tol``
+    (max |diff| of each; a worker engine returns its rank 0's logits), then
+    the whole window on both.  Returns a dict of the differences, the tp
+    prefill's logits and both engines' results."""
+    import numpy as np
+
+    from norma_tpu_torch.parallel.collectives import first
+
+    eng0 = eng.replicas[0].engine if hasattr(eng, "replicas") else eng
+    lang = langs[0]
+    s1 = one.prefill_window(rows, lang)
+    s2 = eng0.prefill_window(rows, lang)
+    l1 = s1["next_logits"].float().cpu().numpy()
+    l2 = first(s2["next_logits"])
+    l2 = l2.float().cpu().numpy() if hasattr(l2, "cpu") else np.asarray(l2, np.float32)
+    nsp = float(np.abs(np.asarray(s1["no_speech_prob"]) - np.asarray(s2["no_speech_prob"])).max())
+    dl = float(np.abs(l1 - l2).max())
+    if not (nsp <= tol["no_speech"] and dl <= tol["logits"]):
+        raise AssertionError(f"tp prefill against one engine: max |d logits| {dl}, max |d no_speech| {nsp} "
+                             f"(tolerance {tol})")
+    got, _ = eng.transcribe_window(rows, langs, seed=1, n_active=n_active)
+    want, _ = one.transcribe_window(rows, langs, seed=1, n_active=n_active)
+    same = sum(1 for a, b in zip(got, want) if _same_result(a, b))
+    return dict(d_logits=dl, d_no_speech=nsp, logits=l2, got=got, want=want, rows_equal=same,
+                pad_ok=all(g is None for g in got[n_active:]))
+
+
+# bf16 tolerance of a tp engine against one engine (the partial sums add in
+# another order, and bf16 rounds each layer's output): the prefill's f32
+# logits and no-speech probabilities.
+TP_TOL = dict(logits=0.5, no_speech=0.02)
+
+
+class _IdsTokenizer:
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def _tp_serving(dev):
+    """Phase 9's serving config for phases 20 and 21: (cfg, st, lang_ids)."""
+    from norma_tpu_torch.decode import SpecialTokens
+    from norma_tpu_torch.model import PRESETS
+
+    cfg = PRESETS["distil-large-v3"].with_(
+        max_target_positions=448, decode_buckets=(128, 256), encoder_attn_impl="jax_flash",
+        cross_kv_impl="kernel", self_kv_impl="kernel",
+    )
+    return cfg, SpecialTokens(**ST_V3), LANG_IDS_V3
+
+
+def _tp_rows(cfg, lang_ids):
+    """Phases 20 and 21's audio: (one window of audio, a padded B=8 batch of
+    its shifts, the active rows, the rows' languages)."""
+    import numpy as np
+
+    from norma_tpu_torch.frontend.mel import prepare_audio
+
+    sr = 16000
+    n_win = 2 * cfg.max_source_positions
+    n_samp = (n_win - 1) * 160 + 400
+    tt = np.arange(n_samp) / sr
+    audio = (0.15 * np.sin(2 * np.pi * 440 * tt) + 0.05 * np.random.default_rng(4).standard_normal(n_samp)).astype(np.float32)
+    rows = np.stack([prepare_audio(np.roll(audio, sr * i), n_win) for i in range(8)])
+    n_active = 5
+    rows[n_active:] = rows[0]
+    return audio, rows, n_active, [lang_ids[0]] * 8
+
+
+def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, seconds=(12.0, 24.0),
+             tol=None):
+    """Tensor parallelism on one device (phase 20); a CPU rehearsal passes a
+    tiny serving config, its params, tokens, an f32 (cfg, params) pair and
+    shorter streams: tp=2 and tp=4 over virtual devices (one process, a
+    LocalGroup).  Phase 21 runs tp over the cards."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine, LanguageState
+    from norma_tpu_torch.frontend.mel import log_mel_spectrogram, prepare_audio
+    from norma_tpu_torch.model import PRESETS
+    from norma_tpu_torch.models.whisper import WhisperModel
+    from norma_tpu_torch.ops import launch_counters
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tol = tol or TP_TOL
+    if cfg is None:
+        cfg, st, lang_ids = _tp_serving(dev)
+    t0 = time.perf_counter()
+    if params is None:
+        params = _serving_params(cfg, dev)
+    sync()
+    make_s = time.perf_counter() - t0
+    sr, n_win = 16000, 2 * cfg.max_source_positions
+    audio, rows, n_active, langs = _tp_rows(cfg, lang_ids)
+    serving = ("sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8", "w8_matmul")
+    counters = {k: c for k, c in launch_counters().items() if k in serving}
+    out = {}
+
+    def counted(fn):
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        fn()
+        sync()
+        return {k: c.launches for k, c in counters.items()}
+
+    one = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    # ---- 1. tp=2 on one device: a LocalGroup ----
+    mesh2 = make_mesh(tp=2, devices=[dev, dev])
+    tp2 = DecodeEngine(shard_params(params, mesh2), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    try:
+        r0 = tp2.replicas[0].engine
+        # Ranks bit for bit: each rank's encoder output, computed on its own
+        # shard from the shared sums.
+        mel = log_mel_spectrogram(torch.from_numpy(rows[:2]).to(dev), n_mels=cfg.num_mel_bins, n_frames=n_win)
+        with torch.no_grad():
+            feats = r0._fan("encode", r0._rp, cfg, mel)
+        if not all(torch.equal(feats[0], f) for f in feats[1:]):
+            raise AssertionError("tp=2 ranks' encoder outputs differ")
+        chk = tp_window_check(tp2, one, rows, langs, n_active, tol)
+        if not chk["pad_ok"]:
+            raise AssertionError("tp=2: pad rows gave results")
+        # Launches per window, one engine and tp=2 (graphs captured above):
+        # the encoder's kernels run once per rank, so tp=2 launches twice
+        # one engine's; every serving kernel launched.
+        c1 = counted(lambda: one.transcribe_window(rows, langs, seed=1, n_active=n_active))
+        c2 = counted(lambda: tp2.transcribe_window(rows, langs, seed=1, n_active=n_active))
+        if cuda:
+            bad = [k for k in serving if c2[k] <= 0]
+            if bad or c2["flash_encoder"] != 2 * c1["flash_encoder"] or c2["q8a8"] != 2 * c1["q8a8"]:
+                raise AssertionError(f"tp=2 launches {c2} against one engine's {c1}")
+        out["tp2_window"] = dict(d_logits=chk["d_logits"], d_no_speech=chk["d_no_speech"],
+                                 rows_equal=chk["rows_equal"], launches=c2, launches_one=c1,
+                                 collectives=r0._group.collectives)
+        log(f"  tp=2 over {[str(d) for d in mesh2.devices.flat]} (one process): ranks' encoder outputs equal bit for "
+            f"bit; padded B=8 window ({n_active} active) against one engine: prefill max |d logits| "
+            f"{chk['d_logits']:.4g}, max |d no_speech| {chk['d_no_speech']:.3g} (tolerance {tol}); "
+            f"{chk['rows_equal']}/8 rows equal bit for bit; launches a window {c2} (one engine {c1})")
+        # Served: BatchedTranscriber over the tp mesh.
+        model = WhisperModel(tp2, _IdsTokenizer(), LanguageState(const=lang_ids[0]), language_tokens=lang_ids)
+        rep = serve_streams(model, 8, seconds, mesh=mesh2)
+        check_served(rep, 8)
+        if rep["captures"]:
+            raise AssertionError(f"{rep['captures']} CUDA graphs captured during the served tp rounds, after warmup")
+        b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
+        out["tp2_served"] = dict(rounds=len(rep["rounds"]), peak=rep["peak"], launches=rep["launches"],
+                                 warm_s=rep["warm_s"], wall_s=rep["wall_s"], captures=rep["captures"],
+                                 round_b8_ms=dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8))
+                                 if b8 else None)
+        b8_txt = (f"median {np.median(b8):.1f} ms ({min(b8):.1f}-{max(b8):.1f}, {len(b8)} rounds)" if b8
+                  else "no B=8 round")
+        log(f"  tp=2 served: BatchedTranscriber(max_streams=8, mesh=tp2) warmup {rep['warm_s']:.1f} s; 8 streams "
+            f"{seconds[0]:g}-{seconds[1]:g} s served in {rep['wall_s']:.1f} s over {len(rep['rounds'])} rounds: "
+            f"B=8 rounds {b8_txt}; CUDA graphs captured after warmup: {rep['captures']}; "
+            f"peak_mem={rep['peak'] / 2**30:.2f} GiB; launches={rep['launches']}")
+        del model
+    finally:
+        tp2.close()
+    del tp2
+    gc.collect()
+
+    # ---- 2. tp=4 on one device: B=1 (the ragged int8 head, q8a8 at K 320 / N 960) ----
+    mesh4 = make_mesh(tp=4, devices=[dev] * 4)
+    tp4 = DecodeEngine(shard_params(params, mesh4), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    try:
+        r4 = tp4.replicas[0].engine
+        heads = [p["decoder"]["tok_emb_q8"]["q"].shape[1] for p in r4._rp]
+        chk4 = tp_window_check(tp4, one, rows[:1], langs[:1], 1, tol)
+        c4 = counted(lambda: tp4.transcribe_window(rows[:1], langs[:1], seed=1))
+        if cuda and any(c4[k] <= 0 for k in serving):
+            raise AssertionError(f"tp=4 B=1 window launches {c4}")
+        out["tp4_b1"] = dict(d_logits=chk4["d_logits"], d_no_speech=chk4["d_no_speech"], head_shards=heads,
+                             launches=c4)
+        log(f"  tp=4 over {[str(d) for d in mesh4.devices.flat]}: int8 head shards {heads}; B=1 window against one "
+            f"engine: prefill max |d logits| {chk4['d_logits']:.4g}, max |d no_speech| {chk4['d_no_speech']:.3g}; "
+            f"tokens {'equal' if chk4['rows_equal'] else 'differ'}; launches {c4}")
+    finally:
+        tp4.close()
+    del tp4
+    gc.collect()
+    if cuda:  # phase 8's checks at the tp=4 shapes: tails in K and N
+        q8 = {}
+        phase_q8a8(q8, dev, rows=(12000, 1500, 1507), shapes=TP4_Q8_SHAPES)
+        out["q8a8_tp4"] = q8["q8a8_times"]
+
+    # ---- 3. f32, exact: tp=2 greedy tokens at B=8 against one engine ----
+    if f32 is None:
+        cfg5 = PRESETS["distil-large-v3"].with_(max_target_positions=448, decode_buckets=(128, 256),
+                                                self_kv_impl="kernel")
+        f32 = (cfg5, device_params(cfg5, 5, torch.float32, dev))
+    cfg5, params5 = f32
+    rng = np.random.default_rng(0)
+    t30 = np.arange(30 * sr) / sr
+    a5 = (0.15 * np.sin(2 * np.pi * 440 * t30) + 0.05 * rng.standard_normal(30 * sr)).astype(np.float32)
+    batch = np.stack([prepare_audio(a5 * (1.0 + 0.1 * i), 2 * cfg5.max_source_positions) for i in range(8)])
+    one5 = DecodeEngine(params5, cfg5, st, language_token_ids=lang_ids)
+    want5 = one5.run_loop(one5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+    del one5
+    tp5 = DecodeEngine(shard_params(params5, mesh2), cfg5, st, language_token_ids=lang_ids)
+    try:
+        got5 = tp5.run_loop(tp5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+    finally:
+        tp5.close()
+    differ = [k for k, (w, g) in enumerate(zip(want5, got5)) if w.tokens != g.tokens]
+    if differ:
+        k = differ[0]
+        w_, g_ = want5[k].tokens, got5[k].tokens
+        i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
+        raise AssertionError(f"f32 tp=2 greedy rows {differ} differ from the one-device engine's at B=8; row {k} "
+                             f"first at position {i}: {w_[i:i + 3]} vs {g_[i:i + 3]}")
+    out["f32"] = dict(tokens=[len(w.tokens) for w in want5])
+    log(f"  tp f32 (phase 5's config): tp=2 greedy tokens equal the one-device engine's at B=8 "
+        f"({out['f32']['tokens']} tokens)")
+    del tp5, params5, f32
+    gc.collect()
+
+    del one
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["tp"] = out
+    log(f"phase 20 tp: ok; serving params {make_s:.1f} s to make; tp=2 and tp=4 on one device, f32 tokens equal; "
+        f"{smi_line() if cuda else 'cpu'}")
+
+
+def worker_positions(*args, **kwargs):
+    """A dp engine whose every position runs in worker processes, one a
+    device (``parallel/workers.py``), whatever its mesh: phase 21's dp in
+    threads against dp in processes over the cards, and a CPU rehearsal of
+    the cards' path (gloo).  ``DecodeEngine`` on sharded params lets the
+    mesh's devices choose instead (``parallel/sharding.py::in_workers``)."""
+    from norma_tpu_torch.decode import DecodeEngine
+    from norma_tpu_torch.parallel.data_parallel import DataParallelEngine
+
+    class WorkerPositions(DataParallelEngine):
+        _in_workers = staticmethod(lambda mesh: True)
+
+    return WorkerPositions(DecodeEngine, *args, **kwargs)
+
+
+def card_memory_gib() -> list:
+    """Each card's memory in use (GiB, every process's), as ``nvidia-smi``
+    reads it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True)
+    return [float(x) / 1024 for x in r.stdout.split()]
+
+
+def phase_tp_cards(rec, dev, seconds=(12.0, 24.0)):
+    """Tensor parallelism over the cards (phase 21; the module docstring):
+    with fewer than two cards it prints that it did not run."""
+    import gc
+
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        rec["tp_cards"] = None
+        log(f"phase 21 tp_cards: not run ({n_cards} card; tp over the cards needs 2 or more)")
+        return
+    dev = torch.device(dev)
+    cfg, st, lang_ids = _tp_serving(dev)
+    params = _serving_params(cfg, dev)
+    audio, rows, n_active, langs = _tp_rows(cfg, lang_ids)
+    one = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    # tp=2 in one process (phase 20's LocalGroup run): what the workers
+    # must give bit for bit.
+    tp2 = DecodeEngine(shard_params(params, make_mesh(tp=2, devices=[dev, dev])), cfg, st,
+                       language_token_ids=lang_ids, quantize_cross_kv=True)
+    try:
+        local = tp_window_check(tp2, one, rows, langs, n_active, TP_TOL)
+    finally:
+        tp2.close()
+    del tp2
+    gc.collect()
+    rec["tp_cards"] = tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, TP_TOL, local, seconds,
+                                    audio)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21 tp_cards: ok over {n_cards} cards through worker processes; {smi_line()}")
+
+
+def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, local, seconds, audio, devices=None):
+    """Phase 21 (the module docstring); ``local`` is
+    :func:`tp_window_check`'s result for tp=2 in one process.  A CPU
+    rehearsal passes ``devices=["cpu"] * 4``: its positions run in gloo
+    worker processes (:func:`worker_positions`), with no device profile."""
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine, LanguageState
+    from norma_tpu_torch.models.whisper import WhisperModel
+    from norma_tpu_torch.parallel import make_mesh as _make_mesh, shard_params
+
+    cuda = devices is None
+    devices = devices or [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n = len(devices)
+    engine = DecodeEngine if cuda else worker_positions  # the cards choose workers; the CPU asks for them
+    make_mesh = lambda dp=1, tp=1: _make_mesh(dp=dp, tp=tp, devices=devices)  # noqa: E731
+    out = {}
+
+    def sync_all():
+        for d in range(n if cuda else 0):
+            torch.cuda.synchronize(d)
+
+    def walls(calls, turns=("a", "b", "b", "a")):
+        w = {}
+        for who in turns:
+            sync_all()
+            w0 = time.perf_counter()
+            calls[who]()
+            sync_all()
+            w.setdefault(who, []).append((time.perf_counter() - w0) * 1e3)
+        return w
+
+    # tp=2 on cuda:0,1 (NCCL): the padded window against one engine and,
+    # bit for bit, against the one-process tp=2 run of the same window (a
+    # sum of two f32 partials rounds once either way).
+    mesh = make_mesh(tp=2)
+    t0 = time.perf_counter()
+    eng = engine(shard_params(params, mesh), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    spawn_s = time.perf_counter() - t0
+    try:
+        w = eng.replicas[0].engine
+        chk = tp_window_check(eng, one, rows, langs, n_active, tol)
+        same_local = sum(1 for a, b in zip(chk["got"], local["got"]) if _same_result(a, b))
+        logits_local = bool(np.array_equal(chk["logits"], local["logits"]))
+        if not logits_local or same_local != len(rows):
+            d = float(np.abs(chk["logits"] - local["logits"]).max())
+            raise AssertionError(f"tp=2 over the cards against tp=2 in one process: prefill logits "
+                                 f"{'equal' if logits_local else f'differ (max |d| {d:.4g})'}, "
+                                 f"{same_local}/{len(rows)} rows equal bit for bit")
+        w.launches(reset=True)
+        eng.transcribe_window(rows, langs, seed=1, n_active=n_active)
+        per_rank = w.launches()
+        bad = [k for r in per_rank for k in ("sample_step", "self_decode", "cross_decode", "flash_encoder", "q8a8",
+                                              "w8_matmul") if r[k] <= 0 and cuda]
+        if bad:
+            raise AssertionError(f"tp=2 over the cards: a rank did not launch {bad}: {per_rank}")
+        b1 = rows[:1]
+        eng.transcribe_window(b1, langs[:1], seed=1)
+        one.transcribe_window(b1, langs[:1], seed=1)
+        wl = walls({"a": lambda: one.transcribe_window(b1, langs[:1], seed=1),
+                    "b": lambda: eng.transcribe_window(b1, langs[:1], seed=1)})
+        idle = (w.profile("idle_share", os.path.join(TRACES, "tp2_cards"), "transcribe_window", b1, langs[:1], 1)
+                if cuda else [])
+        mem = card_memory_gib()[:n] if cuda else []
+        shard_gib = [sum(t.numel() * t.element_size() for t in r.buffers()) / 2**30 for r in eng.params.ranks(0)]
+        out["tp2"] = dict(spawn_s=spawn_s, d_logits=chk["d_logits"], d_no_speech=chk["d_no_speech"],
+                          rows_equal_one=chk["rows_equal"], rows_equal_local=same_local, launches=per_rank,
+                          b1_walls=wl, idle=idle, card_mem_gib=mem, shard_gib=shard_gib)
+        log(f"  tp=2 over cuda:0,1 (2 worker processes, NCCL; spawned in {spawn_s:.1f} s): padded B=8 window, ranks "
+            f"bit for bit; against one engine prefill max |d logits| {chk['d_logits']:.4g}, max |d no_speech| "
+            f"{chk['d_no_speech']:.3g} (tolerance {tol}), {chk['rows_equal']}/8 rows equal; against tp=2 in one "
+            f"process the prefill logits and {same_local}/8 rows equal bit for bit; launches per rank {per_rank}")
+        log(f"  tp=2 over cuda:0,1 memory: shards {[round(x, 3) for x in shard_gib]} GiB, kept on the host in this "
+            f"process; cards in use (every process; cuda:0 also holds the one-device engine and the params) "
+            f"{[round(x, 2) for x in mem]} GiB")
+        log(f"  tp=2 over cuda:0,1: B=1 window walls ms in turns, one engine {[round(x, 1) for x in wl['a']]}, tp=2 "
+            f"{[round(x, 1) for x in wl['b']]}; per card under torch.profiler: " + "; ".join(
+                f"rank {k}: wall {v[0]:.1f} ms, busy {v[1]:.1f} ms, idle {v[2]:.1%}" for k, v in enumerate(idle)))
+        model = WhisperModel(eng, _IdsTokenizer(), LanguageState(const=lang_ids[0]), language_tokens=lang_ids)
+        rep = serve_streams(model, 8, seconds, mesh=mesh)
+        check_served(rep, 8)
+        if rep["captures"]:
+            raise AssertionError(f"{rep['captures']} CUDA graphs captured during the served rounds, after warmup")
+        b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
+        out["tp2_served"] = dict(rounds=len(rep["rounds"]), launches=rep["launches"], wall_s=rep["wall_s"],
+                                 round_b8_ms=b8)
+        log(f"  tp=2 over cuda:0,1 served: 8 streams in {rep['wall_s']:.1f} s over {len(rep['rounds'])} rounds, B=8 "
+            f"rounds ms {[round(x, 1) for x in b8]}; captures after warmup {rep['captures']}; launches {rep['launches']}")
+        del model
+    finally:
+        eng.close()
+
+    if n >= 4:
+        # tp=4 over the cards, then dp2 x tp2.
+        for name, mesh, B in (("tp=4", make_mesh(tp=4), 1), ("dp2 x tp2", make_mesh(dp=2, tp=2), 8)):
+            t0 = time.perf_counter()
+            eng = engine(shard_params(params, mesh), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+            spawn_s = time.perf_counter() - t0
+            try:
+                na = min(n_active, B)
+                chk = tp_window_check(eng, one, rows[:B], langs[:B], na, tol)
+                eng.transcribe_window(rows[:B], langs[:B], seed=1, n_active=na)
+                wl = walls({"a": lambda: one.transcribe_window(rows[:B], langs[:B], seed=1, n_active=na),
+                            "b": lambda: eng.transcribe_window(rows[:B], langs[:B], seed=1, n_active=na)})
+                out[name] = dict(spawn_s=spawn_s, d_logits=chk["d_logits"], d_no_speech=chk["d_no_speech"],
+                                 rows_equal=chk["rows_equal"], walls=wl)
+                log(f"  {name} over {[str(d) for d in mesh.devices.flat]} (spawned in {spawn_s:.1f} s): B={B} window, "
+                    f"ranks bit for bit; against one engine prefill max |d logits| {chk['d_logits']:.4g}, "
+                    f"max |d no_speech| {chk['d_no_speech']:.3g}, "
+                    f"{chk['rows_equal']}/{B} rows equal; walls ms in turns, one engine "
+                    f"{[round(x, 1) for x in wl['a']]}, {name} {[round(x, 1) for x in wl['b']]}")
+            finally:
+                eng.close()
+        out["dp_rows"] = dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices)
+    else:
+        log(f"  tp=4, dp2 x tp2 and the one-row-a-card comparison over the cards: not run ({n} cards; they need 4)")
+    return out
+
+
+def dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices):
+    """Phase 19's one row a card, all at once, on a dp mesh over
+    ``devices``: replicas in threads of this process (what the mesh
+    chooses) against one worker process a card (:func:`worker_positions`),
+    in turns threads, processes, processes, threads, twice; then each
+    worker alone.  Results must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine
+    from norma_tpu_torch.frontend.mel import prepare_audio
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+
+    n = len(devices)
+    sr, n_win = 16000, 2 * cfg.max_source_positions
+
+    def sync_all():
+        for d in devices:
+            if torch.device(d).type == "cuda":
+                torch.cuda.synchronize(d)
+
+    sp = shard_params(params, make_mesh(dp=n, devices=devices))
+    r1 = np.stack([prepare_audio(np.roll(audio, sr * i), n_win) for i in range(n)])
+    one_row = [lang_ids[0]] * n
+    th = DecodeEngine(sp, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    pr = worker_positions(sp, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    try:
+        a = th.transcribe_window(r1, one_row, seed=1)[0]
+        b = pr.transcribe_window(r1, one_row, seed=1)[0]
+        if not all(_same_result(x, y) for x, y in zip(a, b)):
+            raise AssertionError("dp over the cards: worker processes and threads gave different results")
+        w = {}
+        for _ in range(2):
+            for who, e in (("threads", th), ("processes", pr), ("processes", pr), ("threads", th)):
+                sync_all()
+                w0 = time.perf_counter()
+                e.transcribe_window(r1, one_row, seed=1)
+                sync_all()
+                w.setdefault(who, []).append((time.perf_counter() - w0) * 1e3)
+        alone = []
+        for rep in pr.replicas:
+            w0 = time.perf_counter()
+            rep.engine.transcribe_window(r1[:1], one_row[:1], seed=1)
+            alone.append((time.perf_counter() - w0) * 1e3)
+    finally:
+        th.close()
+        pr.close()
+    log(f"  dp={n} over {[str(d) for d in devices]}, one row a card, all at once, walls ms in turns: threads "
+        f"(one process) {[round(x, 1) for x in w['threads']]}, worker processes {[round(x, 1) for x in w['processes']]}; "
+        f"each worker alone {[round(x, 1) for x in alone]}; results equal bit for bit; "
+        f"{smi_line() if torch.device(devices[0]).type == 'cuda' else 'cpu'}")
+    return dict(walls=w, alone=alone)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3707,6 +4223,8 @@ def main(argv=None) -> int:
         ("accuracy", lambda: phase_accuracy(rec, dev)),
         ("soak", lambda: phase_soak(rec, dev)),
         ("mesh", lambda: phase_mesh(rec, dev)),
+        ("tp", lambda: phase_tp(rec, dev)),
+        ("tp_cards", lambda: phase_tp_cards(rec, dev)),
     )
     only = [x for x in args.phases.split(",") if x]
     unknown = set(only) - {name for name, _ in phases}

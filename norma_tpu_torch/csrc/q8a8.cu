@@ -29,6 +29,16 @@
 // keeping one slice's group in flight while it releases the previous
 // slice.  The epilogue runs on the accumulator registers: each thread
 // scales its pairs of columns and stores them as float2 (or bf16x2).
+//
+// Tails (tensor-parallel shards: distil-large-v3's fused QKV at tp=4 has
+// N = 960, o_proj's row shard K = 320): K and N need only be multiples of
+// 64.  A K tail slice reads past K as zeros (TMA fills a box's
+// out-of-bounds elements with zeros and still counts the box's bytes), so
+// its products add nothing; a last column tile past N loads zero weight
+// rows the same way and its epilogue stores nothing at n >= N.  No
+// padding copy, no second kernel.  (A `continue` past N in the epilogue
+// kept the compiler from hoisting its loads: 11-22% slower at M = 12000,
+// NVIDIA H100 80GB HBM3, chip_smoke phase 8.)
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -71,7 +81,7 @@ __global__ void __launch_bounds__(kThreads, 1) q8a8_wgmma_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * kStageBytes);
   uint64_t* empty = full + STAGES;
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, nk = K / BKB;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, nk = (K + BKB - 1) / BKB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -126,21 +136,24 @@ __global__ void __launch_bounds__(kThreads, 1) q8a8_wgmma_kernel(
   const float xa = ra < M ? xs[ra] : 0.f, xb = rb < M ? xs[rb] : 0.f;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * (lane & 3);
-    const float w0 = ws[n], w1 = ws[n + 1];
+    // A tail tile's columns past N read column N - 2's scales and bias
+    // (loads stay unconditional, so the compiler keeps them ahead of the
+    // stores) and store nothing; N is even, so n < N means n + 1 < N.
+    const int n = n0 + 8 * j + 2 * (lane & 3), nl = n < N ? n : N - 2;
+    const float w0 = ws[nl], w1 = ws[nl + 1];
     float y[4] = {__fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j]), xa), w0),
                   __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 1]), xa), w1),
                   __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2]), xb), w0),
                   __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 3]), xb), w1)};
     if (bias != nullptr) {
-      const float b0 = bias[n], b1 = bias[n + 1];
+      const float b0 = bias[nl], b1 = bias[nl + 1];
       y[0] = __fadd_rn(y[0], b0);
       y[1] = __fadd_rn(y[1], b1);
       y[2] = __fadd_rn(y[2], b0);
       y[3] = __fadd_rn(y[3], b1);
     }
-    if (ra < M) store2(out + (size_t)ra * N + n, y[0], y[1]);
-    if (rb < M) store2(out + (size_t)rb * N + n, y[2], y[3]);
+    if (ra < M && n < N) store2(out + (size_t)ra * N + n, y[0], y[1]);
+    if (rb < M && n < N) store2(out + (size_t)rb * N + n, y[2], y[3]);
   }
 }
 
@@ -159,7 +172,7 @@ int launch(const void* xq, const void* xs, const void* wq, const void* ws, const
   const cudaError_t c =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<BN>());
   if (c != cudaSuccess) return (int)c;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, kThreads, smem_bytes<BN>(), stream>>>(amap, bmap, (const float*)xs, (const float*)ws,
                                                      (const float*)bias, (OutT*)out, M, N, K);
   return (int)cudaGetLastError();
@@ -168,11 +181,12 @@ int launch(const void* xq, const void* xs, const void* wq, const void* ws, const
 }  // namespace
 
 // wq: the weight codes as [N, K] storage (K-major).  bn: the output tile's
-// width (128 or 64; ops/quant_matmul.py::q8a8_plan picks it).
+// width (128 or 64; ops/quant_matmul.py::q8a8_plan picks it).  K and N are
+// multiples of 64.
 extern "C" int norma_q8a8(const void* xq, const void* xs, const void* wq, const void* ws,
                           const void* bias, void* out, int M, int N, int K, int bn, int out_bf16,
                           void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % BKB || (bn != 64 && bn != 128) || N % bn)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 64 || N % 64 || (bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bn == 128)

@@ -30,6 +30,19 @@ CUDA each chunk is a captured CUDA graph, replayed; on the CPU the same
 steps run eagerly.  Every host read is counted in
 :attr:`DecodeEngine.host_syncs`.
 
+Tensor parallelism: an engine built on
+:class:`~norma_tpu_torch.parallel.collectives.TPParams` (the tp shards of
+the ranks it runs in this process, and their group; ``parallel/
+data_parallel.py`` builds it from a mesh) runs every model call on each
+rank's shard, the ranks in lockstep through the group's collectives
+(``model/whisper.py``'s layer generators).  Its per-rank values -- kernel
+params, cross-K/V, self-attention caches -- are
+:class:`~norma_tpu_torch.parallel.collectives.RankList`; what the ranks
+share (logits, which every rank gets whole, tokens, the loop's state) is
+held once, so the sampler and the ladder run once per process and every
+rank's step reads the same token.  The token loop's chunk graphs hold
+every local rank's work and its collectives.
+
 ``quantize_cross_kv`` (int8, or int4 under ``cross_kv_impl="kernel"``)
 quantizes the cross-K/V the token loop reads, per window after prefill;
 prefill and language detection stay unquantized.  Under
@@ -56,6 +69,10 @@ from ..model.config import WhisperConfig
 from ..model.load import Params
 from ..model.quant import prep_encoder_q8_kernel
 from ..model.whisper import (
+    _decoder_prefill,
+    _decoder_step,
+    _encode,
+    _quantize_self_kv_cache,
     cross_kv,
     decoder_prefill,
     decoder_step,
@@ -68,6 +85,7 @@ from ..ops import _build
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
+from ..parallel.collectives import Rank, RankList, TPParams, first, lockstep, per_rank, unzip
 from ..parallel.sharding import ShardedParams
 from ..tracing import annotate, decode_telemetry, instrument
 from .masks import SpecialTokens, build_masks
@@ -87,7 +105,10 @@ class DecodingResult:
 
 def _crop(cache, S: int):
     """Rows [0, S) of a [L, B, T, ...] cache, or of each tensor of an int8
-    cache's {"q", "s"} (views, so row writes land in the full cache)."""
+    cache's {"q", "s"} (views, so row writes land in the full cache); each
+    rank's of a :class:`RankList`."""
+    if isinstance(cache, RankList):
+        return RankList(_crop(c, S) for c in cache)
     if isinstance(cache, dict):
         return {k: v[:, :, :S] for k, v in cache.items()}
     return cache[:, :, :S]
@@ -95,7 +116,10 @@ def _crop(cache, S: int):
 
 def _tile_rows(cache, R: int):
     """The cache's stream axis repeated R times (rung r of stream b at row
-    r*B + b), for a tensor or an int8 cache's {"q", "s"}."""
+    r*B + b), for a tensor or an int8 cache's {"q", "s"} (each rank's of a
+    :class:`RankList`)."""
+    if isinstance(cache, RankList):
+        return RankList(_tile_rows(c, R) for c in cache)
     if isinstance(cache, dict):
         return {k: v.repeat(1, R, 1, 1) for k, v in cache.items()}
     return cache.repeat(1, R, 1, 1)
@@ -125,6 +149,8 @@ def _like(x):
     """An uninitialised tensor (or tree) with ``x``'s shape, strides and dtype."""
     if isinstance(x, dict):
         return {k: _like(v) for k, v in x.items()}
+    if isinstance(x, RankList):
+        return RankList(_like(v) for v in x)
     return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
 
 
@@ -132,6 +158,9 @@ def _copy_into(dst, src) -> None:
     if isinstance(dst, dict):
         for k in dst:
             dst[k].copy_(src[k])
+    elif isinstance(dst, RankList):
+        for d, v in zip(dst, src):
+            _copy_into(d, v)
     else:
         dst.copy_(src)
 
@@ -193,6 +222,14 @@ class _LoopBuffers:
         self.seed.fill_(key - (1 << 64) if key >= 1 << 63 else key)
 
 
+# The layer generators (model/whisper.py) of the model functions a tp
+# engine runs on its ranks.
+_RANK_FNS = {
+    "encode": _encode, "decoder_prefill": _decoder_prefill, "decoder_step": _decoder_step,
+    "quantize_self_kv_cache": _quantize_self_kv_cache,
+}
+
+
 class DecodeEngine:
     """Encode / prefill / decode-loop bundle for one model on one device.
 
@@ -203,7 +240,9 @@ class DecodeEngine:
     :class:`~norma_tpu_torch.parallel.data_parallel.DataParallelEngine`
     instead: one engine of this class per dp position, each on its
     position's params, device, thread and stream.  The mesh is the
-    params'; a ``mesh`` argument must name the same one.
+    params'; a ``mesh`` argument must name the same one.  An engine on
+    :class:`~norma_tpu_torch.parallel.collectives.TPParams` runs tp ranks
+    (module docstring).
     """
 
     def __new__(cls, params=None, *args, mesh=None, **kwargs):
@@ -232,13 +271,24 @@ class DecodeEngine:
         self.cfg = cfg
         self.st = st
         self.device = params.device
-        if self.device.type == "cuda" and params["decoder"]["tok_emb"].dtype == torch.float32:
+        shards = params.shards if isinstance(params, TPParams) else [params]
+        self._group = params.group if isinstance(params, TPParams) else None
+        tp = 1 if self._group is None else self._group.size
+        for n in ("d_model", "encoder_attention_heads", "decoder_attention_heads"):
+            if getattr(cfg, n) % tp:
+                raise ValueError(f"{n}={getattr(cfg, n)} does not split over tp={tp}")
+        self._heads = cfg.decoder_attention_heads // tp  # the heads each rank runs
+        if self.device.type == "cuda" and shards[0]["decoder"]["tok_emb"].dtype == torch.float32:
             # The exact f32 path: cuBLAS matmuls and cuDNN convolutions (the
             # encoder's conv stem) may otherwise run in TF32, which keeps
             # ~3 decimal digits.  These are process-wide torch settings.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.params = self._kernel_params(params, cfg, self.device)
+        kparams = [self._kernel_params(p, cfg, self.device) for p in shards]
+        self.params = kparams[0]
+        # The params the layer code runs on: each rank's under tp.
+        self._rp = self.params if self._group is None else RankList(kparams)
+        self._tp_ranks = None if self._group is None else [Rank(r, tp) for r in params.ranks]
         # False = reference (whisper.cpp/candle) framing; True = OpenAI/HF
         # centered STFT.
         self.mel_center = bool(mel_center)
@@ -311,6 +361,24 @@ class DecodeEngine:
         self.host_syncs += 1
         return t.cpu().numpy()
 
+    def _fan(self, name: str, *args):
+        """The model function ``name`` of this module over the engine's
+        ranks: without tp the function itself, once; under tp its layer
+        generator (:data:`_RANK_FNS`) on each local rank's
+        :class:`RankList` values (the rest shared), the ranks in lockstep
+        through the group (``cross_kv``, which meets no other rank, per
+        rank), the results as RankLists (a tuple of them for tuple
+        results)."""
+        fn = globals()[name]
+        if self._group is None:
+            return fn(*args)
+        gen = _RANK_FNS.get(name)
+        if gen is None:
+            return per_rank(fn, *args)
+        pick = lambda a, i: a[i] if isinstance(a, RankList) else a
+        gens = [gen(*(pick(a, i) for a in args), tp=r) for i, r in enumerate(self._tp_ranks)]
+        return unzip(RankList(lockstep(self._group, gens)))
+
     # ------------------------------------------------------------------
     # Device-side pieces
     # ------------------------------------------------------------------
@@ -318,14 +386,16 @@ class DecodeEngine:
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         """mel [B, n_mels, T] -> audio features [B, T//2, D]."""
-        return encode(self.params, self.cfg, torch.as_tensor(mel).to(self.device))
+        return first(self._fan("encode", self._rp, self.cfg, torch.as_tensor(mel).to(self.device)))
 
     def _quantize_xkv(self, xk, xv):
         """Window-time int8/int4 quantization of the loop's cross-K/V, in
         the form ``cfg.cross_kv_impl`` needs: the kernel layout under
         "kernel" (int4 is kernel-only, validated in ``__init__``), else
-        the plain per-channel dicts."""
-        H = self.cfg.decoder_attention_heads
+        the plain per-channel dicts (each rank's under tp)."""
+        if isinstance(xk, RankList):
+            return per_rank(self._quantize_xkv, xk, xv)
+        H = self._heads
         if self.quantize_cross_kv == "int4":
             return prep_cross_kv_kernel4(*quantize_cross_kv4(xk, xv), H)
         kq, vq = quantize_xkv8(xk, xv)
@@ -339,11 +409,11 @@ class DecodeEngine:
         logits at the SOT position (model.rs:300).  Under
         ``quantize_self_kv`` the caches come back int8 (the prefill pass
         itself is unquantized)."""
-        logits, cache_k, cache_v = decoder_prefill(
-            self.params, self.cfg, prefix_tokens, xk, xv
-        )
+        logits, cache_k, cache_v = self._fan("decoder_prefill", self._rp, self.cfg, prefix_tokens, xk, xv)
+        logits = first(logits)
         if self.quantize_self_kv:
-            cache_k, cache_v = quantize_self_kv_cache(cache_k), quantize_self_kv_cache(cache_v)
+            cache_k = self._fan("quantize_self_kv_cache", cache_k)
+            cache_v = self._fan("quantize_self_kv_cache", cache_v)
         nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, self.st.no_speech]
         return cache_k, cache_v, logits[:, -1, :].contiguous(), nsp
 
@@ -528,11 +598,11 @@ class DecodeEngine:
         buf.p1.copy_(torch.where(fin, buf.p1, nxt))
         buf.last_ts.copy_(torch.where(live & (nxt > st.no_timestamps), nxt, buf.last_ts))
         buf.fin.copy_(fin | hit_eot | forced_nan_eot | len_limit)
-        ll, _, _ = decoder_step(
-            self.params, cfg, nxt, buf.pos, _crop(buf.cache_k, S), _crop(buf.cache_v, S),
-            buf.xk, buf.xv, n_rungs=n_rungs,
+        ll, _, _ = self._fan(
+            "decoder_step", self._rp, cfg, nxt, buf.pos, _crop(buf.cache_k, S), _crop(buf.cache_v, S),
+            buf.xk, buf.xv, n_rungs,
         )
-        buf.ll.copy_(ll)
+        buf.ll.copy_(first(ll))
         buf.step.add_(1)
         buf.pos.add_(1)
 
@@ -567,12 +637,12 @@ class DecodeEngine:
             audio, n_mels=cfg.num_mel_bins, n_frames=2 * cfg.max_source_positions,
             center=self.mel_center,
         )
-        feats = encode(self.params, cfg, mel)
-        xk, xv = cross_kv(self.params, cfg, feats)
+        feats = self._fan("encode", self._rp, cfg, mel)  # each rank's, whole
+        xk, xv = self._fan("cross_kv", self._rp, cfg, feats)
         dev = audio.device
         if detect:
             sot = torch.full((B, 1), st.sot, dtype=torch.int32, device=dev)
-            logits1, _, _ = decoder_prefill(self.params, cfg, sot, xk, xv)
+            logits1 = first(self._fan("decoder_prefill", self._rp, cfg, sot, xk, xv)[0])
             lang_probs = torch.softmax(logits1[:, 0, self._lang_ids], dim=-1)
             detected = self._lang_ids[lang_probs.argmax(-1)]  # first of equal maxima
             langs = torch.where(langs < 0, detected.to(langs.dtype), langs)
@@ -853,10 +923,11 @@ class DecodeEngine:
 
     @torch.no_grad()
     def prefill(self, feats: torch.Tensor, lang_token):
-        feats = torch.as_tensor(feats).to(self.device)
-        B = feats.shape[0]
+        if not isinstance(feats, RankList):  # each rank's features (prefill_window)
+            feats = torch.as_tensor(feats).to(self.device)
+        B = first(feats).shape[0]
         prefix_arr = self._prefix_array(B, lang_token)
-        xk, xv = cross_kv(self.params, self.cfg, feats)
+        xk, xv = self._fan("cross_kv", self._rp, self.cfg, feats)
         ck, cv, nl, nsp = self._prefill_kv(torch.from_numpy(prefix_arr).to(self.device), xk, xv)
         if self.quantize_cross_kv:  # loop-side only
             xk, xv = self._quantize_xkv(xk, xv)
@@ -946,9 +1017,9 @@ class DecodeEngine:
             raise ValueError("language detection requires language_token_ids")
         feats = torch.as_tensor(feats).to(self.device)
         B = feats.shape[0]
-        xk, xv = cross_kv(self.params, self.cfg, feats)
+        xk, xv = self._fan("cross_kv", self._rp, self.cfg, feats)
         sot = torch.full((B, 1), self.st.sot, dtype=torch.int32, device=self.device)
-        logits, _, _ = decoder_prefill(self.params, self.cfg, sot, xk, xv)
+        logits = first(self._fan("decoder_prefill", self._rp, self.cfg, sot, xk, xv)[0])
         return self._host(torch.softmax(logits[:, 0, self._lang_ids], dim=-1))
 
     def decode(
@@ -971,4 +1042,4 @@ class DecodeEngine:
             audio_t, n_mels=cfg.num_mel_bins, n_frames=2 * cfg.max_source_positions,
             center=self.mel_center,
         )
-        return self.prefill(encode(self.params, cfg, mel), lang_token)
+        return self.prefill(self._fan("encode", self._rp, cfg, mel), lang_token)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD
+from ..errors import NormaError
 from ..model.config import WhisperConfig
 from ..model.load import Params
 from ..model.whisper import (
@@ -50,6 +51,7 @@ from ..model.whisper import (
 )
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
+from ..parallel.collectives import TPParams
 from ..tracing import instrument
 from .engine import DecodeEngine, DecodingResult, _copy_into, _like, _signature
 from .masks import SpecialTokens
@@ -145,6 +147,11 @@ class SpeculativeEngine(DecodeEngine):
         quantize_cross_kv: "bool | str" = False,
         spec_k=4,
     ):
+        if isinstance(params, TPParams) or isinstance(draft_params, TPParams):
+            raise NormaError(
+                "speculative decoding on tp-sharded params is not supported yet (ROADMAP queue 1, "
+                "'SpeculativeEngine on tp'); shard the target and the draft over dp only"
+            )
         if draft_cfg.d_model != cfg.d_model:
             raise ValueError(
                 "draft d_model must match the target's (the draft reuses "

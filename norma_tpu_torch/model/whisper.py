@@ -30,6 +30,23 @@ engine quantizes the cross-K/V: the stacked kernel layout
 per-row scales (:func:`attention_self_q8`) when the engine quantizes the
 self-K/V.
 
+Tensor parallelism (the JAX package's params under GSPMD, Megatron
+layout: ``parallel/sharding.py``).  The layer code is written once, for
+one rank: :func:`_encode`, :func:`_decoder_prefill`, :func:`_decoder_step`
+and :func:`_logits_head` are generators that take the rank's shard and a
+``tp`` rank (``.index`` on the tp axis, ``.size``; None for no tp) and
+yield ``(op, tensor, kwargs)`` where the ranks must meet: "sum" (f32) of
+the row-parallel partial products of ``o_w``, ``xo_w`` and ``fc2_w`` and of
+the D-sharded tied head, before the bias and the one rounding, as
+``jnp.dot(..., preferred_element_type=f32)`` under GSPMD reduces them;
+"max" of the row amax where a row is split (the w8a8 activations of
+``o_w`` and ``fc2_w``, the int8 self-KV rows); "gather" of the D-sharded
+token embedding and of the int8 head's vocabulary shards.
+``parallel/collectives.py::lockstep`` drives every rank of a process
+through them; the public functions here run one unsharded rank
+(:func:`_solo`: no request is ever made).  Each rank runs ``n_heads /
+tp`` heads on its columns, and its caches hold its D / tp columns.
+
 Differences from the JAX form, all outcome-neutral:
   - the layer scans are Python loops over per-layer views;
   - :func:`decoder_step` and :func:`decoder_chunk` (the speculative verify
@@ -105,6 +122,30 @@ def _finish(y: torch.Tensor, bias: Optional[torch.Tensor], dtype: torch.dtype) -
     return y.to(dtype)
 
 
+def _meet(tp, op: str, t: torch.Tensor, **kw):
+    """``t`` combined over the tp ranks (a generator: the request is
+    yielded to :func:`~norma_tpu_torch.parallel.collectives.lockstep`,
+    which sends back this rank's result); ``t`` itself without tensor
+    parallelism."""
+    if tp is None:
+        return t
+    return (yield (op, t, kw))
+
+
+def _solo(gen):
+    """The value of a layer generator run without tensor parallelism."""
+    try:
+        req = next(gen)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError(f"a collective ({req[0]}) outside a tensor-parallel group")
+
+
+def _heads(n_heads: int, tp) -> int:
+    """The heads a rank runs: ``n_heads / tp``."""
+    return n_heads if tp is None else n_heads // tp.size
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b), f32 accumulation, one rounding."""
     return _finish(mm_f32(x, w.to(x.dtype)), b, x.dtype)
@@ -119,6 +160,20 @@ def ldense(lp: Layer, name: str, x: torch.Tensor, bias: Optional[torch.Tensor] =
     if qk in lp:
         return _finish(w8_dense(x, lp[qk], lp[name + "_s"]), bias, x.dtype)
     return dense(x, lp[name], bias)
+
+
+def _row_dense(lp: Layer, name: str, x: torch.Tensor, bias: Optional[torch.Tensor], tp):
+    """A row-parallel product (``o_w``, ``xo_w``, ``fc2_w``): x's columns
+    times the rank's rows of ``name`` (int8 or full precision, as
+    :func:`ldense`), the f32 partials summed over the ranks, then the bias
+    and one rounding."""
+    qk = name + "_q"
+    if qk in lp:
+        y = w8_dense(x, lp[qk], lp[name + "_s"])
+    else:
+        y = mm_f32(x, lp[name].to(x.dtype))
+    y = yield from _meet(tp, "sum", y)
+    return _finish(y, bias, x.dtype)
 
 
 def qkv_proj(lp: Layer, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -202,9 +257,9 @@ def attention_grouped(
     return out.permute(0, 1, 3, 2, 4).reshape(gb, tq, d)
 
 
-def _mlp(lp: Layer, x: torch.Tensor) -> torch.Tensor:
+def _mlp(lp: Layer, x: torch.Tensor, tp=None):
     h = gelu(ldense(lp, "fc1_w", x, lp["fc1_b"]))
-    return ldense(lp, "fc2_w", h, lp["fc2_b"])
+    return (yield from _row_dense(lp, "fc2_w", h, lp["fc2_b"], tp))
 
 
 # --------------------------------------------------------------------------
@@ -221,11 +276,25 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int) -> t
     return y.to(x.dtype)
 
 
-def _q8_dense(lp: Layer, name: str, x: torch.Tensor, bias=None) -> torch.Tensor:
-    """w8a8 dense (``quantize_encoder``): per-row dynamic int8 activations
-    x stored int8 weights through the int8 GEMM."""
-    xq, xs = quantize_activations(x)
-    return q8a8_dense(xq, xs, lp[name + "_q"], lp[name + "_s"], bias, out_dtype=x.dtype)
+def _q8_row(lp: Layer, name: str, x: torch.Tensor, bias, tp):
+    """Row-parallel w8a8 dense (``o_w``, ``fc2_w`` under
+    ``quantize_encoder``): per-row dynamic int8 activations x stored int8
+    weights through the int8 GEMM.  Under tp, x is a shard of its row: the
+    row's amax is the max over the ranks (GSPMD's grid), each rank's GEMM
+    runs with unit scales, so its f32 result is the exact integer partial
+    (|partial| < 2**24 for any realistic row), the partials are summed
+    over the ranks, and ``acc * xs * ws (+ b)`` follows in f32, in the
+    kernel epilogue's order, as GSPMD's int32 psum does."""
+    amax = None  # one rank: quantize_activations takes it from x
+    if tp is not None:
+        amax = yield from _meet(tp, "max", x.float().abs().amax(dim=-1, keepdim=True))
+    xq, xs = quantize_activations(x, amax)
+    wq, ws = lp[name + "_q"], lp[name + "_s"]
+    if tp is None:
+        return q8a8_dense(xq, xs, wq, ws, bias, out_dtype=x.dtype)
+    acc = q8a8_dense(xq, torch.ones_like(xs), wq, torch.ones_like(ws))
+    acc = yield from _meet(tp, "sum", acc)
+    return _finish(acc * xs * ws.float(), bias, x.dtype)
 
 
 def _qkv_proj_q8(lp: Layer, x: torch.Tensor):
@@ -244,12 +313,28 @@ def _qkv_proj_q8(lp: Layer, x: torch.Tensor):
     )
 
 
-def _mlp_q8(lp: Layer, x: torch.Tensor) -> torch.Tensor:
-    xq, xs = quantize_activations(x)
-    h = F.gelu(q8a8_dense(xq, xs, lp["fc1_w_q"], lp["fc1_w_s"], lp["fc1_b"]), approximate="none")
-    h = h.to(x.dtype)
-    hq, hs = quantize_activations(h)
-    return q8a8_dense(hq, hs, lp["fc2_w_q"], lp["fc2_w_s"], lp["fc2_b"], out_dtype=x.dtype)
+def _mlp_q8(lp: Layer, x: torch.Tensor, tp=None):
+    xq, xs = quantize_activations(x)  # x is whole on every rank
+    # Rounded at once: the f32 GELU output is not kept alive through fc2.
+    h = F.gelu(q8a8_dense(xq, xs, lp["fc1_w_q"], lp["fc1_w_s"], lp["fc1_b"]), approximate="none").to(x.dtype)
+    return (yield from _q8_row(lp, "fc2_w", h, lp["fc2_b"], tp))
+
+
+def _encoder_layer(lp: Layer, x: torch.Tensor, n_heads: int, flash: bool, q8_mode: str, tp):
+    w8a8 = "fc1_w_q" in lp and q8_mode in ("w8a8", "w8a8_pallas")
+    n_heads = _heads(n_heads, tp)
+    h = layer_norm(x, lp["attn_ln_g"], lp["attn_ln_b"])
+    q, k, v = _qkv_proj_q8(lp, h) if w8a8 else qkv_proj(lp, h)
+    if flash:
+        a = flash_self_attention(q, k, v, n_heads)
+    else:
+        a = attention(q, k, v, n_heads)
+    if w8a8:
+        x = x + (yield from _q8_row(lp, "o_w", a, lp["o_b"], tp))
+    else:
+        x = x + (yield from _row_dense(lp, "o_w", a, lp["o_b"], tp))
+    h = layer_norm(x, lp["mlp_ln_g"], lp["mlp_ln_b"])
+    return x + (yield from (_mlp_q8(lp, h, tp) if w8a8 else _mlp(lp, h, tp)))
 
 
 def encoder_layer(
@@ -260,16 +345,7 @@ def encoder_layer(
     the w8a8 int8 GEMM unless ``q8_mode`` is "w8a16", which runs
     :func:`ldense` (:func:`~norma_tpu_torch.ops.quant_matmul.w8_dense`, the
     w8 kernel on the card) over the int8 codes."""
-    w8a8 = "fc1_w_q" in lp and q8_mode in ("w8a8", "w8a8_pallas")
-    h = layer_norm(x, lp["attn_ln_g"], lp["attn_ln_b"])
-    q, k, v = _qkv_proj_q8(lp, h) if w8a8 else qkv_proj(lp, h)
-    if flash:
-        a = flash_self_attention(q, k, v, n_heads)
-    else:
-        a = attention(q, k, v, n_heads)
-    x = x + (_q8_dense(lp, "o_w", a, lp["o_b"]) if w8a8 else ldense(lp, "o_w", a, lp["o_b"]))
-    h = layer_norm(x, lp["mlp_ln_g"], lp["mlp_ln_b"])
-    return x + (_mlp_q8(lp, h) if w8a8 else _mlp(lp, h))
+    return _solo(_encoder_layer(lp, x, n_heads, flash, q8_mode, None))
 
 
 def _encoder_flash(cfg: WhisperConfig) -> bool:
@@ -283,6 +359,12 @@ def _encoder_flash(cfg: WhisperConfig) -> bool:
 
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel: [B, n_mels, T_frames] -> audio features [B, T_frames//2, D]."""
+    return _solo(_encode(params, cfg, mel))
+
+
+def _encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor, tp=None):
+    """:func:`encode` on a rank's shard (module docstring); the features
+    come back whole on every rank."""
     flash = _encoder_flash(cfg)
     if cfg.encoder_q8_mode not in _Q8_MODES:
         raise ValueError(
@@ -296,8 +378,8 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tenso
     x = x + enc["pos"][: x.shape[1]].to(x.dtype)
     layers = enc["layers"]
     for i in range(cfg.encoder_layers):
-        x = encoder_layer(
-            layers.layer(i), x, cfg.encoder_attention_heads, flash, cfg.encoder_q8_mode
+        x = yield from _encoder_layer(
+            layers.layer(i), x, cfg.encoder_attention_heads, flash, cfg.encoder_q8_mode, tp
         )
     return layer_norm(x, enc["ln_g"], enc["ln_b"])
 
@@ -312,13 +394,36 @@ def logits_head(dec: Params, x: torch.Tensor) -> torch.Tensor:
     An int4 head (``tok_emb_q4``, :func:`~norma_tpu_torch.model.quant.
     quantize_logits_head_int4`) runs w4a16 and takes precedence; an int8
     head (``tok_emb_q8``) runs w8a16 on x cast to bf16."""
+    return _solo(_logits_head(dec, x))
+
+
+def _logits_head(dec: Params, x: torch.Tensor, tp=None):
+    """:func:`logits_head` on a rank's shard, x whole: the int4 head is
+    replicated; the int8 head's vocabulary shards are gathered (ragged where
+    tp does not divide V); the bf16 head's D shard takes x's columns and
+    the [..., V] partials are summed."""
     if "tok_emb_q4" in dec:
         q4 = dec["tok_emb_q4"]
         return w4_matmul(x, q4["q"], q4["s"])
     if "tok_emb_q8" in dec:
         q8 = dec["tok_emb_q8"]
-        return w8_matmul(x, q8["q"], q8["s"])
-    return mm_f32(x, dec["tok_emb"].t())
+        y = w8_matmul(x, q8["q"], q8["s"])
+        if tp is None:  # a head-only tree has no tok_emb
+            return y
+        return (yield from _meet(tp, "gather", y, dim=-1, total=dec["tok_emb"].shape[0]))
+    w = dec["tok_emb"]
+    if tp is None:
+        return mm_f32(x, w.t())
+    d = w.shape[1]
+    y = mm_f32(x[..., tp.index * d:(tp.index + 1) * d], w.t())
+    return (yield from _meet(tp, "sum", y))
+
+
+def _embed(dec: Params, tokens: torch.Tensor, tp):
+    """The token embedding rows of ``tokens``, whole: under tp each rank
+    holds D / tp columns of every row and the rows are gathered."""
+    e = dec["tok_emb"][tokens.long()]
+    return (yield from _meet(tp, "gather", e, dim=-1, total=e.shape[-1] * (1 if tp is None else tp.size)))
 
 
 def _cross_proj(layers: Params, name: str, xa: torch.Tensor, bias) -> torch.Tensor:
@@ -414,12 +519,24 @@ def cross_q8_attn(
     return attention_cross_q8(q, kq, vq, n_heads, n_groups)
 
 
-def quantize_kv_row(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_row(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K or V rows [..., D] -> (int8 [..., D], f32 scale [..., 1]) with
-    scale = max(amax over D, 1e-8) / 127 (the JAX package's grid)."""
+    scale = max(amax over D, 1e-8) / 127 (the JAX package's grid).
+    ``amax`` [..., 1] is the whole row's when ``x`` holds a rank's columns."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(amax, min=1e-8) / 127.0
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _quantize_kv_rows(x: torch.Tensor, tp):
+    """:func:`quantize_kv_row` with the amax over the whole row: under tp
+    the max over the ranks' columns, as GSPMD computes it."""
+    amax = None
+    if tp is not None:
+        amax = yield from _meet(tp, "max", x.float().abs().amax(dim=-1, keepdim=True))
+    return quantize_kv_row(x, amax)
 
 
 @torch.no_grad()
@@ -428,7 +545,12 @@ def quantize_self_kv_cache(cache: torch.Tensor) -> XKV:
     shape, "s": [L, B, T, 1] f32}, on the grid the token loop's row writes
     use (:func:`quantize_kv_row`), so prefix rows and loop rows quantize
     alike.  Unwritten rows quantize to zeros; the position mask hides them."""
-    q, s = quantize_kv_row(cache)
+    return _solo(_quantize_self_kv_cache(cache))
+
+
+def _quantize_self_kv_cache(cache: torch.Tensor, tp=None):
+    """:func:`quantize_self_kv_cache` of a rank's columns (whole-row scales)."""
+    q, s = yield from _quantize_kv_rows(cache, tp)
     return {"q": q, "s": s}
 
 
@@ -452,13 +574,13 @@ def attention_self_q8(
     return _merge_heads(torch.matmul(w.to(q.dtype).float(), vh).to(q.dtype))
 
 
-def _decoder_layer_cross_mlp(lp: Layer, x: torch.Tensor, cross_attn: Callable) -> torch.Tensor:
+def _decoder_layer_cross_mlp(lp: Layer, x: torch.Tensor, cross_attn: Callable, tp=None):
     """The cross-attention + MLP tail of one decoder layer."""
     h = layer_norm(x, lp["xattn_ln_g"], lp["xattn_ln_b"])
     xq = ldense(lp, "xq_w", h, lp["xq_b"])
-    x = x + ldense(lp, "xo_w", cross_attn(xq), lp["xo_b"])
+    x = x + (yield from _row_dense(lp, "xo_w", cross_attn(xq), lp["xo_b"], tp))
     h = layer_norm(x, lp["mlp_ln_g"], lp["mlp_ln_b"])
-    return x + _mlp(lp, h)
+    return x + (yield from _mlp(lp, h, tp))
 
 
 def decoder_prefill(
@@ -474,14 +596,20 @@ def decoder_prefill(
     Returns (logits [B, P, V] f32, cache_k, cache_v [L, B, Tmax, D]) where
     rows [0, P) of the caches are populated and the rest are zeros.
     """
+    return _solo(_decoder_prefill(params, cfg, tokens, xk, xv))
+
+
+def _decoder_prefill(params: Params, cfg: WhisperConfig, tokens, xk, xv, tp=None):
+    """:func:`decoder_prefill` on a rank's shard: xk/xv and the caches hold
+    the rank's D / tp columns; the logits come back whole."""
     dec = params["decoder"]
     B, P = tokens.shape
-    L, D = cfg.decoder_layers, cfg.d_model
-    n_heads = cfg.decoder_attention_heads
+    L, D = cfg.decoder_layers, cfg.d_model // (1 if tp is None else tp.size)
+    n_heads = _heads(cfg.decoder_attention_heads, tp)
     dtype = dec["tok_emb"].dtype
     dev = tokens.device
 
-    x = dec["tok_emb"][tokens.long()] + dec["pos_emb"][:P]
+    x = (yield from _embed(dec, tokens, tp)) + dec["pos_emb"][:P]
     causal = torch.triu(
         torch.full((P, P), float("-inf"), device=dev), diagonal=1
     )
@@ -492,14 +620,14 @@ def decoder_prefill(
         lp = layers.layer(i)
         h = layer_norm(x, lp["attn_ln_g"], lp["attn_ln_b"])
         q, k, v = qkv_proj(lp, h)
-        x = x + ldense(lp, "o_w", attention(q, k, v, n_heads, causal), lp["o_b"])
+        x = x + (yield from _row_dense(lp, "o_w", attention(q, k, v, n_heads, causal), lp["o_b"], tp))
         cache_k[i, :, :P] = k
         cache_v[i, :, :P] = v
-        x = _decoder_layer_cross_mlp(
-            lp, x, lambda xq, i=i: attention(xq, xk[i], xv[i], n_heads)
+        x = yield from _decoder_layer_cross_mlp(
+            lp, x, lambda xq, i=i: attention(xq, xk[i], xv[i], n_heads), tp
         )
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    return logits_head(dec, x), cache_k, cache_v
+    return (yield from _logits_head(dec, x, tp)), cache_k, cache_v
 
 
 @torch.no_grad()
@@ -539,8 +667,14 @@ def decoder_step(
     layer; the kernel layout ({"codes"/"codes4", "s"}) runs the stacked
     kernel, which addresses layer ``li`` by index (never a slice).
     """
+    return _solo(_decoder_step(params, cfg, tok, pos, cache_k, cache_v, xk, xv, n_rungs))
+
+
+def _decoder_step(params: Params, cfg: WhisperConfig, tok, pos, cache_k, cache_v, xk, xv, n_rungs=1, tp=None):
+    """:func:`decoder_step` on a rank's shard: caches and cross-K/V hold the
+    rank's D / tp columns; the logits come back whole."""
     dec = params["decoder"]
-    n_heads = cfg.decoder_attention_heads
+    n_heads = _heads(cfg.decoder_attention_heads, tp)
     q8_cache = isinstance(cache_k, dict)
     T = (cache_k["q"] if q8_cache else cache_k).shape[2]
     dev = tok.device
@@ -556,7 +690,7 @@ def decoder_step(
         raise ValueError(f"unknown self_kv_impl {cfg.self_kv_impl!r}")
     use_kernel = cfg.self_kv_impl == "kernel" and not q8_cache
 
-    x = (dec["tok_emb"][tok.long()] + dec["pos_emb"].index_select(0, pos_t))[:, None, :]
+    x = ((yield from _embed(dec, tok, tp)) + dec["pos_emb"].index_select(0, pos_t))[:, None, :]
     key_mask = None
     if not use_kernel:
         idx = torch.arange(T, device=dev)
@@ -588,7 +722,7 @@ def decoder_step(
             a, _, _ = self_attention_decode(q, k, v, cache_k, cache_v, li, pos, n_heads)
         elif q8_cache:
             for c, row in ((cache_k, k), (cache_v, v)):
-                rq, rs = quantize_kv_row(row)  # [B, 1, D], [B, 1, 1]
+                rq, rs = yield from _quantize_kv_rows(row, tp)  # [B, 1, D], [B, 1, 1]
                 c["q"][li].index_copy_(1, pos_t, rq)
                 c["s"][li].index_copy_(1, pos_t, rs)
             a = attention_self_q8(
@@ -599,11 +733,11 @@ def decoder_step(
             cache_k[li].index_copy_(1, pos_t, k)
             cache_v[li].index_copy_(1, pos_t, v)
             a = attention(q, cache_k[li], cache_v[li], n_heads, key_mask)
-        x = x + ldense(lp, "o_w", a, lp["o_b"])
-        x = _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li))
+        x = x + (yield from _row_dense(lp, "o_w", a, lp["o_b"], tp))
+        x = yield from _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li), tp)
 
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    return logits_head(dec, x[:, 0, :]), cache_k, cache_v
+    return (yield from _logits_head(dec, x[:, 0, :], tp)), cache_k, cache_v
 
 
 @torch.no_grad()
@@ -682,7 +816,7 @@ def decoder_chunk(
         cache_v[li].scatter_(1, rows, v.to(cache_v.dtype))
         a = attention(q, cache_k[li], cache_v[li], n_heads, key_mask)
         x = x + ldense(lp, "o_w", a, lp["o_b"])
-        x = _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li))
+        x = _solo(_decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li)))
 
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
     return logits_head(dec, x), cache_k, cache_v

@@ -41,3 +41,17 @@ def inference_only(fn):
             return fn(*args, **kwargs)
 
     return wrapper
+
+
+def launch_counters() -> dict:
+    """The wrappers of the kernels the engines run, by kernel name, each
+    with its ``launches`` counter (what a path reads to show it ran its
+    kernels)."""
+    from . import flash_encoder, paged_cross, quant_matmul, sample_step, self_decode
+
+    return {
+        "sample_step": sample_step.sample_step, "self_decode": self_decode.self_attention_decode,
+        "cross_decode": paged_cross.cross_attention_q8_kernel_stacked,
+        "flash_encoder": flash_encoder.flash_self_attention, "q8a8": quant_matmul.q8a8_dense,
+        "w8_matmul": quant_matmul.w8_matmul, "w4_matmul": quant_matmul.w4_matmul,
+    }

@@ -227,7 +227,10 @@ def cross_attention_q8_kernel_stacked(
         raise ValueError(f"kernel head_dim must be {_KERNEL_HEAD_DIM}, got {dh}")
     plan = cross_decode_plan(B, H, n_groups, Ta, int4)
     for c in (kc, vc):
-        if (c.stride()[2:] != (c.shape[3] * dh, dh, 1) or c.data_ptr() % 16
+        # [H, Ta, dh] contiguous per (layer, stream); with one head (a
+        # tensor-parallel rank's share of few heads) that head's stride is
+        # never used, whatever it says.
+        if (c.stride()[3:] != (dh, 1) or (H > 1 and c.stride(2) != c.shape[3] * dh) or c.data_ptr() % 16
                 or c.stride(0) % 16 or c.stride(1) % 16):
             raise ValueError("codes must be contiguous per (layer, stream) and 16-byte aligned")
         if c.stride() != kc.stride():

@@ -360,14 +360,19 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
 w4_matmul.launches = 0
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations(
+    x: torch.Tensor, amax: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (last-axis) symmetric dynamic int8 quantization.
 
     x [..., in] -> (int8 codes [..., in], f32 scale [..., 1]); the floor
     keeps an all-subnormal row finite and an all-zero row gets scale 1.
-    |x| <= amax, so the codes need no clip."""
+    |x| <= amax, so the codes need no clip.  ``amax`` [..., 1] is the row's
+    max |x| when ``x`` is one shard of a longer row (tensor parallelism:
+    the max over every rank's shard), else it is taken from ``x``."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(amax > 0, torch.clamp(amax, min=1e-8) / 127.0, torch.ones_like(amax))
     return torch.round(xf / scale).to(torch.int8), scale
 
@@ -382,14 +387,17 @@ def q8a8_plan(M: int, N: int, K: int) -> dict:
     """Launch shape of the int8 GEMM kernel for [M, K] x [K, N]: 128 x 128
     output tiles, or 128 x 64 where 128-wide tiles would give the card's
     132 SMs fewer than two waves (M = 1500 at N = 1280: 120 tiles become
-    240).  K and N must be multiples of 128."""
-    if K <= 0 or N <= 0 or K % _Q8_BK or N % 128:
-        raise ValueError(f"q8a8 kernel needs K and N multiples of 128, got K={K} N={N}")
+    240).  K and N must be multiples of 64 (tensor-parallel shards: N = 960
+    and K = 320 at tp=4 for d_model 1280); a K tail slice and a last column
+    tile past N run predicated in the kernel (``tail_k``, ``tail_n``)."""
+    if K <= 0 or N <= 0 or K % 64 or N % 64:
+        raise ValueError(f"q8a8 kernel needs K and N multiples of 64, got K={K} N={N}")
     m_tiles = math.ceil(M / _Q8_BM)
-    bn = 128 if m_tiles * (N // 128) >= 2 * _H100_SMS else 64
+    bn = 128 if m_tiles * math.ceil(N / 128) >= 2 * _H100_SMS else 64
     smem = 1024 + _Q8_STAGES * (_Q8_BM + bn) * _Q8_BK + 2 * _Q8_STAGES * 8
     return dict(bm=_Q8_BM, bn=bn, bk=_Q8_BK, stages=_Q8_STAGES, threads=_Q8_THREADS,
-                grid=(N // bn, m_tiles), smem_bytes=smem)
+                grid=(math.ceil(N / bn), m_tiles), smem_bytes=smem,
+                tail_k=K % _Q8_BK != 0, tail_n=N % bn != 0)
 
 
 def kmajor_codes(q: torch.Tensor, axis: int = -2) -> torch.Tensor:

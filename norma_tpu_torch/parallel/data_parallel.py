@@ -1,25 +1,44 @@
-"""Data parallelism over a mesh's dp axis: one single-device replica engine
-per dp position (the counterpart of the JAX package's dp carry,
-``norma_tpu/decode/engine.py:108-166, 262-330``, which runs the
-single-device kernel program per device under ``shard_map`` over 'dp').
+"""Data and tensor parallelism over a mesh: one engine per dp position,
+each over its position's tp ranks (the counterpart of the JAX package's dp
+carry, ``norma_tpu/decode/engine.py:108-166, 262-330``, which runs the
+single-device kernel program per device under ``shard_map`` over 'dp', and
+of its tp-sharded params under GSPMD).
 
 ``DecodeEngine(params, ...)`` and ``SpeculativeEngine(params, ...,
 draft_params, ...)`` return a :class:`DataParallelEngine` when their params
 are :class:`~norma_tpu_torch.parallel.sharding.ShardedParams`: the engine
-takes its mesh from the params.  Each replica is the engine class built on
-its dp position's ``Params`` (its own kernel params, loop buffers, CUDA
-graphs, graph pool and side stream) and runs in its own worker thread on
-its own CUDA stream.  The port's window runs its whole ladder, host reads
-included, inside the call, so replicas that shared a host thread or the
-legacy default stream would run one after the other.
+takes its mesh from the params.  The mesh's devices choose how each
+position runs:
+
+  - every position on one device (virtual devices: the CPU, or one card
+    named several times): each position is an engine in this process --
+    the engine class on the position's ``Params`` for tp 1, a tp engine over
+    its ranks' shards and a :class:`~norma_tpu_torch.parallel.collectives.
+    LocalGroup` above;
+  - tp above 1, every rank on its own card (``sharding.in_workers``): each
+    position is a :class:`~norma_tpu_torch.parallel.workers.WorkerEngine`,
+    one worker process per card, its tp ranks reducing over NCCL;
+  - tp 1 on distinct cards: each replica is an engine in this process, as
+    on virtual devices.  These replicas run one after the other, and
+    worker processes were measured to run them at once (PERF.md section
+    7); the workers take them over once the multi-card serving checks
+    drive them;
+  - each position's ranks on one device of their own: engines in this
+    process, one LocalGroup each.
+
+Any other mesh (a tp group over distinct cards that also shares a card)
+raises.  Each position's engine runs in its own thread, on its own CUDA
+stream where it is in this process: the port's window runs its whole
+ladder, host reads included, inside the call, so positions that shared a
+host thread or the legacy default stream would run one after the other.
 
 Every window entry point splits its rows over the replicas when the batch
 B divides by dp (each replica chooses its ladder arm on its local batch,
 as the JAX ``shard_map`` program does, so t=0 tokens equal JAX's dp
 engine's); any other B runs whole on the first replica, the arm JAX's
 unsharded program chooses.  Other attributes and methods are the first
-replica's.  Params whose tp is above 1 raise: tensor parallelism is not
-run yet (ROADMAP queue 1, "tp").
+replica's.  ``SpeculativeEngine`` on params whose tp is above 1 raises
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -32,7 +51,9 @@ import torch
 
 from ..decode.engine import DecodeEngine
 from ..errors import NormaError
-from .sharding import Mesh, ShardedBatch, ShardedParams
+from .collectives import LocalGroup, TPParams
+from .sharding import Mesh, ShardedBatch, ShardedParams, in_workers
+from .workers import WorkerEngine
 
 
 class _Replica:
@@ -43,7 +64,8 @@ class _Replica:
     def __init__(self, engine, index: int):
         self.engine = engine
         self.device = engine.device
-        cuda = self.device.type == "cuda"
+        self.remote = isinstance(engine, WorkerEngine)  # its ranks are worker processes
+        cuda = self.device.type == "cuda" and not self.remote
         self.stream = torch.cuda.Stream(device=self.device) if cuda else None
         self._pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix=f"dp-replica-{index}")
 
@@ -63,6 +85,8 @@ class _Replica:
         after the caller's work so far (a copy from another card included:
         it completes before the caller's current stream on this device goes
         on), and is kept alive for that stream (``record_stream``)."""
+        if self.remote:
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         if not isinstance(x, torch.Tensor):
             return torch.from_numpy(np.ascontiguousarray(x))
         if x.device.type == "cuda" and self.stream is not None:
@@ -73,6 +97,8 @@ class _Replica:
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
+        if self.remote:
+            self.engine.close()
 
 
 def _gather(futures) -> list:
@@ -86,6 +112,9 @@ class DataParallelEngine:
     ``params`` the sharded params.  ``host_syncs``, ``decode_steps`` and
     ``graph_captures`` are sums over the replicas."""
 
+    # Whether a mesh's positions run in worker processes (module docstring).
+    _in_workers = staticmethod(in_workers)
+
     def __init__(self, cls, params: ShardedParams, *args, mesh: Optional[Mesh] = None, **kwargs):
         if not isinstance(params, ShardedParams):
             raise NormaError(
@@ -95,21 +124,39 @@ class DataParallelEngine:
         if mesh is not None and mesh != params.mesh:
             raise NormaError(f"mesh {mesh} is not the params' mesh {params.mesh}")
         self.mesh = params.mesh
-        if self.mesh.shape["tp"] > 1:
-            raise NormaError(
-                f"params are split over tp={self.mesh.shape['tp']}: tensor parallelism is not "
-                "supported yet (ROADMAP queue 1, 'tp'); shard them over dp only"
-            )
+        self.dp, self.tp = self.mesh.shape["dp"], self.mesh.shape["tp"]
         for a in list(args) + list(kwargs.values()):
             if isinstance(a, ShardedParams) and a.mesh != self.mesh:
                 raise NormaError(f"params sharded over two meshes: {self.mesh} and {a.mesh}")
+            if isinstance(a, ShardedParams) and self.tp > 1:
+                raise NormaError(
+                    f"{cls.__name__} on params split over tp={self.tp} is not supported yet (ROADMAP "
+                    "queue 1, 'SpeculativeEngine on tp'); shard the target and the draft over dp only"
+                )
         self.params = params
-        self.dp = self.mesh.shape["dp"]
-        pick = lambda a, i: a.replicas()[i] if isinstance(a, ShardedParams) else a
+        self.remote = self._in_workers(self.mesh)
+        if self.tp > 1 and not self.remote and any(len(set(row)) > 1 for row in self.mesh.devices):
+            raise NormaError(
+                f"tp ranks over {[str(d) for d in self.mesh.devices.flat]}: a tp group is on one device (one "
+                "process) or, with every rank of the mesh on its own card, one worker process a card"
+            )
+        pick = lambda a, i: a.shard(i) if isinstance(a, ShardedParams) else a
         self.replicas: List[_Replica] = []
-        for i, p in enumerate(params.replicas()):
-            engine = cls(p, *(pick(a, i) for a in args), **{k: pick(v, i) for k, v in kwargs.items()})
-            self.replicas.append(_Replica(engine, i))
+        try:
+            for i in range(self.dp):
+                a_i = tuple(pick(a, i) for a in args)
+                kw_i = {k: pick(v, i) for k, v in kwargs.items()}
+                devs = list(self.mesh.devices[i])
+                if self.remote:
+                    engine = WorkerEngine(cls, params.ranks(i), devs, a_i, kw_i)
+                elif self.tp > 1:
+                    engine = cls(TPParams(params.ranks(i), list(range(self.tp)), LocalGroup(devs)), *a_i, **kw_i)
+                else:
+                    engine = cls(params.shard(i), *a_i, **kw_i)
+                self.replicas.append(_Replica(engine, i))
+        except BaseException:
+            self.close()
+            raise
 
     # ------------------------------------------------------------------
 
@@ -136,8 +183,8 @@ class DataParallelEngine:
         return sum(r.engine.graph_captures for r in self.replicas)
 
     def close(self) -> None:
-        """Stop the replicas' worker threads."""
-        for r in self.replicas:
+        """Stop the replicas' threads and worker processes."""
+        for r in getattr(self, "replicas", []):
             r.close()
 
     # ------------------------------------------------------------------

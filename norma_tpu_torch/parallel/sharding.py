@@ -7,7 +7,9 @@
   - :func:`param_shardings` — the partition spec of every leaf (the
     Megatron table of the JAX package), as a tuple of axis names
   - :func:`shard_params` — :class:`ShardedParams`: one ``Params`` per mesh
-    position, on that position's device, holding its tp slice
+    position, on that position's device (on the host where the position's
+    rank runs in a worker process, :func:`in_workers`), holding its tp
+    slice
   - :func:`batch_sharding` / :func:`shard_batch` — the leading (stream)
     axis split over ``dp``
 
@@ -17,9 +19,11 @@ devices=["cpu", "cpu"])`` is a dp mesh on the CPU, ``devices=["cuda:0",
 "cuda:0"]`` two replicas on one card.  Positions on the device that
 already holds a tensor share it (``.to`` copies nothing there).
 
-``DecodeEngine`` runs sharded params whose tp is 1 as one replica engine
-per dp position (``parallel/data_parallel.py``); tensor parallelism is
-not run yet (ROADMAP queue 1, "tp"), but the spec table is its data.
+``DecodeEngine`` runs sharded params as one engine per dp position
+(``parallel/data_parallel.py``), each over that position's tp shards
+(:meth:`ShardedParams.ranks`): one engine over every rank where the ranks
+share a device, one worker process per card where a tp group spans
+distinct cards (:func:`in_workers`, ``parallel/workers.py``).
 """
 
 from __future__ import annotations
@@ -168,23 +172,50 @@ def param_shardings(params, mesh: Mesh):
     return _map(params, lambda path, leaf: _leaf_spec(path))
 
 
-def _slice(t: torch.Tensor, spec: Spec, mesh: Mesh, j: int) -> torch.Tensor:
-    """Position ``j`` of the tp axis's slice of ``t`` under ``spec``."""
+def split_sizes(n: int, tp: int) -> List[int]:
+    """The sizes of ``n`` split over ``tp`` as GSPMD pads an axis tp does not
+    divide: ceil-sized shards, the last one short (51866 over 4: 12967 x 3
+    and 12965)."""
+    c = -(-n // tp)
+    return [max(min(c, n - j * c), 0) for j in range(tp)]
+
+
+def _ragged(keys: Tuple[str, ...]) -> bool:
+    """Whether a leaf's tp axis may split unevenly: the int8 head's vocab."""
+    return "tok_emb_q8" in keys
+
+
+def _slice(t: torch.Tensor, spec: Spec, mesh: Mesh, j: int, ragged: bool = False) -> torch.Tensor:
+    """Position ``j`` of the tp axis's slice of ``t`` under ``spec``; an axis
+    tp does not divide splits only where ``ragged`` (:func:`split_sizes`)."""
     tp = mesh.shape["tp"]
     if tp == 1 or "tp" not in spec:
         return t
     ax = spec.index("tp")
-    if t.shape[ax] % tp:
+    if t.shape[ax] % tp and not ragged:
         raise ValueError(f"axis {ax} of size {t.shape[ax]} does not split over tp={tp}")
-    n = t.shape[ax] // tp
-    return t.narrow(ax, j * n, n).contiguous()
+    sizes = split_sizes(t.shape[ax], tp)
+    return t.narrow(ax, sum(sizes[:j]), sizes[j]).contiguous()
+
+
+def in_workers(mesh: Mesh) -> bool:
+    """Whether ``mesh``'s tp ranks run in worker processes, one a card: a tp
+    above 1 over distinct cards (NCCL takes one rank a process).  Every
+    other mesh runs in this process, dp of tp 1 on distinct cards in
+    threads: worker processes run such replicas at once where threads do
+    not (PERF.md section 7), but the multi-card serving checks do not
+    drive them there yet."""
+    devs = list(mesh.devices.flat)
+    return mesh.shape["tp"] > 1 and len(set(devs)) == len(devs) and all(d.type == "cuda" for d in devs)
 
 
 class ShardedParams:
     """Params laid out over a mesh: ``shard(i, j)`` is the ``Params`` of
-    mesh position (dp i, tp j), on that position's device, holding its tp
-    slice of every leaf (the whole leaf where tp is 1 or the leaf is
-    replicated); ``specs`` is :func:`param_shardings`'s tree."""
+    mesh position (dp i, tp j) holding its tp slice of every leaf (the whole
+    leaf where tp is 1 or the leaf is replicated), on that position's
+    device -- or on the host where :func:`in_workers`: each worker process
+    puts its own shard on its card, so a card holds it once; ``specs`` is
+    :func:`param_shardings`'s tree."""
 
     def __init__(self, mesh: Mesh, specs, shards: List[Params]):
         if len(shards) != mesh.size:
@@ -199,13 +230,21 @@ class ShardedParams:
     def replicas(self) -> List[Params]:
         """One full ``Params`` per dp position (tp must be 1)."""
         if self.mesh.shape["tp"] != 1:
-            raise ValueError(f"params split over tp={self.mesh.shape['tp']} have no full replicas")
+            raise ValueError(
+                f"params split over tp={self.mesh.shape['tp']} have no full replicas: "
+                "ranks(i) gives dp position i's tp shards"
+            )
         return list(self._shards)
+
+    def ranks(self, i: int) -> List[Params]:
+        """dp position ``i``'s tp shards, in rank order."""
+        tp = self.mesh.shape["tp"]
+        return self._shards[i * tp:(i + 1) * tp]
 
     @property
     def device(self) -> torch.device:
         """The first position's device."""
-        return self._shards[0].device
+        return self.mesh.devices[0, 0]
 
     def devices(self) -> List[torch.device]:
         """Every mesh position's device, in mesh order (a device named twice
@@ -219,11 +258,14 @@ def shard_params(params, mesh: Mesh) -> ShardedParams:
     copies nothing there."""
     specs = param_shardings(params, mesh)
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    host = in_workers(mesh)
     shards = []
     for i in range(dp):
         for j in range(tp):
-            dev = mesh.devices[i, j]
-            shards.append(Params(_map(params, lambda path, t: _slice(t, _leaf_spec(path), mesh, j).to(dev))))
+            dev = torch.device("cpu") if host else mesh.devices[i, j]
+            shards.append(Params(_map(
+                params, lambda path, t: _slice(t, _leaf_spec(path), mesh, j, _ragged(path)).to(dev)
+            )))
     return ShardedParams(mesh, specs, shards)
 
 

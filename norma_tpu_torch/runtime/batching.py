@@ -106,8 +106,8 @@ class BatchedTranscriber:
         must run on params sharded over it (``parallel.shard_params``), and
         is taken as given when ``mesh`` is None.  Each round's live batch is
         rounded up to a multiple of dp and split over the engine's dp
-        replicas.  ``max_streams`` must be a multiple of dp.  tp above 1
-        raises (the engine does).
+        replicas (each dp position's tp ranks run its rows together).
+        ``max_streams`` must be a multiple of dp.
 
         ``max_round_streams`` caps how many ready streams one fused round
         takes — a LATENCY knob: worst-case admission latency is one round's

@@ -13,10 +13,12 @@ T = TypeVar("T")
 
 def _leaves(tree) -> Iterator[object]:
     """Every leaf of a params tree: tensors and numpy arrays, and each
-    sharded tree (``parallel.ShardedParams``) as one leaf-spanning unit."""
+    sharded tree (``parallel.ShardedParams``, a tp engine's
+    ``parallel.collectives.TPParams``) as one leaf-spanning unit."""
+    from .parallel.collectives import TPParams
     from .parallel.sharding import ShardedParams
 
-    if isinstance(tree, ShardedParams):
+    if isinstance(tree, (ShardedParams, TPParams)):
         yield tree
     elif hasattr(tree, "items"):  # a dict or a Params
         for _, v in tree.items():
@@ -39,7 +41,8 @@ def params_platform(params) -> str:
 
 
 def params_device_count(params) -> int:
-    """Mesh positions the params span (1 for unsharded).  Positions, not
+    """Mesh positions the params span (1 for unsharded): dp x tp of sharded
+    params, the local ranks of a tp engine's shards.  Positions, not
     distinct devices, so virtual devices (one card named twice) count.
 
     Takes the MAXIMUM over all leaves, not the first one that answers: with

@@ -10,8 +10,9 @@ tensors).  Pinned:
   - every replica keeps the kernel config, and the dp window's tokens equal
     the single-device engine's and JAX's dp-mesh engine's;
   - the detection path on the mesh;
-  - params split over tp raise (JAX falls back to XLA twins; the port has
-    no tp yet);
+  - params split over tp keep the kernel config on every rank (JAX falls
+    back to XLA twins), at dp2 x tp2 and for a batch that does not divide
+    over dp;
   - a batch that does not divide over dp runs whole on the first replica;
   - the device count of params takes the maximum over placements, and
     counts virtual devices.
@@ -120,11 +121,53 @@ def test_dp_mesh_detect_path_carries(setup):
     np.testing.assert_allclose(info["lang_probs"], want_info["lang_probs"], atol=1e-5)
 
 
-def test_tp_sharded_params_raise(setup):
+def test_tp_sharded_params_raise(setup, interp_escapes):
+    """The twin of JAX's test_tp_sharded_params_still_fall_back: JAX falls
+    back to XLA twins on tp-sharded params; the port keeps the kernel config
+    on every rank, and its dp2 x tp2 window equals the one-device engine's.
+    Speculative decoding on tp-sharded params still raises."""
+    cfg, _, params = setup
+    pcfg = port_cfg(cfg)
+    mesh = _cpu_mesh(2, 2)
+    audio = _audio(cfg, 4)
+    langs = np.full(4, TEST_LANG_IDS[0], np.int32)
+    e = DecodeEngine(shard_params(params, mesh), pcfg, ST, language_token_ids=TEST_LANG_IDS,
+                     quantize_cross_kv=True, mesh=mesh)
+    try:
+        for r in e.replicas:
+            c = r.engine.cfg
+            assert (c.cross_kv_impl, c.self_kv_impl, c.encoder_attn_impl) == ("kernel", "kernel", "jax_flash")
+            assert r.engine._group.size == 2
+        got, _ = e.transcribe_window(shard_batch(audio, mesh), langs, seed=0)
+    finally:
+        e.close()
+    want, _ = DecodeEngine(params, pcfg, ST, language_token_ids=TEST_LANG_IDS,
+                           quantize_cross_kv=True).transcribe_window(audio, langs, seed=0)
+    assert _tokens(got) == _tokens(want) and all(t is not None and len(t) > 3 for t in _tokens(got))
+    from norma_tpu_torch.decode import SpeculativeEngine
+
+    with pytest.raises(NormaError, match="ROADMAP"):
+        SpeculativeEngine(shard_params(params, mesh), pcfg, shard_params(params, mesh), pcfg, ST,
+                          language_token_ids=TEST_LANG_IDS)
+
+
+def test_non_divisible_batch_runs_on_one_tp_group(setup):
+    """B=1 on dp2 x tp2 (the (2, 2) twin of JAX's
+    test_non_divisible_batch_uses_gspmd_twin): the whole batch on the first
+    dp position's tp group, its tokens the one-device engine's."""
     cfg, _, params = setup
     mesh = _cpu_mesh(2, 2)
-    with pytest.raises(NormaError, match="ROADMAP"):
-        DecodeEngine(shard_params(params, mesh), port_cfg(cfg), ST, language_token_ids=TEST_LANG_IDS, mesh=mesh)
+    e = DecodeEngine(shard_params(params, mesh), port_cfg(cfg), ST, language_token_ids=TEST_LANG_IDS, mesh=mesh)
+    try:
+        audio = _audio(cfg, 1)
+        out, _ = e.transcribe_window(audio, [TEST_LANG_IDS[0]], seed=0)
+        steps = [r.engine.decode_steps for r in e.replicas]
+    finally:
+        e.close()
+    want, _ = DecodeEngine(params, port_cfg(cfg), ST, language_token_ids=TEST_LANG_IDS).transcribe_window(
+        audio, [TEST_LANG_IDS[0]], seed=0)
+    assert len(out) == 1 and _tokens(out) == _tokens(want)
+    assert steps[0] > 0 and steps[1] == 0
 
 
 def test_non_divisible_batch_runs_on_one_replica(setup):

@@ -9,7 +9,8 @@ the twin of tests/test_parallel.py, on the CPU over virtual devices.
   - dp 2, 3 and 4: greedy tokens of the port's dp engine equal the
     unsharded port's and the JAX package's dp-mesh engine's (GSPMD over its
     forced CPU devices), quantized and detection too;
-  - params split over tp above 1 raise ``NormaError``.
+  - speculative decoding on params split over tp above 1 raises
+    ``NormaError`` (the tp engine: test_torch_tensor_parallel.py).
 
 Tolerance: tokens equal; ``no_speech_prob`` and language probabilities
 within 1e-5 (f32, JAX matmul precision "highest").
@@ -222,12 +223,12 @@ def test_dp_detect_matches(jparams, params):
 
 
 def test_tp_above_one_raises(params):
+    """Speculative decoding on tp-sharded params raises (its half of this
+    test; DecodeEngine runs tp, test_torch_tensor_parallel.py)."""
     mesh = _cpu_mesh(2, 2)
     sp = shard_params(params, mesh)
-    with pytest.raises(NormaError, match="tensor parallelism"):
-        DecodeEngine(sp, PCFG, ST, language_token_ids=TEST_LANG_IDS)
     dcfg = port_cfg(tiny_config(d_model=64, encoder_attention_heads=4, decoder_attention_heads=4, decoder_layers=1))
-    with pytest.raises(NormaError, match="tensor parallelism"):
+    with pytest.raises(NormaError, match="ROADMAP"):
         SpeculativeEngine(sp, PCFG, shard_params(params, mesh), dcfg, ST, language_token_ids=TEST_LANG_IDS)
 
 
