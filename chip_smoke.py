@@ -155,7 +155,8 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      the peak memory.  With several cards, sample_step on each other
      card's tensors from cuda:0 (the launch's device guard).  Then phase 5's f32 config (weights drawn on the card):
      the dp=2 greedy tokens at B=8 equal the one-device engine's;
-     norma_tpu_torch.parallel.dryrun_multichip on the card; and the
+     norma_tpu_torch.parallel.dryrun_multichip on the card (its tp mesh's
+     line ends with the draft/verify part of a tp-sharded draft); and the
      engine's host reads must let another Python thread run while they
      wait on the card (replicas wait in their own threads);
  18. (run right after phase 9, whose engine it then frees) the device
@@ -177,7 +178,21 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      warmup, the B=8 round median, peak memory); a B=1 window at tp=4
      (the ragged int8 head, q8a8 at K 320 and N 960) and phase 8's checks
      at the tp=4 shapes; phase 5's f32 config at tp=2, greedy tokens equal
-     one engine's at B=8.
+     one engine's at B=8.  Then speculative decoding at tp=2 over the card
+     named twice on phase 14's configs, full width and depth: f32, the
+     greedy speculative rung's tokens of a B=1 and a padded B=8 window
+     (5 active) equal tp=1's (phase 14's rows of the same run), and a
+     window of padding rows captures the round loop's graph (the live
+     B=1 window then captures none); the bf16 serving knobs: w8 against
+     its plain version on both ranks' shards at the path's rows, the
+     verify chunk's logits within SPEC_CHUNK_TOL of tp=1's, and after a
+     warm-up (a window of padding rows at B=1 and B=8, as silence under
+     the no-speech gate) a B=8 window whose sample_step, w8, w4, flash
+     and q8a8 launches must all move, a B=1 window, valid tokens, no CUDA
+     graph captured after the warm-up, walls beside phase 14's and rows
+     against its rows (printed, not gated); at 4/4 target layers,
+     WhisperModel.warmup(batch=8), then a live window and one forced into
+     the t>0 fallback, no capture after the warm-up.
  21. tensor parallelism over the cards (phase 20's second half; with one
      card it prints that it did not run).  tp=2 over cuda:0,1 (a worker
      process each, NCCL): the prefill's logits within phase 20's tolerance
@@ -187,7 +202,12 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      with four cards, tp=4 and dp2 x tp2 over the cards (logits and
      no-speech within the tolerance) and phase 19's one row a card with
      threads of one process against worker processes, in turns, results
-     bit for bit.
+     bit for bit.  Then speculative decoding at tp=2 over cuda:0,1 in
+     worker processes (each gets its rank's target and draft shards, one
+     NCCL communicator) on phase 14's target cut to 4/4 layers with the
+     serving knobs: a padded B=8 and a B=1 window's rows, rounds and
+     tokens per round bit for bit equal to tp=2 in one process, and B=1
+     walls of both.
 
 Then one JSON line with each kernel's launches, error and times, the
 card's ``nvidia-smi`` name/power-limit line, and last
@@ -2498,6 +2518,67 @@ def device_params(cfg, seed, dtype, dev, encoder=None, logit_std=None):
     return Params({"encoder": encoder, "decoder": decoder})
 
 
+def spec_configs(cfg=None, dcfg=None, st=None, lang_ids=None):
+    """Phases 14 and 20's speculative configs, full width (the defaults): a
+    large-v3 target and a distil-large-v3 draft at mtp 448, their tokens."""
+    from norma_tpu_torch.decode import SpecialTokens
+    from norma_tpu_torch.model import PRESETS
+
+    cfg = cfg or PRESETS["large-v3"].with_(max_target_positions=448, decode_buckets=(128, 256))
+    dcfg = dcfg or PRESETS["distil-large-v3"].with_(max_target_positions=448)
+    return cfg, dcfg, st or SpecialTokens(**ST_V3), lang_ids or LANG_IDS_V3
+
+
+def spec_windows(cfg, seconds=30.0):
+    """Phases 14 and 20's windows: {B: (audio [B, samples], active rows)}
+    for B=1 and a padded B=8 (5 active), shifts of one gain of a sine in
+    noise."""
+    import numpy as np
+
+    from norma_tpu_torch.frontend.mel import prepare_audio
+
+    rng = np.random.default_rng(14)
+    tt = np.arange(int(seconds * 16000)) / 16000
+    base = (0.15 * np.sin(2 * np.pi * 440 * tt) + 0.05 * rng.standard_normal(tt.size)).astype(np.float32)
+    batch = np.stack([prepare_audio(base * (1.0 + 0.1 * i), 2 * cfg.max_source_positions) for i in range(8)])
+    return base, {1: (batch[:1], 1), 8: (batch, 5)}
+
+
+def spec_params(cfg, dcfg, dev, quantized: bool):
+    """Phases 14 and 20's seeded target and draft (the draft shares the
+    target's encoder): f32 with fused QKV, or bf16 with the serving knobs
+    (fused QKV, int8 decoder, int4 head, w8a8 encoder; an int8 draft)."""
+    import torch
+
+    from norma_tpu_torch.model import fuse_qkv
+    from norma_tpu_torch.model.quant import quantize_decoder, quantize_encoder
+
+    if not quantized:
+        f32 = torch.float32
+        params = fuse_qkv(device_params(cfg, 31, f32, dev, logit_std=SPEC_LOGIT_STD))
+        return params, fuse_qkv(device_params(dcfg, 32, f32, dev, encoder=params["encoder"], logit_std=SPEC_LOGIT_STD))
+    bf16 = torch.bfloat16
+    pq = quantize_encoder(quantize_decoder(fuse_qkv(device_params(cfg, 31, bf16, dev, logit_std=SPEC_LOGIT_STD)),
+                                           logits="int4"))
+    return pq, quantize_decoder(fuse_qkv(device_params(dcfg, 32, bf16, dev, encoder=pq["encoder"],
+                                                       logit_std=SPEC_LOGIT_STD)))
+
+
+def spec_packed(spec, windows, B, k, dev, lang):
+    """The greedy speculative rung of window B on ``spec`` (a speculative
+    engine, or a one-position mesh engine's replica), as the packed host
+    rows: tokens, n, ..., live rounds last."""
+    import torch
+
+    eng = spec.replicas[0].engine if hasattr(spec, "replicas") else spec
+    audio, na = windows[B]
+    active = torch.zeros(B, dtype=torch.bool)
+    active[:na] = True
+    packed, _ = eng._spec_window(torch.from_numpy(audio).to(dev), torch.full((B,), lang, device=dev),
+                                 active.to(dev), detect=False, k=k)
+    return eng._host(packed)
+
+
 def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, public_cfgs=None, seconds=30.0):
     """Speculative decoding at full width (the defaults): a large-v3 target
     (32/32 layers) and a distil-large-v3 draft (2 decoder layers sharing
@@ -2511,11 +2592,10 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
     import numpy as np
     import torch
 
-    from norma_tpu_torch.decode import DecodeEngine, SpecialTokens, SpeculativeEngine
+    from norma_tpu_torch.decode import DecodeEngine, SpeculativeEngine
     from norma_tpu_torch.decode.speculative import SPEC_CHUNK
-    from norma_tpu_torch.frontend.mel import log_mel_spectrogram, prepare_audio
+    from norma_tpu_torch.frontend.mel import log_mel_spectrogram
     from norma_tpu_torch.model import PRESETS, fuse_qkv
-    from norma_tpu_torch.model.quant import quantize_decoder, quantize_encoder
     from norma_tpu_torch.model.whisper import decoder_full, encode
     from norma_tpu_torch.models import SelectedDevice
     from norma_tpu_torch.models.whisper import monolingual
@@ -2523,17 +2603,10 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
 
     cuda = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    cfg = cfg or PRESETS["large-v3"].with_(max_target_positions=448, decode_buckets=(128, 256))
-    dcfg = dcfg or PRESETS["distil-large-v3"].with_(max_target_positions=448)
-    st = st or SpecialTokens(**ST_V3)
-    lang_ids = lang_ids or LANG_IDS_V3
+    cfg, dcfg, st, lang_ids = spec_configs(cfg, dcfg, st, lang_ids)
     lang = lang_ids[0]
     Tmax, n_frames = cfg.max_target_positions, 2 * cfg.max_source_positions
-    rng = np.random.default_rng(14)
-    tt = np.arange(int(seconds * 16000)) / 16000
-    base = (0.15 * np.sin(2 * np.pi * 440 * tt) + 0.05 * rng.standard_normal(tt.size)).astype(np.float32)
-    batch = np.stack([prepare_audio(base * (1.0 + 0.1 * i), n_frames) for i in range(8)])
-    windows = {1: (batch[:1], 1), 8: (batch, 5)}  # B -> (audio, active rows)
+    base, windows = spec_windows(cfg, seconds)  # B -> (audio, active rows)
 
     def cleanup(toks):  # the trailing-timestamp cleanup of every decode
         toks = list(toks)
@@ -2545,14 +2618,6 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         """The plain engine's greedy (t=0) decode of window B."""
         audio, na = windows[B]
         return [d.tokens for d in engine.run_loop(engine.prefill_window(audio, lang), 0.0, 0)[:na]]
-
-    def spec_packed(spec, B, k):
-        audio, na = windows[B]
-        active = torch.zeros(B, dtype=torch.bool)
-        active[:na] = True
-        packed, _ = spec._spec_window(torch.from_numpy(audio).to(dev), torch.full((B,), lang, device=dev),
-                                      active.to(dev), detect=False, k=k)
-        return spec._host(packed)
 
     def spec_rows(packed, na):
         """Each row's tokens; None for a no-speech row (born finished)."""
@@ -2593,11 +2658,13 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         if cuda:
             torch.cuda.empty_cache()
 
+    # What phase 20 compares its tp=2 engines with, in the same run.
+    spec_ref = rec["_spec_ref"] = {}
+
     # ---- 1. f32, exact, the full target ----------------------------------
     f32 = torch.float32
     t0 = time.perf_counter()
-    params = fuse_qkv(device_params(cfg, 31, f32, dev, logit_std=SPEC_LOGIT_STD))
-    dparams = fuse_qkv(device_params(dcfg, 32, f32, dev, encoder=params["encoder"], logit_std=SPEC_LOGIT_STD))
+    params, dparams = spec_params(cfg, dcfg, dev, quantized=False)
     sync()
     make_s = time.perf_counter() - t0
     plain = DecodeEngine(params, cfg, st, language_token_ids=lang_ids)
@@ -2610,7 +2677,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         sync()
         plain_ms = (time.perf_counter() - w0) * 1e3
         h0, w0 = spec4.host_syncs, time.perf_counter()
-        packed = spec_packed(spec4, B, 4)
+        packed = spec_packed(spec4, windows, B, 4, dev, lang)
         sync()
         spec_ms, reads = (time.perf_counter() - w0) * 1e3, spec4.host_syncs - h0
         check_equal("f32 spec_k=4", plain, B, want, spec_rows(packed, windows[B][1]))
@@ -2622,6 +2689,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
             raise AssertionError(f"B={B}: {reads} host reads for {rounds} rounds")
         f32_out[B] = dict(rounds=packed[:, -1].astype(int).tolist(), n=packed[:, Tmax].astype(int).tolist(),
                           reads=reads, plain_greedy_ms=plain_ms, spec_ms=spec_ms)
+        spec_ref.setdefault("f32", {})[B] = packed  # phase 20 holds tp=2 to these rows
     graphs = sum(len(b.graphs) for b in spec4._spec_buffers.values())
     if cuda and not graphs:
         raise AssertionError("the round loop captured no CUDA graph")
@@ -2653,11 +2721,11 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         compared += len(rows)
         if not rows:
             check_equal("f32 spec_k=auto (greedy loop)", plain, B, want[B],
-                        spec_rows(spec_packed(auto, B, ks[-1]), windows[B][1]))
+                        spec_rows(spec_packed(auto, windows, B, ks[-1], dev, lang), windows[B][1]))
     # The self-draft accepts every proposal: each row's rounds are the fewest
     # that commit its tokens, K+1 a round but the last (which may add the
     # length limit's EOT).
-    packed = spec_packed(selfd, 1, 4)
+    packed = spec_packed(selfd, windows, 1, 4, dev, lang)
     check_equal("f32 self-draft", plain, 1, want[1], spec_rows(packed, 1))
     r, committed = int(packed[0, -1]), int(packed[0, Tmax]) - 3
     if not (r >= 1 and (r - 1) * 5 < committed <= r * 5 + 1):
@@ -2671,7 +2739,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         try:
             sync()
             w0 = time.perf_counter()
-            p_ = spec_packed(selfd, 1, 4)
+            p_ = spec_packed(selfd, windows, 1, 4, dev, lang)
             sync()
             modes[mode] = ((time.perf_counter() - w0) * 1e3, p_)
         finally:
@@ -2688,10 +2756,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
     # ---- 2-4. bf16 serving knobs, the full target -------------------------
     bf16 = torch.bfloat16
     cfgq = cfg.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
-    pq = quantize_encoder(quantize_decoder(fuse_qkv(device_params(cfg, 31, bf16, dev, logit_std=SPEC_LOGIT_STD)),
-                                           logits="int4"))
-    dq = quantize_decoder(fuse_qkv(device_params(dcfg, 32, bf16, dev, encoder=pq["encoder"],
-                                                 logit_std=SPEC_LOGIT_STD)))
+    pq, dq = spec_params(cfg, dcfg, dev, quantized=True)
     plain = DecodeEngine(pq, cfgq, st, language_token_ids=lang_ids)
     spec = SpeculativeEngine(pq, cfgq, dq, dcfg, st, language_token_ids=lang_ids, spec_k=4)
     counters = {"sample_step": sample_step.sample_step, "w8_matmul": quant_matmul.w8_matmul,
@@ -2709,6 +2774,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
     launches = {k: c.launches for k, c in counters.items()}
     # ---- end of the path ----
     rounds8 = (spec.last_spec_rounds, spec.last_tokens_per_round)
+    spec_ref["bf16"] = {8: [None if r is None else r.tokens for r in out_s]}
     w0 = time.perf_counter()
     out_p, _ = plain.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
     sync()
@@ -2728,9 +2794,11 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         eng = plain if who == "plain" else spec
         sync()
         h0, w0 = eng.host_syncs, time.perf_counter()
-        eng.transcribe_window(audio1, [lang], 0)
+        res1, _ = eng.transcribe_window(audio1, [lang], 0)
         sync()
         w[who].append((time.perf_counter() - w0) * 1e3)
+        if who == "spec":
+            spec_ref["bf16"][1] = [None if r is None else r.tokens for r in res1]
         if who == "spec":
             w["reads"].append(eng.host_syncs - h0)
     walls = dict(plain_ms=w["plain"], spec_ms=w["spec"], plain_median_ms=float(np.median(w["plain"])),
@@ -3778,11 +3846,13 @@ def _tp_rows(cfg, lang_ids):
 
 
 def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, seconds=(12.0, 24.0),
-             tol=None):
+             tol=None, spec=None):
     """Tensor parallelism on one device (phase 20); a CPU rehearsal passes a
-    tiny serving config, its params, tokens, an f32 (cfg, params) pair and
-    shorter streams: tp=2 and tp=4 over virtual devices (one process, a
-    LocalGroup).  Phase 21 runs tp over the cards."""
+    tiny serving config, its params, tokens, an f32 (cfg, params) pair,
+    shorter streams and ``spec``, the keyword arguments of
+    :func:`tp_speculative` (tiny speculative configs): tp=2 and tp=4 over
+    virtual devices (one process, a LocalGroup).  Phase 21 runs tp over the
+    cards."""
     import gc
 
     import numpy as np
@@ -3930,28 +4000,390 @@ def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, 
     del tp5, params5, f32
     gc.collect()
 
-    del one
+    del one, params
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+
+    # ---- 4. speculative decoding at tp=2 on one device ----
+    out["speculative"] = tp_speculative(rec, dev, **(spec or {}))
     rec["tp"] = out
-    log(f"phase 20 tp: ok; serving params {make_s:.1f} s to make; tp=2 and tp=4 on one device, f32 tokens equal; "
-        f"{smi_line() if cuda else 'cpu'}")
+    log(f"phase 20 tp: ok; serving params {make_s:.1f} s to make; tp=2 and tp=4 on one device, f32 tokens equal, "
+        f"speculative tp=2 f32 tokens equal; {smi_line() if cuda else 'cpu'}")
 
 
-def worker_positions(*args, **kwargs):
-    """A dp engine whose every position runs in worker processes, one a
-    device (``parallel/workers.py``), whatever its mesh: phase 21's dp in
-    threads against dp in processes over the cards, and a CPU rehearsal of
-    the cards' path (gloo).  ``DecodeEngine`` on sharded params lets the
-    mesh's devices choose instead (``parallel/sharding.py::in_workers``)."""
+# bf16 tolerance of the tp=2 verify chunk's f32 logits against one
+# engine's at phase 14's full depth: the partial sums add in another order
+# in each of the target's 32 layers, and the logits spread 12
+# (SPEC_LOGIT_STD).  Read on the H100: 0.73 at B=1, 0.81 at B=8; a wrong
+# shard or gather moves them by the spread.
+SPEC_CHUNK_TOL = 2.0
+SPEC_PATH = ("sample_step", "w8_matmul", "w4_matmul", "flash_encoder", "q8a8")  # the speculative path's kernels
+
+
+def _spec_tokens(packed, na, Tmax):
+    """Each active row's greedy tokens from a packed speculative window."""
+    return [packed[b, :int(packed[b, Tmax])].astype(int).tolist() for b in range(na)]
+
+
+def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, seconds=30.0):
+    """Phase 20's speculative part: tp=2 over the device named twice (one
+    process, a LocalGroup) on phase 14's configs, full width and depth.
+    (1) f32: the greedy speculative rung of a B=1 and a padded B=8 window
+    (5 active) gives tp=1's tokens (phase 14's rows of this run, or a tp=1
+    engine's where phase 14 did not run); a B=1 window whose rows are all
+    finished before the first round, run first, captures the round loop's
+    graph, so the live B=1 window captures none.  (2) The serving knobs
+    (bf16, fused QKV, int8 decoder, int4 head, w8a8 + flash encoder; int8
+    draft): w8_dense against its plain version on both ranks' shards at
+    the path's rows; the verify chunk's logits within ``TP_TOL`` of tp=1's
+    on the same prefill; after a warm-up (a window of padding rows at B=1
+    and B=8, as silence under the no-speech gate), a B=8 window (5
+    active) with valid tokens and every kernel of the path launched, a
+    B=1 window, no graph captured after the warm-up;
+    walls beside phase 14's tp=1 walls and tokens against its rows
+    (printed, not gated: bf16 on random weights).  (3)
+    :func:`spec_warmup_check`: ``WhisperModel.warmup`` at a cut depth, then
+    a live and a forced-fallback window, no capture.  A CPU rehearsal
+    passes tiny configs; it checks all but the launches and captures."""
+    import gc
+
+    import torch
+
+    from norma_tpu_torch.decode import DecodeEngine, SpeculativeEngine
+    from norma_tpu_torch.ops import launch_counters
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, dcfg, st, lang_ids = spec_configs(cfg, dcfg, st, lang_ids)
+    lang, Tmax = lang_ids[0], cfg.max_target_positions
+    _, windows = spec_windows(cfg, seconds)
+    mesh = make_mesh(tp=2, devices=[dev, dev])
+    ref = rec.get("_spec_ref", {})
+    out = {}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # ---- 1. f32, exact: tp=2 greedy tokens equal tp=1's ----
+    params, dparams = spec_params(cfg, dcfg, dev, quantized=False)
+    want, src = ref.get("f32"), "phase 14's tp=1 rows of this run"
+    if want is None:
+        src = "a tp=1 engine's (phase 14 not run)"
+        one = SpeculativeEngine(params, cfg, dparams, dcfg, st, language_token_ids=lang_ids, spec_k=4)
+        want = {B: spec_packed(one, windows, B, 4, dev, lang) for B in (1, 8)}
+        del one
+    eng = SpeculativeEngine(shard_params(params, mesh), cfg, shard_params(dparams, mesh), dcfg, st,
+                            language_token_ids=lang_ids, spec_k=4)
+    got, ms, caps = {}, {}, []
+    try:
+        # A B=1 window whose rows are all finished before the first round
+        # (as silence is under the no-speech gate) captures the round loop's
+        # chunk, so the live B=1 window after it captures nothing.
+        c0 = eng.graph_captures
+        spec_packed(eng, {1: (windows[1][0], 0)}, 1, 4, dev, lang)
+        caps.append(eng.graph_captures - c0)
+        for B in (1, 8):
+            c0 = eng.graph_captures
+            sync()
+            w0 = time.perf_counter()
+            got[B] = spec_packed(eng, windows, B, 4, dev, lang)
+            sync()
+            ms[B] = (time.perf_counter() - w0) * 1e3
+            caps.append(eng.graph_captures - c0)
+    finally:
+        eng.close()
+    if cuda and caps != [1, 0, 1]:
+        raise AssertionError(f"speculative tp=2 captures: {caps} for the all-finished B=1 window, the live B=1 and "
+                             "B=8 windows; expected [1, 0, 1]")
+    del eng, params, dparams
+    free()
+    for B in (1, 8):
+        na = windows[B][1]
+        tw, tg = _spec_tokens(want[B], na, Tmax), _spec_tokens(got[B], na, Tmax)
+        for b, (w_, g_) in enumerate(zip(tw, tg)):
+            if w_ != g_:
+                i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
+                raise AssertionError(f"f32 speculative tp=2: B={B} row {b} differs from tp=1 at position {i} "
+                                     f"(tp=1 {w_[i:i + 3]}, tp=2 {g_[i:i + 3]})")
+        out[f"f32_b{B}"] = dict(n=[len(x) for x in tg], rounds_tp1=want[B][:na, -1].astype(int).tolist(),
+                                rounds_tp2=got[B][:na, -1].astype(int).tolist(), ms=ms[B])
+    out["f32_captures"] = caps
+    log(f"  speculative tp=2 over {[str(d) for d in mesh.devices.flat]} (one process), f32 {cfg.decoder_layers}-layer "
+        f"target + {dcfg.decoder_layers}-layer draft, spec_k=4: greedy tokens equal {src} at B=1 and B=8 "
+        f"({windows[8][1]} active); " + "; ".join(
+            f"B={B}: n {v['n']}, rounds tp=2 {v['rounds_tp2']} (tp=1 {v['rounds_tp1']}), window "
+            f"{v['ms']:.1f} ms" for B, v in ((1, out["f32_b1"]), (8, out["f32_b8"])))
+        + f"; graphs captured by an all-finished B=1 window, then the live B=1 and B=8 windows: {caps}")
+
+    # ---- 2. the serving knobs, bf16, full depth ----
+    cfgq = cfg.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
+    pq, dq = spec_params(cfg, dcfg, dev, quantized=True)
+    K = 4
+    chunks = {B: spec_chunk_tokens(windows[B][0].shape[0], K, lang_ids, st) for B in (1, 8)}
+    one = DecodeEngine(pq, cfgq, st, language_token_ids=lang_ids)
+    want_lg = {B: spec_chunk_logits(one, windows[B][0], lang, chunks[B]) for B in (1, 8)}
+    del one
+    sp, sd = shard_params(pq, mesh), shard_params(dq, mesh)
+    del pq, dq
+    free()
+    counters = {k: c for k, c in launch_counters().items() if k in SPEC_PATH}
+    eng = SpeculativeEngine(sp, cfgq, sd, dcfg, st, language_token_ids=lang_ids, spec_k=K)
+    try:
+        # w8 on each rank's shards at the path's rows: the target's prefill
+        # (2 B) and verify chunk (B (K+1)), the draft's prefill and steps (B).
+        w8 = w8_shard_check(eng._rp, (2, 16, 1 * (K + 1), 8 * (K + 1)), dev)
+        w8.update(w8_shard_check(eng._drp, (1, 8, 2, 16), dev, tag="draft "))
+        # The verify chunk's logits at tp=2 against tp=1's on the same
+        # window, prefill and chunk tokens.
+        d_chunk = {B: float((spec_chunk_logits(eng, windows[B][0], lang, chunks[B]) - want_lg[B]).abs().max())
+                   for B in (1, 8)}
+        if not max(d_chunk.values()) <= SPEC_CHUNK_TOL:
+            raise AssertionError(f"speculative tp=2 verify chunk against tp=1: max |d logits| {d_chunk} "
+                                 f"(tolerance {SPEC_CHUNK_TOL})")
+        del want_lg
+        # The warm-up of the measured windows: at B=1 and B=8 a window whose
+        # rows are all finished before the first round (what
+        # WhisperModel.warmup's silent window is under a no-speech gate
+        # that closes on silence; these random weights would decode it in
+        # full).  Neither window takes the t>0 fallback; part 3 runs
+        # WhisperModel.warmup, warmup_fallback's ladder included, and a
+        # live window forced into that fallback.
+        sync()
+        w0 = time.perf_counter()
+        for B in (1, 8):
+            eng.transcribe_window(windows[B][0], [lang] * B, 0, n_active=0)
+        sync()
+        warm_s = time.perf_counter() - w0
+        caps0 = eng.graph_captures
+        audio8, na8 = windows[8]
+        # ---- the speculative tp path: counts from zero ----
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        w0 = time.perf_counter()
+        out8, _ = eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
+        sync()
+        launches = {k: c.launches for k, c in counters.items()}
+        # ---- end of the path ----
+        ms8 = (time.perf_counter() - w0) * 1e3
+        tel8 = (eng.last_spec_rounds, eng.last_tokens_per_round)
+        sync()
+        w0 = time.perf_counter()
+        out1, _ = eng.transcribe_window(windows[1][0], [lang], 0)
+        sync()
+        ms1 = (time.perf_counter() - w0) * 1e3
+        tel1 = (eng.last_spec_rounds, eng.last_tokens_per_round)
+        caps = eng.graph_captures - caps0
+    finally:
+        eng.close()
+    del eng, sp, sd
+    free()
+    if cuda and any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"speculative tp=2: kernels not launched on the path: {launches}")
+    if cuda and caps:
+        raise AssertionError(f"speculative tp=2: {caps} CUDA graphs captured after the warm-up")
+    for r in out8[:na8] + out1:
+        if r is None or not r.tokens or not all(0 <= x < cfg.vocab_size for x in r.tokens):
+            raise AssertionError("speculative tp=2: a bf16 row is empty or out of range")
+    if any(r is not None for r in out8[na8:]):
+        raise AssertionError("speculative tp=2: pad rows gave results")
+    tokens = {8: [r.tokens for r in out8[:na8]], 1: [out1[0].tokens]}
+    bref = ref.get("bf16")
+    equal = ({B: [a == b for a, b in zip(tokens[B], bref[B])] for B in (1, 8)} if bref and 1 in bref
+             else "phase 14 not run")
+    walls14 = rec.get("speculative", {}).get("walls")
+    w14 = (f"phase 14's tp=1 B=1 median {walls14['spec_median_ms']:.1f} ms ({[round(x, 1) for x in walls14['spec_ms']]}),"
+           f" B=8 {walls14['b8']['spec_ms']:.1f} ms with its first captures, {walls14['b8']['rounds']} rounds, "
+           f"{walls14['b8']['tokens_per_round']} tokens/round" if walls14 else "phase 14 not run")
+    out["bf16"] = dict(warm_s=warm_s, ms_b8=ms8, ms_b1=ms1, rounds_b8=tel8[0], tokens_per_round_b8=tel8[1],
+                       rounds_b1=tel1[0], tokens_per_round_b1=tel1[1], launches=launches, captures_after_warmup=caps,
+                       equal_tp1=equal, n=[len(t) for t in tokens[8]], w8_shards=w8, d_chunk_logits=d_chunk)
+    log(f"  speculative tp=2, serving knobs (bf16, fused QKV, int8 decoder, int4 head, w8a8 + flash encoder; int8 "
+        f"draft), {cfg.decoder_layers}/{dcfg.decoder_layers} decoder layers: w8_dense against w8_dense_torch on both "
+        f"ranks' shards at the path's rows, worst of max|y| {w8}; verify chunk logits (B x {K + 1}) against tp=1's "
+        f"on the same prefill, max |d| {d_chunk} (tolerance {SPEC_CHUNK_TOL}); warm-up (a window of padding rows "
+        f"at B=1 and B=8) {warm_s:.1f} s; B=8 ({na8} active) {ms8:.1f} ms, {tel8[0]} rounds, "
+        f"{tel8[1]} tokens/round, launches {launches}; B=1 {ms1:.1f} ms, {tel1[0]} rounds, {tel1[1]} tokens/round; "
+        f"graph captures after the warm-up {caps}; rows equal to phase 14's tp=1 rows {equal} (printed, not gated); "
+        f"{w14}; {smi_line() if cuda else 'cpu'}")
+
+    # ---- 3. WhisperModel.warmup, then a live forced fallback ----
+    out["warmup"] = spec_warmup_check(dev, cfg, dcfg, st, lang_ids, windows, mesh)
+    return out
+
+
+def spec_chunk_tokens(B, K, lang_ids, st):
+    """A verify chunk's tokens [B, K+1]: the pending task token, then K
+    text tokens (a different run of ids on each row)."""
+    import torch
+
+    text = torch.arange(K)[None] * 97 + torch.arange(B)[:, None] * 13 + 400
+    return torch.cat([torch.full((B, 1), st.task), text], dim=1).to(torch.int32)
+
+
+def spec_chunk_logits(eng, audio, lang, chunk):
+    """The target's verify-chunk logits on ``eng`` (one engine, or rank 0
+    of a tp engine's, which every rank holds whole) for the window
+    ``audio``: the target's prefill of [sot, lang], then ``chunk`` fed at
+    positions 2 .. 2 + K, as a speculative round's first verify pass.
+    f32 [B, K+1, V]."""
+    import torch
+    import torch.nn.functional as F
+
+    from norma_tpu_torch.parallel.collectives import first, per_rank
+
+    dev, cfg = eng.device, eng.cfg
+    B, C = chunk.shape
+    audio_t = torch.as_tensor(audio).to(dev)
+    _, xk, xv, prefix, _, _ = eng._window_front(audio_t, torch.full((B,), lang, device=dev), detect=False)
+    _, ck, cv = eng._fan("decoder_prefill", eng._rp, cfg, prefix[:, :2], xk, xv)
+    ck, cv = per_rank(lambda *cs: tuple(F.pad(c, (0, 0, 0, C)) for c in cs), ck, cv)
+    pos = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    logits, _, _ = eng._fan("decoder_chunk", eng._rp, cfg, chunk.to(dev), pos, ck, cv, xk, xv)
+    return first(logits).float()
+
+
+def w8_shard_check(shards, rows, dev, tag=""):
+    """w8_dense against w8_dense_torch on each rank's int8 products: its
+    first decoder layer's fused QKV, self and cross out, cross query, fc1
+    and fc2 shards, and its int8 head's vocabulary shard where it has one,
+    each at every count of ``rows`` with bf16 x (the serving path's),
+    within 1e-5 of max |y| as phase 11, one launch a product on CUDA.
+    Returns {"[tag]name KxN": worst error over max |y|}."""
+    import torch
+
+    from norma_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = {}
+    for p in shards:
+        dec = p["decoder"]
+        layers = dec["layers"]
+        prods = [(n, layers[n + "_q"][0], layers[n + "_s"][0])
+                 for n in ("qkv_w", "o_w", "xq_w", "xo_w", "fc1_w", "fc2_w") if n + "_q" in layers]
+        if "tok_emb_q8" in dec:
+            prods.append(("head", dec["tok_emb_q8"]["q"], dec["tok_emb_q8"]["s"]))
+        for name, q, s in prods:
+            q, s = q.reshape(q.shape[0], -1), s.reshape(-1)
+            Kd, N = q.shape
+            key = f"{tag}{name} {Kd}x{N}"
+            for m in rows:
+                x = torch.randn((m, Kd), generator=g, device=dev).to(torch.bfloat16)
+                before = qm.w8_matmul.launches
+                ko = qm.w8_dense(x, q, s)
+                launched = qm.w8_matmul.launches - before
+                po = qm.w8_dense_torch(x, q, s)
+                if torch.device(dev).type == "cuda" and launched != 1:
+                    raise AssertionError(f"w8 {key} rows={m}: {launched} launches for one product")
+                if ko.shape != (m, N) or not torch.isfinite(ko).all():
+                    raise AssertionError(f"w8 {key} rows={m}: bad output")
+                err, rel = _rel_err(ko, po)
+                if not rel <= 1e-5:
+                    raise AssertionError(f"w8 {key} rows={m}: err {err} ({rel:.3g} of max|y|)")
+                worst[key] = max(worst.get(key, 0.0), rel)
+    return worst
+
+
+def spec_warmup_check(dev, cfg, dcfg, st, lang_ids, windows, mesh):
+    """Phase 20's speculative part 3: ``WhisperModel.warmup(batch=8)`` on a
+    speculative tp=2 engine (phase 14's target cut to 4 encoder and 4
+    decoder layers with the serving knobs, its draft), then a live B=8
+    window (5 active) and the same window with every active row failing the
+    logprob gate (the t>0 fallback's whole ladder on live features): no
+    CUDA graph captured after the warm-up."""
+    import gc
+
+    import torch
+
+    import norma_tpu_torch.decode.speculative as spec_mod
+    from norma_tpu_torch.decode import LanguageState, SpeculativeEngine
+    from norma_tpu_torch.models.whisper import WhisperModel
+    from norma_tpu_torch.parallel import shard_params
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cut = cfg.with_(encoder_layers=min(4, cfg.encoder_layers), decoder_layers=min(4, cfg.decoder_layers))
+    cfgq = cut.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
+    lang = lang_ids[0]
+    audio8, na8 = windows[8]
+    pq, dq = spec_params(cut, dcfg, dev, quantized=True)
+    eng = SpeculativeEngine(shard_params(pq, mesh), cfgq, shard_params(dq, mesh), dcfg, st,
+                            language_token_ids=lang_ids, spec_k=4)
+    del pq, dq
+    inner = eng.replicas[0].engine if hasattr(eng, "replicas") else eng
+    rungs, fb = [], inner._fallback_rungs
+
+    def fallback(*a):
+        packed = fb(*a)
+        rungs.append(packed[:, -1].to(torch.int64).tolist())  # each row's settling rung, -1: none
+        return packed
+
+    inner._fallback_rungs = fallback
+    try:
+        model = WhisperModel(eng, _IdsTokenizer(), LanguageState(const=lang))
+        sync()
+        w0 = time.perf_counter()
+        model.warmup(batch=8)
+        sync()
+        warm_s = time.perf_counter() - w0
+        warm_fb, caps0 = len(rungs), eng.graph_captures
+        eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
+        n0 = len(rungs)
+        threshold = spec_mod.LOGPROB_THRESHOLD
+        spec_mod.LOGPROB_THRESHOLD = float("inf")  # every active row takes the fallback
+        try:
+            sync()
+            w0 = time.perf_counter()
+            forced, _ = eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
+            sync()
+            forced_ms = (time.perf_counter() - w0) * 1e3
+        finally:
+            spec_mod.LOGPROB_THRESHOLD = threshold
+        caps = eng.graph_captures - caps0
+    finally:
+        eng.close()
+    del eng, inner, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    forced_rungs = rungs[n0:]
+    if not warm_fb or len(forced_rungs) != 1:
+        raise AssertionError(f"speculative tp=2 warm-up: fallback passes {warm_fb} in WhisperModel.warmup and "
+                             f"{len(forced_rungs)} in the forced live window, expected 1 or more and 1")
+    for r, rung in zip(forced[:na8], forced_rungs[0]):
+        # A row no rung accepted (-1) has no result; the others have tokens.
+        if (r is None) != (rung < 0) or (r is not None and not all(0 <= x < cfg.vocab_size for x in r.tokens)):
+            raise AssertionError(f"speculative tp=2: forced-fallback row {r} against its rung {rung}")
+    if cuda and caps:
+        raise AssertionError(f"speculative tp=2: {caps} CUDA graphs captured after WhisperModel.warmup")
+    log(f"  speculative tp=2 at {cut.encoder_layers}/{cut.decoder_layers} target layers (serving knobs): "
+        f"WhisperModel.warmup(batch=8) {warm_s:.1f} s, {warm_fb} fallback pass(es), the last's rungs by row "
+        f"{rungs[warm_fb - 1]}; then a live B=8 window ({na8} active) and the same window forced to the fallback "
+        f"({forced_ms:.1f} ms, rungs by row {forced_rungs[0]}; -1: every rung ran, none accepted): graph captures "
+        f"after the warm-up {caps}")
+    return dict(warm_s=warm_s, warm_fallback_passes=warm_fb, captures_after_warmup=caps, forced_ms=forced_ms,
+                forced_rungs=forced_rungs[0])
+
+
+def worker_positions(*args, cls=None, **kwargs):
+    """A dp engine of ``cls`` (default ``DecodeEngine``) whose every position
+    runs in worker processes, one a device (``parallel/workers.py``),
+    whatever its mesh: phase 21's dp in threads against dp in processes over
+    the cards, and a CPU rehearsal of the cards' path (gloo).  An engine on
+    sharded params lets the mesh's devices choose instead
+    (``parallel/sharding.py::in_workers``)."""
     from norma_tpu_torch.decode import DecodeEngine
     from norma_tpu_torch.parallel.data_parallel import DataParallelEngine
 
     class WorkerPositions(DataParallelEngine):
         _in_workers = staticmethod(lambda mesh: True)
 
-    return WorkerPositions(DecodeEngine, *args, **kwargs)
+    return WorkerPositions(cls or DecodeEngine, *args, **kwargs)
 
 
 def card_memory_gib() -> list:
@@ -3994,9 +4426,10 @@ def phase_tp_cards(rec, dev, seconds=(12.0, 24.0)):
     gc.collect()
     rec["tp_cards"] = tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, TP_TOL, local, seconds,
                                     audio)
-    del one
+    del one, params
     gc.collect()
     torch.cuda.empty_cache()
+    rec["tp_cards"]["speculative"] = spec_over_cards(dev)
     log(f"phase 21 tp_cards: ok over {n_cards} cards through worker processes; {smi_line()}")
 
 
@@ -4118,6 +4551,89 @@ def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, lo
     else:
         log(f"  tp=4, dp2 x tp2 and the one-row-a-card comparison over the cards: not run ({n} cards; they need 4)")
     return out
+
+
+def spec_over_cards(dev, devices=None, cfg=None, dcfg=None, st=None, lang_ids=None, seconds=30.0):
+    """Phase 21's speculative part: tp=2 over two cards, a worker process
+    each (NCCL; each worker gets its rank's target and draft shards), on
+    phase 14's target cut to 4 encoder and 4 decoder layers with the
+    serving knobs (bf16, fused QKV, int8 decoder, int4 head, w8a8 + flash
+    encoder; int8 draft), against tp=2 in one process on ``dev`` named
+    twice: a padded B=8 (5 active) and a B=1 window's rows, rounds and
+    tokens per round bit for bit; B=1 walls of both, in turns.  A CPU
+    rehearsal passes ``devices=["cpu"] * 2`` and tiny configs (gloo
+    workers)."""
+    import gc
+
+    import torch
+
+    from norma_tpu_torch.decode import SpeculativeEngine
+    from norma_tpu_torch.model import PRESETS
+    from norma_tpu_torch.parallel import make_mesh, shard_params
+
+    cuda = devices is None
+    devices = devices or [torch.device("cuda", i) for i in range(2)]
+    sync = (lambda: [torch.cuda.synchronize(d) for d in devices]) if cuda else (lambda: None)
+    cfg, dcfg, st, lang_ids = spec_configs(
+        cfg or PRESETS["large-v3"].with_(encoder_layers=4, decoder_layers=4, max_target_positions=448,
+                                         decode_buckets=(128, 256)), dcfg, st, lang_ids)
+    lang = lang_ids[0]
+    _, windows = spec_windows(cfg, seconds)
+    cfgq = cfg.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
+    pq, dq = spec_params(cfg, dcfg, dev, quantized=True)
+    local_mesh, card_mesh = make_mesh(tp=2, devices=[dev, dev]), make_mesh(tp=2, devices=devices[:2])
+    kw = dict(language_token_ids=lang_ids, spec_k=4)
+
+    def run(eng):
+        """(B=8 rows, B=1 rows, each one's telemetry, B=1 walls in ms): the
+        first B=1 window captures, the next two are timed."""
+        out8, _ = eng.transcribe_window(windows[8][0], [lang] * 8, 0, n_active=windows[8][1])
+        tel8 = (eng.last_spec_rounds, eng.last_tokens_per_round)
+        walls = []
+        for _ in range(3):
+            sync()
+            w0 = time.perf_counter()
+            out1, _ = eng.transcribe_window(windows[1][0], [lang], 0)
+            sync()
+            walls.append((time.perf_counter() - w0) * 1e3)
+        return out8, out1, tel8, (eng.last_spec_rounds, eng.last_tokens_per_round), walls[1:]
+
+    local = SpeculativeEngine(shard_params(pq, local_mesh), cfgq, shard_params(dq, local_mesh), dcfg, st, **kw)
+    try:
+        want = run(local)
+    finally:
+        local.close()
+    del local
+    gc.collect()
+    t0 = time.perf_counter()
+    sp, sd = shard_params(pq, card_mesh), shard_params(dq, card_mesh)
+    make = SpeculativeEngine if cuda else (lambda *a, **k: worker_positions(*a, cls=SpeculativeEngine, **k))
+    eng = make(sp, cfgq, sd, dcfg, st, **kw)
+    spawn_s = time.perf_counter() - t0
+    try:
+        w = eng.replicas[0].engine
+        if not eng.replicas[0].remote or w.supports_async_window is not False:
+            raise AssertionError("speculative tp=2 over the cards: not a synchronous worker engine")
+        got = run(eng)
+    finally:
+        eng.close()
+    del eng, sp, sd, pq, dq
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    same = [_same_result(a, b) for a, b in zip(got[0] + got[1], want[0] + want[1])]
+    if not all(same) or got[2] != want[2] or got[3] != want[3]:
+        raise AssertionError(f"speculative tp=2 over the cards against tp=2 in one process: rows bit for bit {same}, "
+                             f"telemetry B=8 {got[2]} vs {want[2]}, B=1 {got[3]} vs {want[3]}")
+    if any(r is None for r in want[0][:windows[8][1]] + want[1]):
+        raise AssertionError("speculative tp=2: an active bf16 row gave no result")
+    log(f"  speculative tp=2 over {[str(d) for d in card_mesh.devices.flat]} (2 worker processes, one communicator "
+        f"for target and draft; spawned in {spawn_s:.1f} s), large-v3 target cut to {cfg.encoder_layers}/"
+        f"{cfg.decoder_layers} layers with the serving knobs: B=8 ({windows[8][1]} active) and B=1 rows, rounds and "
+        f"tokens per round bit for bit equal to tp=2 in one process (B=8 {got[2]}, B=1 {got[3]}); B=1 walls ms "
+        f"workers {[round(x, 1) for x in got[4]]}, one process {[round(x, 1) for x in want[4]]}")
+    return dict(spawn_s=spawn_s, telemetry_b8=got[2], telemetry_b1=got[3], b1_walls_workers=got[4],
+                b1_walls_one_process=want[4])
 
 
 def dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices):

@@ -69,11 +69,13 @@ from ..model.config import WhisperConfig
 from ..model.load import Params
 from ..model.quant import prep_encoder_q8_kernel
 from ..model.whisper import (
+    _decoder_chunk,
     _decoder_prefill,
     _decoder_step,
     _encode,
     _quantize_self_kv_cache,
     cross_kv,
+    decoder_chunk,
     decoder_prefill,
     decoder_step,
     encode,
@@ -226,7 +228,7 @@ class _LoopBuffers:
 # engine runs on its ranks.
 _RANK_FNS = {
     "encode": _encode, "decoder_prefill": _decoder_prefill, "decoder_step": _decoder_step,
-    "quantize_self_kv_cache": _quantize_self_kv_cache,
+    "decoder_chunk": _decoder_chunk, "quantize_self_kv_cache": _quantize_self_kv_cache,
 }
 
 

@@ -29,6 +29,15 @@ per chunk; on CUDA each chunk is a captured CUDA graph (the counterpart of
 the JAX package's ``lax.while_loop``), on the CPU the same rounds run
 eagerly.  Rounds after every row has finished change nothing (the caches
 carry K+1 rows of slack for the writes of finished rows).
+
+Tensor parallelism: target and draft as
+:class:`~norma_tpu_torch.parallel.collectives.TPParams` over one group run
+every draft step and verify chunk on each rank's Megatron shard, the
+ranks meeting in the layer code's collectives (``DecodeEngine._fan``);
+both decoders' cross-K/V and caches are per-rank
+:class:`~norma_tpu_torch.parallel.collectives.RankList` values, and the
+round's state and the grammar run once per process on the logits every
+rank gets whole.
 """
 
 from __future__ import annotations
@@ -43,15 +52,10 @@ from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD
 from ..errors import NormaError
 from ..model.config import WhisperConfig
 from ..model.load import Params
-from ..model.whisper import (
-    cross_kv,
-    decoder_chunk,
-    decoder_prefill,
-    quantize_cross_kv as quantize_xkv8,
-)
+from ..model.whisper import quantize_cross_kv as quantize_xkv8
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
-from ..parallel.collectives import TPParams
+from ..parallel.collectives import RankList, TPParams, first, per_rank
 from ..tracing import instrument
 from .engine import DecodeEngine, DecodingResult, _copy_into, _like, _signature
 from .masks import SpecialTokens
@@ -67,7 +71,10 @@ class _SpecBuffers:
     flags, live rounds per row), all on the device.  A ``static`` one
     (CUDA) owns every tensor, at addresses its captured graphs hold, and
     :meth:`start` copies a window's inputs in; otherwise (the CPU) it works
-    on the caller's tensors, writing the caches in place."""
+    on the caller's tensors, writing the caches in place.  Under tp the
+    inputs are :class:`~norma_tpu_torch.parallel.collectives.RankList`
+    values (each rank's own, static per rank on CUDA) and the state is
+    held once."""
 
     def __init__(self, ins, static: bool = False):
         tokens_init = ins[8]
@@ -118,8 +125,10 @@ class SpeculativeEngine(DecodeEngine):
 
     Target and draft params sharded over one mesh give a data-parallel
     engine of speculative replicas (``DecodeEngine.__new__``,
-    ``parallel/data_parallel.py``); its telemetry attributes are the first
-    replica's.
+    ``parallel/data_parallel.py``), each on its position's tp ranks; its
+    telemetry attributes are the first replica's.  On :class:`~norma_tpu_torch.
+    parallel.collectives.TPParams` the draft must be over the target's
+    group and ranks.
     """
 
     #: The K ladder ``spec_k="auto"`` walks.
@@ -148,10 +157,14 @@ class SpeculativeEngine(DecodeEngine):
         spec_k=4,
     ):
         if isinstance(params, TPParams) or isinstance(draft_params, TPParams):
-            raise NormaError(
-                "speculative decoding on tp-sharded params is not supported yet (ROADMAP queue 1, "
-                "'SpeculativeEngine on tp'); shard the target and the draft over dp only"
-            )
+            if not (
+                isinstance(params, TPParams) and isinstance(draft_params, TPParams)
+                and draft_params.group is params.group and list(draft_params.ranks) == list(params.ranks)
+            ):
+                raise NormaError(
+                    "a tp-sharded target needs its draft sharded over the same group and ranks "
+                    "(shard_params of both over one mesh)"
+                )
         if draft_cfg.d_model != cfg.d_model:
             raise ValueError(
                 "draft d_model must match the target's (the draft reuses "
@@ -179,13 +192,16 @@ class SpeculativeEngine(DecodeEngine):
         )
         if draft_params.device != self.device:
             raise ValueError(f"draft params on {draft_params.device}, target on {self.device}")
-        if self.device.type == "cuda":
-            # The heads' kernel layout, as DecodeEngine._kernel_params sets
-            # it for the target (the draft's encoder is never run).
-            dec = head_kernel_layout(draft_params["decoder"])
-            if dec is not draft_params["decoder"]:
-                draft_params = Params({**dict(draft_params.items()), "decoder": dec})
-        self.draft_params = draft_params
+        tp = 1 if self._group is None else self._group.size
+        if draft_cfg.decoder_attention_heads % tp:
+            raise ValueError(f"draft decoder_attention_heads={draft_cfg.decoder_attention_heads} does not split "
+                             f"over tp={tp}")
+        dshards = [self._draft_kernel_params(p) for p in
+                   (draft_params.shards if isinstance(draft_params, TPParams) else [draft_params])]
+        self.draft_params = dshards[0]
+        # The draft the layer code runs on: each rank's under tp (self._rp's
+        # counterpart).
+        self._drp = self.draft_params if self._group is None else RankList(dshards)
         self.draft_cfg = draft_cfg
         if spec_k == "auto":
             self.auto_k = True
@@ -204,6 +220,15 @@ class SpeculativeEngine(DecodeEngine):
         self.last_tokens_per_round: Optional[float] = None
         self._spec_chunk = SPEC_CHUNK
         self._spec_buffers: dict = {}
+
+    def _draft_kernel_params(self, draft: Params) -> Params:
+        """On CUDA the draft's heads in their kernel layout, as
+        ``DecodeEngine._kernel_params`` sets the target's (the draft's
+        encoder is never run); else ``draft`` itself."""
+        if self.device.type != "cuda":
+            return draft
+        dec = head_kernel_layout(draft["decoder"])
+        return draft if dec is draft["decoder"] else Params({**dict(draft.items()), "decoder": dec})
 
     def _adapt_spec_k(self) -> None:
         """Walk ``spec_k`` along ``_K_CHOICES`` from the acceptance ratio
@@ -264,12 +289,12 @@ class SpeculativeEngine(DecodeEngine):
         fed, states = [buf.p1], []
         for j in range(K + 1):
             states.append((dp1, dp2, dlts, step0 + j))
-            logits, _, _ = decoder_chunk(
-                self.draft_params, self.draft_cfg, fed[-1][:, None], n - 1 + j,
+            logits, _, _ = self._fan(
+                "decoder_chunk", self._drp, self.draft_cfg, fed[-1][:, None], n - 1 + j,
                 buf.dk, buf.dv, buf.dxk, buf.dxv,
             )
             if j < K:
-                d_j, _, _ = self._grammar(logits[:, 0, :].contiguous(), dp1, dp2, dlts, step0 + j)
+                d_j, _, _ = self._grammar(first(logits)[:, 0, :].contiguous(), dp1, dp2, dlts, step0 + j)
                 dp2, dp1 = dp1, d_j
                 dlts = torch.where(d_j > st.no_timestamps, d_j, dlts)
                 fed.append(d_j)
@@ -278,7 +303,8 @@ class SpeculativeEngine(DecodeEngine):
         # Verify: one (K+1)-wide target chunk; logits[:, j] predicts n + j
         # under grammar state s_j.
         chunk = torch.stack(fed, 1)  # [B, K+1]
-        logits, _, _ = decoder_chunk(self.params, cfg, chunk, n - 1, buf.ck, buf.cv, buf.xk, buf.xv)
+        logits, _, _ = self._fan("decoder_chunk", self._rp, cfg, chunk, n - 1, buf.ck, buf.cv, buf.xk, buf.xv)
+        logits = first(logits)
         rows = lambda xs: torch.stack(xs, 1).reshape(-1)  # row b*(K+1) + j
         g, prob, _ = self._grammar(
             logits.reshape(B * (K + 1), -1), rows(s_p1), rows(s_p2), rows(s_lts), rows(s_step)
@@ -347,25 +373,35 @@ class SpeculativeEngine(DecodeEngine):
         (tokens, n, sum_logprob, live rounds per row) on the device;
         token-for-token the plain loop's greedy decode.
 
-        The loop runs at most ``mtp - 1 - n0`` rounds (a live row commits at
-        least one token a round, and the length guard finishes it by then),
-        in chunks of ``_spec_chunk`` rounds with one host read of the
-        finished flags before each; each chunk a CUDA graph on CUDA, captured
-        on its first use per (buffers, K, rounds, n0)."""
+        Every row has finished within ``mtp - 1 - n0`` rounds (a live row
+        commits at least one token a round, and the length guard finishes it
+        by then).  The loop runs chunks of ``_spec_chunk`` rounds until then,
+        with one host read of the finished flags before each; the last chunk
+        may pass that bound (rounds after every row has finished change
+        nothing), so every chunk is one CUDA graph on CUDA, captured on its
+        first use per (buffers, K, n0), even by a window whose rows are all
+        finished before the first round: the warm-up's window captures all a
+        window of its shape replays."""
         buf = self._spec_buffer(ins)
         buf.start(ins, n0, prev1, prev2, fin_init)
         budget = self.cfg.max_target_positions - 1 - n0
+        r = self._spec_chunk
+
+        def rounds():
+            for _ in range(r):
+                self._spec_round(buf, k, n0)
+
         done = 0
         while done < budget:
-            r = min(self._spec_chunk, budget - done)
             self.host_syncs += 1
             if not bool((~buf.fin).any()):
+                if done == 0 and buf.static and (k, r, n0) not in buf.graphs:
+                    # Every row finished before the first round (silence, as
+                    # in a warm-up window): the chunk is captured all the
+                    # same (its rounds change nothing on finished rows), so
+                    # a live window of this shape captures nothing.
+                    self._graphed(buf, (k, r, n0), rounds)
                 break
-
-            def rounds(r=r):
-                for _ in range(r):
-                    self._spec_round(buf, k, n0)
-
             self._graphed(buf, (k, r, n0), rounds)
             done += r
         return buf.tokens.clone(), buf.n.clone(), buf.slp.clone(), buf.rounds.clone()
@@ -397,19 +433,20 @@ class SpeculativeEngine(DecodeEngine):
         B = audio.shape[0]
         dev = audio.device
         feats, xk, xv, prefix, langs, lang_probs = self._window_front(audio, langs, detect=detect)
-        dxk, dxv = cross_kv(self.draft_params, self.draft_cfg, feats)
+        dxk, dxv = self._fan("cross_kv", self._drp, self.draft_cfg, feats)
         # Both decoders prefill the prefix MINUS the pending task token (the
         # loop re-feeds it as the head of the first chunk); the no-speech
         # probe still reads the SOT position.
-        logits, ck, cv = decoder_prefill(self.params, cfg, prefix[:, :2], xk, xv)
-        _, dck, dcv = decoder_prefill(self.draft_params, self.draft_cfg, prefix[:, :2], dxk, dxv)
+        logits, ck, cv = self._fan("decoder_prefill", self._rp, cfg, prefix[:, :2], xk, xv)
+        _, dck, dcv = self._fan("decoder_prefill", self._drp, self.draft_cfg, prefix[:, :2], dxk, dxv)
+        logits = first(logits)
         # K+1 rows of slack: finished rows keep feeding their last pending
         # token at their final position, and rows at the length limit write
         # a chunk past it.
-        pad = lambda c: F.pad(c, (0, 0, 0, k + 1))
-        ck, cv, dck, dcv = pad(ck), pad(cv), pad(dck), pad(dcv)
+        pad = lambda *cs: tuple(F.pad(c, (0, 0, 0, k + 1)) for c in cs)
+        ck, cv, dck, dcv = per_rank(pad, ck, cv, dck, dcv)
         if self.quantize_cross_kv:  # loop-side only
-            xk, xv = quantize_xkv8(xk, xv)
+            xk, xv = per_rank(quantize_xkv8, xk, xv)
         nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, st.no_speech]
         tokens_init = torch.zeros((B, cfg.max_target_positions), dtype=torch.int32, device=dev)
         tokens_init[:, :3] = prefix
@@ -428,12 +465,11 @@ class SpeculativeEngine(DecodeEngine):
         """The t>0 rungs over the window's encoder features for rows whose
         speculative t=0 rung failed the logprob gate: the sequential ladder
         from rung 1 (a row settling at rung r reports TEMPERATURES[r]);
-        settled rows are born finished.  Returns [B, Tmax+3] f32: tokens,
-        n, avg_logprob, rung."""
+        settled rows are born finished.  Returns [B, Tmax+3] f32: tokens, n, avg_logprob, rung."""
         cfg, st = self.cfg, self.st
-        B = feats.shape[0]
-        dev = feats.device
-        xk, xv = cross_kv(self.params, cfg, feats)
+        B = first(feats).shape[0]  # each rank's features under tp
+        dev = first(feats).device
+        xk, xv = self._fan("cross_kv", self._rp, cfg, feats)
         prefix = torch.stack(
             [
                 torch.full((B,), st.sot, dtype=torch.int32, device=dev),

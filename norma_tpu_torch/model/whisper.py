@@ -32,8 +32,9 @@ self-K/V.
 
 Tensor parallelism (the JAX package's params under GSPMD, Megatron
 layout: ``parallel/sharding.py``).  The layer code is written once, for
-one rank: :func:`_encode`, :func:`_decoder_prefill`, :func:`_decoder_step`
-and :func:`_logits_head` are generators that take the rank's shard and a
+one rank: :func:`_encode`, :func:`_decoder_prefill`, :func:`_decoder_step`,
+:func:`_decoder_chunk` (the speculative verify and draft passes) and
+:func:`_logits_head` are generators that take the rank's shard and a
 ``tp`` rank (``.index`` on the tp axis, ``.size``; None for no tp) and
 yield ``(op, tensor, kwargs)`` where the ranks must meet: "sum" (f32) of
 the row-parallel partial products of ``o_w``, ``xo_w`` and ``fc2_w`` and of
@@ -773,8 +774,14 @@ def decoder_chunk(
     package.  Logits go through :func:`logits_head` (the w8 / w4 kernels
     on the card for quantized heads).
     """
+    return _solo(_decoder_chunk(params, cfg, toks, pos, cache_k, cache_v, xk, xv))
+
+
+def _decoder_chunk(params: Params, cfg: WhisperConfig, toks, pos, cache_k, cache_v, xk, xv, tp=None):
+    """:func:`decoder_chunk` on a rank's shard: caches and cross-K/V hold the
+    rank's D / tp columns and heads; the logits come back whole."""
     dec = params["decoder"]
-    n_heads = cfg.decoder_attention_heads
+    n_heads = _heads(cfg.decoder_attention_heads, tp)
     if isinstance(cache_k, dict):
         raise NotImplementedError(
             "decoder_chunk does not support the int8 self-KV cache "
@@ -783,11 +790,11 @@ def decoder_chunk(
     if isinstance(xk, dict) and ("codes" in xk or "codes4" in xk):
         raise ValueError("decoder_chunk: the cross kernel layout is single-query; pass plain int8 dicts")
     B, C = toks.shape
-    T, D = cache_k.shape[2], cache_k.shape[3]
+    T, D = cache_k.shape[2], cache_k.shape[3]  # D: the rank's columns
     dev = toks.device
     pos_idx = pos.long()[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
     emb_idx = pos_idx.clamp(max=cfg.max_target_positions - 1)
-    x = dec["tok_emb"][toks.long()] + dec["pos_emb"][emb_idx]
+    x = (yield from _embed(dec, toks, tp)) + dec["pos_emb"][emb_idx]
     # Query at chunk offset c (global pos + c) sees cache keys <= pos + c.
     key_idx = torch.arange(T, device=dev)
     key_mask = torch.where(
@@ -815,11 +822,11 @@ def decoder_chunk(
         cache_k[li].scatter_(1, rows, k.to(cache_k.dtype))
         cache_v[li].scatter_(1, rows, v.to(cache_v.dtype))
         a = attention(q, cache_k[li], cache_v[li], n_heads, key_mask)
-        x = x + ldense(lp, "o_w", a, lp["o_b"])
-        x = _solo(_decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li)))
+        x = x + (yield from _row_dense(lp, "o_w", a, lp["o_b"], tp))
+        x = yield from _decoder_layer_cross_mlp(lp, x, lambda xq, li=li: cross_attn(xq, li), tp)
 
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    return logits_head(dec, x), cache_k, cache_v
+    return (yield from _logits_head(dec, x, tp)), cache_k, cache_v
 
 
 @torch.no_grad()

@@ -17,7 +17,9 @@ position runs:
     LocalGroup` above;
   - tp above 1, every rank on its own card (``sharding.in_workers``): each
     position is a :class:`~norma_tpu_torch.parallel.workers.WorkerEngine`,
-    one worker process per card, its tp ranks reducing over NCCL;
+    one worker process per card, its tp ranks reducing over NCCL (a
+    speculative draft's shards go to the same workers and reduce over the
+    same communicator);
   - tp 1 on distinct cards: each replica is an engine in this process, as
     on virtual devices.  These replicas run one after the other, and
     worker processes were measured to run them at once (PERF.md section
@@ -37,8 +39,11 @@ B divides by dp (each replica chooses its ladder arm on its local batch,
 as the JAX ``shard_map`` program does, so t=0 tokens equal JAX's dp
 engine's); any other B runs whole on the first replica, the arm JAX's
 unsharded program chooses.  Other attributes and methods are the first
-replica's.  ``SpeculativeEngine`` on params whose tp is above 1 raises
-(ROADMAP queue 1).
+replica's.  Every :class:`~norma_tpu_torch.parallel.sharding.ShardedParams`
+argument (a speculative draft) reaches a position as its own ranks'
+shards: its ``Params`` for tp 1, otherwise a
+:class:`~norma_tpu_torch.parallel.collectives.TPParams` over the target's
+group.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import torch
 
 from ..decode.engine import DecodeEngine
 from ..errors import NormaError
-from .collectives import LocalGroup, TPParams
+from .collectives import LocalGroup, RankList, TPParams
 from .sharding import Mesh, ShardedBatch, ShardedParams, in_workers
 from .workers import WorkerEngine
 
@@ -128,11 +133,6 @@ class DataParallelEngine:
         for a in list(args) + list(kwargs.values()):
             if isinstance(a, ShardedParams) and a.mesh != self.mesh:
                 raise NormaError(f"params sharded over two meshes: {self.mesh} and {a.mesh}")
-            if isinstance(a, ShardedParams) and self.tp > 1:
-                raise NormaError(
-                    f"{cls.__name__} on params split over tp={self.tp} is not supported yet (ROADMAP "
-                    "queue 1, 'SpeculativeEngine on tp'); shard the target and the draft over dp only"
-                )
         self.params = params
         self.remote = self._in_workers(self.mesh)
         if self.tp > 1 and not self.remote and any(len(set(row)) > 1 for row in self.mesh.devices):
@@ -140,19 +140,23 @@ class DataParallelEngine:
                 f"tp ranks over {[str(d) for d in self.mesh.devices.flat]}: a tp group is on one device (one "
                 "process) or, with every rank of the mesh on its own card, one worker process a card"
             )
-        pick = lambda a, i: a.shard(i) if isinstance(a, ShardedParams) else a
         self.replicas: List[_Replica] = []
         try:
             for i in range(self.dp):
-                a_i = tuple(pick(a, i) for a in args)
-                kw_i = {k: pick(v, i) for k, v in kwargs.items()}
                 devs = list(self.mesh.devices[i])
+                if self.remote:  # each worker takes its rank's shard of every sharded argument
+                    pick = lambda a: RankList(a.ranks(i))  # noqa: E731
+                elif self.tp > 1:  # every sharded argument over the one group of the position
+                    group = LocalGroup(devs)
+                    pick = lambda a: TPParams(a.ranks(i), list(range(self.tp)), group)  # noqa: E731
+                else:
+                    pick = lambda a: a.shard(i)  # noqa: E731
+                a_i = tuple(pick(a) if isinstance(a, ShardedParams) else a for a in args)
+                kw_i = {k: pick(v) if isinstance(v, ShardedParams) else v for k, v in kwargs.items()}
                 if self.remote:
                     engine = WorkerEngine(cls, params.ranks(i), devs, a_i, kw_i)
-                elif self.tp > 1:
-                    engine = cls(TPParams(params.ranks(i), list(range(self.tp)), LocalGroup(devs)), *a_i, **kw_i)
                 else:
-                    engine = cls(params.shard(i), *a_i, **kw_i)
+                    engine = cls(pick(params), *a_i, **kw_i)
                 self.replicas.append(_Replica(engine, i))
         except BaseException:
             self.close()

@@ -8,8 +8,8 @@ a dp x tp mesh, at a tiny width, in one call.
 Without ``devices`` the mesh takes ``n_devices`` positions over the cards
 in turn: with fewer cards than positions, a card is named more than once
 (virtual devices).  The tp mesh is the JAX dry run's: tp=4 where 4 divides
-``n_devices``, else 2 (1 for an odd count), dp the rest.  Its speculative
-part waits for ``SpeculativeEngine`` on tp (ROADMAP queue 1).
+``n_devices``, else 2 (1 for an odd count), dp the rest, with its
+draft/verify part on a tp-sharded draft.
 """
 
 from __future__ import annotations
@@ -143,8 +143,10 @@ def dryrun_tp(n_devices: int, devices: Sequence) -> str:
     compositional decode, the serving window with one stream detecting and
     at B=1, the int8 cross-K/V (each cross impl) and self-KV tiers, the w8a8
     encoder and the kernel config, each at 64-wide heads, one a rank at
-    tp=4.  Returns its part of the dry run's line."""
-    from ..decode import DecodeEngine
+    tp=4; then speculative decoding with a tp-sharded one-layer draft
+    (``spec_k=3``, one stream detecting).  Returns its part of the dry
+    run's line."""
+    from ..decode import DecodeEngine, SpeculativeEngine
     from ..decode.masks import SpecialTokens
     from ..frontend.mel import log_mel_spectrogram
     from ..model import WhisperConfig, fuse_qkv, init_params
@@ -201,6 +203,16 @@ def dryrun_tp(n_devices: int, devices: Sequence) -> str:
         kcfg = cfg.with_(encoder_attn_impl="jax_flash", cross_kv_impl="kernel", self_kv_impl="kernel")
         k_out, _ = engine(params, kcfg, quantize_cross_kv=True).transcribe_window(audio, same, seed=0)
         assert len(k_out) == B
+        # Speculative decoding on the same mesh: a shallow tp-sharded draft
+        # proposes, the target verifies in one chunked forward.
+        dcfg = cfg.with_(decoder_layers=1, encoder_layers=1)
+        draft = shard_params(fuse_qkv(init_params(dcfg, seed=9, device=dev)), mesh)
+        es = SpeculativeEngine(params, cfg, draft, dcfg, st, language_token_ids=LANGS, spec_k=3)
+        engines.append(es)
+        s_out, s_info = es.transcribe_window(audio, langs, seed=0)
+        assert len(s_out) == B and int(s_info["langs"][0]) in LANGS
+        s_toks = [0 if r is None else len(r.tokens) for r in s_out]
+        s_rounds = es.last_spec_rounds
     finally:
         for e in engines:
             e.close()
@@ -209,6 +221,7 @@ def dryrun_tp(n_devices: int, devices: Sequence) -> str:
         f"{[0 if r is None else len(r.tokens) for r in fused]} tokens, detected lang {int(info['langs'][0])}, "
         f"compositional {[len(r.tokens) for r in results]} tokens, B=1 "
         f"{0 if spec1[0] is None else len(spec1[0].tokens)} tokens, kernel config "
-        f"{[0 if r is None else len(r.tokens) for r in k_out]} tokens"
+        f"{[0 if r is None else len(r.tokens) for r in k_out]} tokens, "
+        f"draft/verify {s_toks} tokens over {s_rounds} rounds"
     )
 

@@ -8,6 +8,11 @@ engine for tp 1, a tp engine over a :class:`~norma_tpu_torch.parallel.
 collectives.ProcessGroup` (NCCL on the cards, gloo on the CPU) for its
 group otherwise -- and answers the window entry points with host values.
 
+An argument given as a :class:`~norma_tpu_torch.parallel.collectives.
+RankList` of ``Params`` (a speculative engine's draft) reaches rank k as
+rank k's shard, sent as the engine's own shard is; the worker wraps it,
+under tp, in a ``TPParams`` over the same group (one communicator).
+
 Shards travel as CPU tensors in shared memory (``torch.multiprocessing``
 moves a CPU tensor's storage there when it is sent): the same transport
 on the CPU and on the cards, no CUDA IPC handle whose owner must outlive
@@ -51,6 +56,27 @@ SPAWN_TIMEOUT_S = 600.0
 def _tree(params) -> dict:
     """A Params tree as nested dicts of CPU tensors (shared when sent)."""
     return {k: _tree(v) if isinstance(v, torch.nn.Module) else v.detach().cpu() for k, v in params.items()}
+
+
+class _Shard:
+    """A rank's shard of a sharded engine argument, as :func:`_tree` sends it."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+
+
+def _rank_args(args, kwargs, k: int):
+    """``args`` and ``kwargs`` for rank ``k``: each RankList argument as that
+    rank's shard."""
+    from .collectives import RankList
+
+    one = lambda a: _Shard(_tree(a[k])) if isinstance(a, RankList) else a  # noqa: E731
+    return tuple(one(a) for a in args), {n: one(v) for n, v in kwargs.items()}
+
+
+# Attributes of a speculative engine that its WorkerEngine reads from the
+# workers, beside WorkerEngine._REMOTE.
+_SPEC_REMOTE = ("last_spec_rounds", "last_tokens_per_round", "last_spec_k", "spec_k")
 
 
 # Process-wide numerics a worker takes from its parent, so that it computes
@@ -105,11 +131,17 @@ def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> No
         cls, tree, args, kwargs, flags = conn.recv()
         for (obj, name), v in zip(_FLAGS, flags):
             setattr(obj, name, v)
-        shard = Params(tree).to(dev)
+        group = ProcessGroup(rank, size, dev, store_path) if size > 1 else None
+
+        def place(tree):
+            """This rank's shard on its device: under tp its TPParams over the group."""
+            shard = Params(tree).to(dev)
+            return shard if group is None else TPParams([shard], [rank], group)
+
+        params = place(tree)
+        args = tuple(place(a.tree) if isinstance(a, _Shard) else a for a in args)
+        kwargs = {k: place(v.tree) if isinstance(v, _Shard) else v for k, v in kwargs.items()}
         del tree
-        params = shard
-        if size > 1:
-            params = TPParams([shard], [rank], ProcessGroup(rank, size, dev, store_path))
         with torch.no_grad():
             engine = cls(params, *args, **kwargs)
         conn.send_bytes(pickle.dumps(("ok", None)))
@@ -169,9 +201,9 @@ class WorkerEngine:
     one per device of ``devices`` (rank k of the position's tp group on
     ``devices[k]``).  ``cfg``, ``st`` and ``device`` (the first rank's) are
     read here; the window entry points, the prefill / run_loop pair and the
-    counters go to the workers."""
-
-    supports_async_window = True
+    counters go to the workers, and for a speculative engine its telemetry
+    and ``warmup_fallback``.  ``supports_async_window`` is the engine
+    class's: a speculative window does not split into dispatch and fetch."""
 
     def __init__(self, cls, shards: Sequence, devices: Sequence, args=(), kwargs=None,
                  spawn_timeout_s: float = SPAWN_TIMEOUT_S):
@@ -187,6 +219,9 @@ class WorkerEngine:
         self.device = devices[0]
         self.devices = devices
         self.tp = len(devices)
+        self.supports_async_window = bool(getattr(cls, "supports_async_window", False))
+        self._speculative = hasattr(cls, "warmup_fallback")
+        self._remote = WorkerEngine._REMOTE + (_SPEC_REMOTE if self._speculative else ())
         if any(d.type == "cuda" for d in devices):
             from ..ops import _build
 
@@ -204,8 +239,8 @@ class WorkerEngine:
                 child.close()
                 self._procs.append(p)
                 self._conns.append(parent)
-            for conn, shard in zip(self._conns, shards):
-                conn.send((cls, _tree(shard), tuple(args), kwargs, _flags()))
+            for k, (conn, shard) in enumerate(zip(self._conns, shards)):
+                conn.send((cls, _tree(shard), *_rank_args(args, kwargs, k), _flags()))
             self._replies(spawn_timeout_s)
         except BaseException:
             self.close(wait=False)
@@ -286,7 +321,11 @@ class WorkerEngine:
     _REMOTE = ("host_syncs", "decode_steps", "graph_captures")
 
     def __getattr__(self, name):
-        if name not in WorkerEngine._REMOTE:
+        if name == "warmup_fallback" and self.__dict__.get("_speculative"):
+            # Only a speculative engine has it (DataParallelEngine and
+            # WhisperModel.warmup test for it).
+            return lambda batch=1: self.call("warmup_fallback", int(batch))
+        if name not in self.__dict__.get("_remote", WorkerEngine._REMOTE):
             raise AttributeError(name)
         return self._call("get", name)
 

@@ -1,15 +1,20 @@
-"""BatchedTranscriber on a dp mesh (the twin of tests/test_batching_mesh.py),
-on the CPU over virtual devices.  The JAX file's dp=2 tp=2 cases run at
-dp=2 tp=1 here: the port has no tensor parallelism yet.
+"""BatchedTranscriber on a mesh (the twin of tests/test_batching_mesh.py),
+on the CPU over virtual devices.  The JAX file's dp=2 tp=2 plain-serving
+cases run at dp=2 tp=1 here (the tp engine serves in
+test_torch_batching_tp.py); its speculative ones run at dp=2 tp=2.
 
   - a dp=2 scheduler transcribes what the unsharded one does;
   - at dp=3 every round's batch is a multiple of 3, and the scheduler's
     thread exits on close;
   - ``warmup()`` warms every bucket on every replica: each (replica, local
     batch, detect) window a served round runs was run by the warmup, and
-    so was each replica's speculative fallback at its local batch.  These
-    are the CUDA graphs' keys; on the card chip_smoke's mesh phase counts
-    ``graph_captures`` after warmup (0; the CPU captures none).
+    so was each replica's speculative fallback at its local batch, at tp=1
+    and, speculative, at dp2 x tp2.  These are the CUDA graphs' keys; on
+    the card chip_smoke's mesh phase counts ``graph_captures`` after
+    warmup (0; the CPU captures none);
+  - at dp2 x tp2 the live speculative fallback keys its token loops'
+    buffers (the CUDA graphs' keys on the card) as ``warmup_fallback``
+    did, so it captures nothing new mid-utterance.
 """
 
 import time
@@ -26,9 +31,11 @@ import norma_tpu_torch.decode.speculative as spec_mod
 from norma_tpu_torch.audio.sources import SyntheticSource
 from norma_tpu_torch.decode import DecodeEngine, LanguageState, SpeculativeEngine
 from norma_tpu_torch.errors import NormaError
+from norma_tpu_torch.frontend.mel import prepare_audio
 from norma_tpu_torch.input import Settings
 from norma_tpu_torch.models.whisper.model import WhisperModel
-from norma_tpu_torch.parallel import make_mesh, shard_params
+from norma_tpu_torch.parallel import make_mesh, shard_batch, shard_params
+from norma_tpu_torch.parallel.collectives import first
 from norma_tpu_torch.runtime.batching import BatchedTranscriber
 
 ST = port_st(TEST_ST)
@@ -140,23 +147,23 @@ def _record_windows(engine, log):
             fb = e._fallback_rungs
 
             def fallback(feats, langs, seed, settled, i=i, fb=fb):
-                log.append(("fallback", i, int(feats.shape[0])))
+                log.append(("fallback", i, int(first(feats).shape[0])))  # each rank's features under tp
                 return fb(feats, langs, seed, settled)
 
             e._fallback_rungs = fallback
 
 
-@pytest.mark.parametrize("speculative", [False, True])
-def test_mesh_warmup_covers_every_served_window(monkeypatch, speculative):
+@pytest.mark.parametrize("speculative,tp", [(False, 1), (True, 1), (True, 2)], ids=["False", "True", "True-tp2"])
+def test_mesh_warmup_covers_every_served_window(monkeypatch, speculative, tp):
     """warmup() runs, on every replica, every window shape a served round
     runs there (and, speculative, every fallback shape: the gate is forced
-    to fail, so every live window takes it).  Random weights: the plain
-    ladder's t>0 rungs run too."""
+    to fail, so every live window takes it), on dp=2 and, speculative, on
+    dp2 x tp2.  Random weights: the plain ladder's t>0 rungs run too."""
     if speculative:
         monkeypatch.setattr(spec_mod, "LOGPROB_THRESHOLD", float("inf"))
     tc = dict(d_model=64, encoder_attention_heads=4, decoder_attention_heads=4)
     cfg = tiny_config(**tc)
-    mesh = _cpu_mesh(2)
+    mesh = make_mesh(dp=2, tp=tp, devices=["cpu"] * (2 * tp))
     sp = shard_params(port_params(jax_init(cfg, seed=3)), mesh)
     if speculative:
         dcfg = tiny_config(**tc, decoder_layers=1, encoder_layers=1)
@@ -181,3 +188,44 @@ def test_mesh_warmup_covers_every_served_window(monkeypatch, speculative):
         assert any(w[0] == "fallback" for w in warm)
     assert engine.graph_captures == 0  # the CPU captures no graphs
     assert all(isinstance(t, str) for t in texts)
+
+
+def test_spec_fallback_live_dispatch_hits_warmed_cache(monkeypatch):
+    """The twin of the JAX test at dp2 x tp2: the t>0 fallback that
+    ``warmup_fallback`` runs on each replica keys its token loops' buffers
+    (``_loop_buffers``: the CUDA graphs' keys on the card) exactly as the
+    live gate-failure dispatch does, each rank's inputs included, so the
+    live fallback hits the warmed entries."""
+    monkeypatch.setattr(spec_mod, "LOGPROB_THRESHOLD", float("inf"))
+    tc = dict(d_model=64, encoder_attention_heads=4, decoder_attention_heads=4)
+    cfg, dcfg = tiny_config(**tc), tiny_config(**tc, decoder_layers=1, encoder_layers=1)
+    mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    engine = SpeculativeEngine(
+        shard_params(port_params(jax_init(cfg, seed=3)), mesh), port_cfg(cfg),
+        shard_params(port_params(jax_init(dcfg, seed=103)), mesh), port_cfg(dcfg), ST,
+        language_token_ids=TEST_LANG_IDS,
+    )
+    keys = {"warm": set(), "live": set()}
+    phase = ["warm"]
+    for i, r in enumerate(engine.replicas):
+        inner = r.engine._loop_buffers
+
+        def spy(*ins, i=i, inner=inner):
+            keys[phase[0]].add((i, engine_mod._signature(ins)))
+            return inner(*ins)
+
+        r.engine._loop_buffers = spy
+    B = 2
+    try:
+        engine.warmup_fallback(batch=B)
+        phase[0] = "live"
+        sr = 16_000
+        sine = (0.1 * np.sin(2 * np.pi * 440 * np.arange(2 * sr) / sr)).astype(np.float32)
+        win = prepare_audio(sine, n_frames=2 * cfg.max_source_positions)
+        results, _ = engine.transcribe_window(shard_batch(np.stack([win] * B), mesh), [TEST_LANG_IDS[0]] * B, seed=7)
+    finally:
+        engine.close()
+    assert len(results) == B
+    assert {i for i, _ in keys["live"]} == {0, 1}, "the live fallback did not run on every replica"
+    assert keys["live"] <= keys["warm"], sorted(keys["live"] - keys["warm"])
+    assert engine.graph_captures == 0

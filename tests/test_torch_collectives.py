@@ -150,6 +150,9 @@ def test_worker_engine_tp2_over_gloo(params):
         again = w.run_loop(state, 0.0, 0)  # a prefill state serves several loops (the ladder)
         assert [r.tokens for r in got] == [r.tokens for r in want] == [r.tokens for r in again]
         assert w.decode_steps > 0 and w.host_syncs > 0
+        # A plain engine's worker splits its window (dispatch, fetch) and has
+        # no speculative fallback to warm.
+        assert w.supports_async_window is True and not hasattr(w, "warmup_fallback")
         launches = w.launches(reset=True)
         assert len(launches) == 2 and set(launches[0]) >= {"sample_step", "w8_matmul"}
         audio = np.random.default_rng(0).standard_normal((2, 16000)).astype(np.float32) * 0.1

@@ -12,7 +12,8 @@ tensors).  Pinned:
   - the detection path on the mesh;
   - params split over tp keep the kernel config on every rank (JAX falls
     back to XLA twins), at dp2 x tp2 and for a batch that does not divide
-    over dp;
+    over dp; speculative decoding on the same tp-sharded params, with the
+    cross impl speculation allows, gives the one-device engine's tokens;
   - a batch that does not divide over dp runs whole on the first replica;
   - the device count of params takes the maximum over placements, and
     counts virtual devices.
@@ -33,7 +34,6 @@ from norma_tpu.parallel import make_mesh as jax_make_mesh
 from norma_tpu.parallel import shard_batch as jax_shard_batch
 from norma_tpu.parallel import shard_params as jax_shard_params
 from norma_tpu_torch.decode import DecodeEngine
-from norma_tpu_torch.errors import NormaError
 from norma_tpu_torch.frontend.mel import prepare_audio
 from norma_tpu_torch.parallel import make_mesh, shard_batch, shard_params
 from norma_tpu_torch.utils import params_device_count, params_platform, params_replicated_on_mesh
@@ -125,7 +125,9 @@ def test_tp_sharded_params_raise(setup, interp_escapes):
     """The twin of JAX's test_tp_sharded_params_still_fall_back: JAX falls
     back to XLA twins on tp-sharded params; the port keeps the kernel config
     on every rank, and its dp2 x tp2 window equals the one-device engine's.
-    Speculative decoding on tp-sharded params still raises."""
+    Speculative decoding on the same tp-sharded params (a self-draft, the
+    int8 cross-K/V on the einsum impl: the kernel layout is single-query)
+    gives the one-device speculative engine's tokens."""
     cfg, _, params = setup
     pcfg = port_cfg(cfg)
     mesh = _cpu_mesh(2, 2)
@@ -146,9 +148,17 @@ def test_tp_sharded_params_raise(setup, interp_escapes):
     assert _tokens(got) == _tokens(want) and all(t is not None and len(t) > 3 for t in _tokens(got))
     from norma_tpu_torch.decode import SpeculativeEngine
 
-    with pytest.raises(NormaError, match="ROADMAP"):
-        SpeculativeEngine(shard_params(params, mesh), pcfg, shard_params(params, mesh), pcfg, ST,
-                          language_token_ids=TEST_LANG_IDS)
+    scfg = pcfg.with_(cross_kv_impl="einsum")
+    sp = shard_params(params, mesh)
+    es = SpeculativeEngine(sp, scfg, sp, scfg, ST, language_token_ids=TEST_LANG_IDS, quantize_cross_kv=True)
+    try:
+        assert all(r.engine._group.size == 2 and r.engine._drp[0] is r.engine._rp[0] for r in es.replicas)
+        s_got, _ = es.transcribe_window(shard_batch(audio, mesh), langs, seed=0)
+    finally:
+        es.close()
+    s_want, _ = SpeculativeEngine(params, scfg, params, scfg, ST, language_token_ids=TEST_LANG_IDS,
+                                  quantize_cross_kv=True).transcribe_window(audio, langs, seed=0)
+    assert _tokens(s_got) == _tokens(s_want) and all(t is not None and len(t) > 3 for t in _tokens(s_got))
 
 
 def test_non_divisible_batch_runs_on_one_tp_group(setup):

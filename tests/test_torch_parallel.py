@@ -9,8 +9,10 @@ the twin of tests/test_parallel.py, on the CPU over virtual devices.
   - dp 2, 3 and 4: greedy tokens of the port's dp engine equal the
     unsharded port's and the JAX package's dp-mesh engine's (GSPMD over its
     forced CPU devices), quantized and detection too;
-  - speculative decoding on params split over tp above 1 raises
-    ``NormaError`` (the tp engine: test_torch_tensor_parallel.py).
+  - speculative decoding on dp2 x tp2 gives the one-device speculative
+    engine's tokens, and a draft over another group raises ``NormaError``
+    (the tp engines: test_torch_tensor_parallel.py,
+    test_torch_speculative_tp.py).
 
 Tolerance: tokens equal; ``no_speech_prob`` and language probabilities
 within 1e-5 (f32, JAX matmul precision "highest").
@@ -222,14 +224,36 @@ def test_dp_detect_matches(jparams, params):
     np.testing.assert_allclose(got, np.asarray(jax_out), atol=1e-5)
 
 
-def test_tp_above_one_raises(params):
-    """Speculative decoding on tp-sharded params raises (its half of this
-    test; DecodeEngine runs tp, test_torch_tensor_parallel.py)."""
-    mesh = _cpu_mesh(2, 2)
-    sp = shard_params(params, mesh)
+def test_speculative_on_dp2_tp2(params):
+    """Speculative decoding on dp2 x tp2 (its half of this test; DecodeEngine
+    runs tp, test_torch_tensor_parallel.py): each replica's draft is a
+    TPParams over its target's group, and the window's tokens equal the
+    one-device speculative engine's.  A draft over another group raises."""
+    from norma_tpu_torch.model import init_params
+    from norma_tpu_torch.parallel.collectives import LocalGroup, TPParams
+
     dcfg = port_cfg(tiny_config(d_model=64, encoder_attention_heads=4, decoder_attention_heads=4, decoder_layers=1))
-    with pytest.raises(NormaError, match="ROADMAP"):
-        SpeculativeEngine(sp, PCFG, shard_params(params, mesh), dcfg, ST, language_token_ids=TEST_LANG_IDS)
+    draft = init_params(dcfg, seed=5)
+    mesh = _cpu_mesh(2, 2)
+    sp, sd = shard_params(params, mesh), shard_params(draft, mesh)
+    audio = np.random.default_rng(2).standard_normal((4, 16000)).astype(np.float32) * 0.1
+    langs = [LANG, -1, LANG, LANG]
+    want, winfo = SpeculativeEngine(params, PCFG, draft, dcfg, ST, language_token_ids=TEST_LANG_IDS).transcribe_window(
+        audio, langs, seed=0)
+    eng = SpeculativeEngine(sp, PCFG, sd, dcfg, ST, language_token_ids=TEST_LANG_IDS)
+    try:
+        assert isinstance(eng, DataParallelEngine) and len(eng.replicas) == 2
+        for r in eng.replicas:
+            assert r.engine._group.size == 2 and len(r.engine._drp) == 2
+        got, info = eng.transcribe_window(audio, langs, seed=0)
+    finally:
+        eng.close()
+    assert [None if r is None else r.tokens for r in got] == [None if r is None else r.tokens for r in want]
+    assert list(info["langs"]) == list(winfo["langs"])
+    target = TPParams(sp.ranks(0), [0, 1], LocalGroup(["cpu"] * 2))
+    other = TPParams(sd.ranks(0), [0, 1], LocalGroup(["cpu"] * 2))
+    with pytest.raises(NormaError, match="same group"):
+        SpeculativeEngine(target, PCFG, other, dcfg, ST, language_token_ids=TEST_LANG_IDS)
 
 
 def test_mesh_argument_must_be_the_params_mesh(params):
