@@ -24,11 +24,26 @@ Semantics preserved from the reference, in prob space (post first softmax):
 The token loop: all per-step state (tokens, n, prev tokens, last
 timestamp, sum of logprobs, finished flags, step, position, draw key)
 stays on the device.  The loop advances in chunks of ``LOOP_CHUNK``
-steps at one cache crop and reads "any row unfinished" on the host once
-per chunk (the JAX package runs one ``lax.while_loop`` per crop).  On
-CUDA each chunk is a captured CUDA graph, replayed; on the CPU the same
-steps run eagerly.  Every host read is counted in
-:attr:`DecodeEngine.host_syncs`.
+steps at one cache crop, testing "any row unfinished" before each chunk
+(the JAX package runs one ``lax.while_loop`` per crop).
+
+A window (:meth:`DecodeEngine.transcribe_window_async`) is one device
+program, as the JAX package's is: on CUDA one CUDA graph per window shape
+(rows, samples, detection), captured on the shape's first window and
+replayed after, holds mel, encoder, cross-K/V, detection, prefill, the
+no-speech gate, the ladder and its packing.  Its loops' stop tests run on
+the device: each cache crop's loop is a WHILE node whose body is one step
+followed by the condition's kernel (``ops/loop_cond.py``), as the JAX
+package runs one ``lax.while_loop`` per crop, and a sequential rung whose
+rows have all settled runs its loops zero times.  The seed is one of the
+graph's inputs.  The window's one host read is its fetch.  On the CPU the
+same structure runs eagerly, the conditions read on the host.  This holds
+for an engine without tp and for one whose tp ranks share its process (a
+``LocalGroup``, whose collectives are plain device work); an engine that
+is one rank of worker processes over NCCL keeps a host read of the flags
+per chunk, as the token loop run alone does (``run_loop``, the
+speculative engine's fallback), each chunk a CUDA graph on CUDA.  Every
+device->host read is counted in :attr:`DecodeEngine.host_syncs`.
 
 Tensor parallelism: an engine built on
 :class:`~norma_tpu_torch.parallel.collectives.TPParams` (the tp shards of
@@ -57,6 +72,8 @@ package.
 from __future__ import annotations
 
 import logging
+import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -84,12 +101,13 @@ from ..model.whisper import (
     quantize_self_kv_cache,
 )
 from ..ops import _build
+from ..ops.loop_cond import capture_nodes, loop_cond, while_node
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
-from ..parallel.collectives import Rank, RankList, TPParams, first, lockstep, per_rank, unzip
+from ..parallel.collectives import LocalGroup, Rank, RankList, TPParams, first, lockstep, per_rank, unzip
 from ..parallel.sharding import ShardedParams
-from ..tracing import annotate, decode_telemetry, instrument
+from ..tracing import annotate, decode_telemetry, instrument, prime_device_tracer
 from .masks import SpecialTokens, build_masks
 
 logger = logging.getLogger(__name__)
@@ -127,15 +145,29 @@ def _tile_rows(cache, R: int):
     return cache.repeat(1, R, 1, 1)
 
 
-def _rung_seed(seed: int, rung: int) -> int:
+def _rung_seed(seed, rung: int):
     """The 64-bit draw key of ladder rung ``rung``: the low word is the
-    caller's seed, the high word the rung."""
+    caller's seed, the high word the rung.  An ``int`` for an ``int``
+    seed; for a seed held in one int64 tensor (a window graph's input),
+    the key computed on its device."""
+    if isinstance(seed, torch.Tensor):
+        return (seed & 0xFFFFFFFF) | (int(rung) << 32)
     return (int(seed) & 0xFFFFFFFF) | (int(rung) << 32)
 
 
-# Steps per chunk of the token loop: one host read of the finished flags,
-# and on CUDA one graph replay, per chunk (PERF.md: chosen on the H100).
+# Steps per chunk of the token loop read on the host: one read of the
+# finished flags per chunk (PERF.md: chosen on the H100).  A window
+# graph's WHILE passes are one step each (PERF.md: passes of 16 steps gave
+# a large-v3 B=8 window graph ~1M nodes and a 45-95 s capture, and took
+# the same wall as one-step passes at distil-large-v3's depth).
 LOOP_CHUNK = 16
+
+# One CUDA graph capture at a time in the process: instantiating a graph
+# that holds conditional (WHILE) nodes waits on the device, so two threads
+# capturing at once on one card -- data-parallel replicas warming up --
+# each waited for the other's capturing stream (both stuck in
+# capture_end on the H100).
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _signature(x):
@@ -199,7 +231,7 @@ class _LoopBuffers:
         self.graphs: dict = {}  # (S, k, n_rungs, greedy_only) -> CUDAGraph
         self.launches: dict = {}  # the same key -> {counter: launches per replay}
 
-    def start(self, ins, n0: int, prev1, prev2, temp, seed: int, fin_init) -> None:
+    def start(self, ins, n0: int, prev1, prev2, temp, seed, fin_init) -> None:
         if self.static:
             for dst, src in zip((self.xk, self.xv, self.cache_k, self.cache_v), ins[:4]):
                 _copy_into(dst, src)
@@ -220,8 +252,62 @@ class _LoopBuffers:
         else:
             self.fin.copy_(fin_init)
         self.pos.fill_(n0)
+        if isinstance(seed, torch.Tensor):  # the key's bits, on the device
+            self.seed.copy_(seed.reshape(1))
+            return
         key = int(seed) & 0xFFFFFFFFFFFFFFFF
         self.seed.fill_(key - (1 << 64) if key >= 1 << 63 else key)
+
+
+class _WindowGraph:
+    """One window shape's CUDA graph (:meth:`DecodeEngine.
+    transcribe_window_async`): its static inputs (audio, language tokens,
+    active rows, seed) on the device; the graph, its packed result and its
+    WHILE nodes' pass counters ``iters`` (zeroed by each replay); the
+    launches each replay counts at once and, per WHILE node, the launches
+    of one pass (one step), which the fetch scales by the passes the device
+    counted; and pinned host staging, inputs and outputs, two sets taken in
+    turn by the windows in flight (a third one in flight gets a set of its
+    own).  ``stats``: the graph's nodes (its own and its WHILE bodies'),
+    and the seconds its capture took to record and to instantiate."""
+
+    def __init__(self, B: int, samples: int, n_out: int, n_nodes: int, dev: torch.device):
+        self._shapes = {
+            "audio": ((B, samples), torch.float32), "langs": ((B,), torch.int64), "active": ((B,), torch.bool),
+            "seed": ((1,), torch.int64), "packed": ((B, n_out), torch.float32), "iters": ((n_nodes,), torch.int64),
+        }
+        for name in ("audio", "langs", "active", "seed", "iters"):
+            shape, dtype = self._shapes[name]
+            setattr(self, name, torch.zeros(shape, dtype=dtype, device=dev))
+        self.graph = None
+        self.packed = None
+        self.launches: dict = {}
+        self.loops: list = []  # per WHILE node: {counter: launches per pass}
+        self.stats: dict = {}
+        self._free = [self._staging() for _ in range(2)]
+
+    def _staging(self) -> dict:
+        return {k: torch.empty(shape, dtype=dtype, pin_memory=True) for k, (shape, dtype) in self._shapes.items()}
+
+    def take(self) -> dict:
+        """A free staging set (a new one when every set is in flight)."""
+        return self._free.pop() if self._free else self._staging()
+
+    def give(self, staging: dict) -> None:
+        self._free.append(staging)
+
+
+@dataclass
+class _PendingWindow:
+    """A window graph's replay in flight: its staging set, whose packed
+    result and pass counts are on their way to it, and the event after
+    those copies."""
+
+    win: _WindowGraph
+    staging: dict
+    done: "torch.cuda.Event"
+    active: np.ndarray
+    detect: bool
 
 
 # The layer generators (model/whisper.py) of the model functions a tp
@@ -329,7 +415,7 @@ class DecodeEngine:
             else None
         )
         # Counters: device->host reads, decode steps run, and CUDA graphs
-        # captured (keys added to a loop buffer's ``graphs``).
+        # captured (window graphs and the loop's chunk graphs).
         self.host_syncs = 0
         self.decode_steps = 0
         self.graph_captures = 0
@@ -339,6 +425,17 @@ class DecodeEngine:
         self._graph_buffers: dict = {}
         self._graph_pool = None
         self._side_stream = None
+        # Windows as one device program (module docstring) without tp or
+        # with every rank in this process: on CUDA their graphs by (rows,
+        # samples, detection); the graph being captured, whose loops become
+        # WHILE nodes; the stream their bodies are captured on.  A rank of
+        # NCCL worker processes keeps a host read a chunk: its collectives
+        # inside a WHILE body were not tried on the cards (ROADMAP).
+        self._device_loops = self._group is None or isinstance(self._group, LocalGroup)
+        self._window_graphs: dict = {}
+        self._capturing: Optional[_WindowGraph] = None
+        self._warming = False  # a window's run before its capture
+        self._body_stream = None
 
     @staticmethod
     def _kernel_params(params: Params, cfg: WhisperConfig, device: torch.device) -> Params:
@@ -420,7 +517,8 @@ class DecodeEngine:
         return cache_k, cache_v, logits[:, -1, :].contiguous(), nsp
 
     def _loop_plan(self, n0: int) -> List[Tuple[int, int]]:
-        """The token loop's chunks, as (crop S, steps k).
+        """The token loop's chunks of up to ``_loop_chunk`` steps, as (crop
+        S, steps k).
 
         The loop runs at most ``mtp - 1 - n0`` steps: a live row's length
         grows by at least one a step, so by then the ``mtp - 1`` guard has
@@ -428,7 +526,7 @@ class DecodeEngine:
         ``mtp - 2``).  Chunks follow the ``decode_buckets`` segments, as the
         JAX package's one ``lax.while_loop`` per cache crop does: a chunk
         never crosses a bucket boundary, so its crop S is fixed, and the
-        last chunk of a segment may be shorter than ``_loop_chunk``."""
+        last chunk of a segment may be shorter than ``chunk``."""
         cfg = self.cfg
         mtp = cfg.max_target_positions
         buckets = sorted({int(b) for b in cfg.decode_buckets if 0 < int(b) < mtp})
@@ -448,6 +546,20 @@ class DecodeEngine:
             plan.append((S, k))
             s += k
         return plan
+
+    def _loop_crops(self, n0: int) -> List[Tuple[int, int]]:
+        """:meth:`_loop_plan`'s cache crops, ``(S, pos_end)``: ``pos_end``
+        is the position after the crop's last step, so a crop's loop runs
+        one step a pass while a row is unfinished and the position is below
+        ``pos_end`` (one WHILE node in a window graph)."""
+        crops, pos = [], n0
+        for S, k in self._loop_plan(n0):
+            pos += k
+            if crops and crops[-1][0] == S:
+                crops[-1] = (S, pos)
+            else:
+                crops.append((S, pos))
+        return crops
 
     def _loop_buffers(self, xk, xv, cache_k, cache_v, next_logits, tokens_init):
         """The token loop's state and inputs as one :class:`_LoopBuffers`.
@@ -475,20 +587,26 @@ class DecodeEngine:
         prev1,  # [B] int32 (task token)
         prev2,  # [B] int32 (lang or sot token)
         temp,  # [B] f32 per-row temperature
-        seed: int,
+        seed,  # int, or the key's bits in one int64 on the device
         n_rungs: int = 1,
         fin_init=None,  # [B] bool — rows born finished (no-speech / settled)
         greedy_only: bool = False,
+        on_device: bool = False,
     ):
         """The autoregressive loop.  Returns (tokens [B, Tmax] int32, n [B]
         int32, sum_logprob [B] f32) on the device.
 
         The loop advances in chunks of up to ``_loop_chunk`` steps at one
-        cache crop (:meth:`_loop_plan`) and reads the finished flags on the
-        host once per chunk, before it.  On CUDA each chunk is a CUDA graph,
-        captured on its first use per (buffers, crop, steps, rungs,
-        ``greedy_only``) and replayed after; on the CPU the same steps run
-        eagerly.  Steps after every row has finished change no state.
+        cache crop (:meth:`_loop_plan`), testing the finished flags before
+        each chunk.  ``on_device`` (a window's loop): each crop's steps are
+        one :meth:`_device_while` of one-step passes, a WHILE node when a
+        window graph is being captured; the loop works on its inputs in
+        place.
+        Otherwise the flags are read on the host before each chunk; on CUDA
+        each chunk is then a CUDA graph, captured on its first use per
+        (buffers, crop, steps, rungs, ``greedy_only``) and replayed after;
+        on the CPU the same steps run eagerly.  Steps after every row has
+        finished change no state.
 
         On CUDA the inputs are copied into the loop's static buffers and the
         caller's caches are only read; on the CPU rows >= n0 of the caller's
@@ -500,6 +618,16 @@ class DecodeEngine:
         out whatever they hold, as the JAX chain's zero padding is).
         """
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
+        if on_device:
+            _, buf, generator = self._loop_start(
+                ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
+            )
+            with annotate("token_loop"):
+                for S, pos_end in self._loop_crops(n0):
+                    self._device_while(
+                        buf, pos_end, lambda S=S: self._loop_step(buf, S, n_rungs, greedy_only, generator)
+                    )
+            return buf.tokens, buf.n, buf.slp
         plan, buf, generator = self._loop_start(
             ins, self._loop_buffers(*ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
         )
@@ -508,7 +636,8 @@ class DecodeEngine:
                 self.host_syncs += 1
                 if not bool((~buf.fin).any()):
                     break
-                self._run_chunk(buf, S, k, n_rungs, greedy_only, generator)
+                self._graphed(buf, (S, k, n_rungs, bool(greedy_only)),
+                              lambda S=S, k=k: self._steps(buf, S, k, n_rungs, greedy_only, generator))
                 self.decode_steps += k
         return buf.tokens.clone(), buf.n.clone(), buf.slp.clone()
 
@@ -521,22 +650,93 @@ class DecodeEngine:
             generator = torch.Generator(device="cpu").manual_seed(int(seed))
         return plan, buf, generator
 
-    def _run_chunk(self, buf, S: int, k: int, n_rungs: int, greedy_only: bool, generator) -> None:
-        """Advance ``buf`` by ``k`` steps at crop ``S`` (:meth:`_graphed`)."""
+    def _steps(self, buf, S: int, k: int, n_rungs: int, greedy_only: bool, generator) -> None:
+        """Advance ``buf`` by ``k`` steps at crop ``S``."""
+        for _ in range(k):
+            self._loop_step(buf, S, n_rungs, greedy_only, generator)
 
-        def chunk():
-            for _ in range(k):
-                self._loop_step(buf, S, n_rungs, greedy_only, generator)
+    def _device_while(self, buf, pos_end: int, body) -> None:
+        """``while loop_cond(buf.fin, buf.pos, pos_end): body()``, ``body``
+        being one step: while a window graph is captured, one WHILE node
+        (:func:`~norma_tpu_torch.ops.loop_cond.while_node`), its passes
+        counted on the device for the fetch; in the run before a capture,
+        one pass whatever the condition (every kernel of the body runs
+        before it is captured; the run's result is dropped, and the pass
+        stays inside the crop: a loop's passes start at its first row);
+        otherwise the condition is read on the host before each pass."""
+        win = self._capturing
+        if win is not None:
+            i = len(win.loops)
+            if i >= win.iters.numel():
+                raise RuntimeError(f"a window graph has more than {win.iters.numel()} token loops' WHILE nodes")
+            if self._body_stream is None:
+                self._body_stream = torch.cuda.Stream(device=buf.fin.device)
+            tally, nodes = while_node(buf.fin, buf.pos, pos_end, body, pool=self._graph_pool,
+                                      body_stream=self._body_stream, iters=win.iters[i:i + 1])
+            win.loops.append(tally)
+            win.stats["body_nodes"] = win.stats.get("body_nodes", 0) + nodes
+            return
+        if self._warming:
+            body()
+            return
+        cuda = buf.fin.device.type == "cuda"
+        while True:
+            go = loop_cond(buf.fin, buf.pos, pos_end)
+            if cuda:
+                self.host_syncs += 1
+            if not bool(go):
+                return
+            body()
+            self.decode_steps += 1
 
-        self._graphed(buf, (S, k, n_rungs, bool(greedy_only)), chunk)
+    def _capture(self, dev: torch.device, fn):
+        """Capture ``fn()`` into a new CUDA graph on the engine's side stream
+        (after the current stream's work; the current stream then waits for
+        the side stream).  Returns (graph, the launches it recorded, what
+        ``fn`` returned, the seconds to record and to instantiate it).  A
+        capture error raises."""
+        cur = torch.cuda.current_stream(dev)
+        side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
+        side.wait_stream(cur)
+        # One memory pool for all the engine's graphs: a graph's temporaries
+        # are dead when it ends (its results are copied out) and graphs run
+        # one at a time on one stream, so they can share blocks.  Each
+        # engine (each data-parallel replica) has its own pool.
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # The wrappers' launches while captured are tallied, not counted;
+        # each replay counts them.
+        with _CAPTURE_LOCK, torch.cuda.stream(side), _build.recording_launches() as tally:
+            t0 = time.perf_counter()
+            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                t1 = time.perf_counter()
+                graph.capture_end()  # instantiates the graph
+        cur.wait_stream(side)
+        self.graph_captures += 1
+        return graph, tally, out, dict(record_s=t1 - t0, instantiate_s=time.perf_counter() - t1)
+
+    def _warm_run(self, dev: torch.device, fn):
+        """``fn()`` on the side stream, after the current stream's work: a
+        first use's real run, which readies the kernel library, cuBLAS and
+        the allocator before its capture."""
+        cur = torch.cuda.current_stream(dev)
+        side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            return fn()
 
     def _graphed(self, buf, key, fn) -> None:
         """Run ``fn``, device work on ``buf``'s tensors: eagerly on the CPU;
         on CUDA by replaying ``buf.graphs[key]``.  A key met for the first
-        time runs ``fn`` eagerly on a side stream (the warm-up: the kernel
-        library, cuBLAS and the allocator are ready before the capture),
-        then captures it there.  A capture or replay error raises."""
-        if buf.fin.device.type != "cuda":
+        time runs ``fn`` on the side stream (:meth:`_warm_run`: this call's
+        run), then captures it (:meth:`_capture`).  A capture or replay
+        error raises."""
+        dev = buf.fin.device
+        if dev.type != "cuda":
             fn()
             return
         graph = buf.graphs.get(key)
@@ -544,30 +744,8 @@ class DecodeEngine:
             graph.replay()
             _build.count_all(buf.launches[key])
             return
-        cur = torch.cuda.current_stream(buf.fin.device)
-        side = self._side_stream = self._side_stream or torch.cuda.Stream(device=cur.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()  # the warm-up is this call's real run
-        # One memory pool for all the engine's graphs: a graph's temporaries
-        # are dead when it ends (its results are copied into ``buf``) and
-        # graphs run one at a time on one stream, so they can share blocks.
-        # Each engine (each data-parallel replica) has its own pool.
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        # The wrappers' launches while captured are tallied, not counted;
-        # each replay counts them.
-        with torch.cuda.stream(side), _build.recording_launches() as tally:
-            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-        cur.wait_stream(side)
-        buf.launches[key] = tally
-        buf.graphs[key] = graph
-        self.graph_captures += 1
+        self._warm_run(dev, fn)
+        buf.graphs[key], buf.launches[key], _, _ = self._capture(dev, fn)
 
     def _loop_step(self, buf, S: int, n_rungs: int, greedy_only: bool, generator) -> None:
         """One step of the token loop on ``buf``'s tensors, in place: the
@@ -610,11 +788,13 @@ class DecodeEngine:
 
     def _token_loop_eager(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, n0: int, prev1, prev2, temp,
-        seed: int, n_rungs: int = 1, fin_init=None, greedy_only: bool = False,
+        seed, n_rungs: int = 1, fin_init=None, greedy_only: bool = False, on_device: bool = False,
     ):
         """The loop step by step with a host read of the finished flags
         before each step and no graphs: :meth:`_token_loop`'s results from
-        the same steps, for comparisons on the card."""
+        the same steps, for comparisons on the card (``on_device`` is
+        taken and ignored; :meth:`transcribe_window_eager` runs a window
+        on it)."""
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
         plan, buf, generator = self._loop_start(
             ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
@@ -661,13 +841,18 @@ class DecodeEngine:
         return feats, xk, xv, prefix, langs, lang_probs
 
     @torch.no_grad()
-    def _ladder_impl(self, audio, langs, seed: int, active, *, detect: bool):
+    def _ladder_impl(self, audio, langs, seed, active, *, detect: bool, eager: bool = False):
         """Whole-window transcription: mel -> encoder -> (detection) ->
         prefill -> no-speech gate -> the temperature-fallback ladder.
 
         audio: [B, S] padded PCM; langs: [B] language tokens (-1 = detect,
-        only with ``detect=True``); active: [B] bool, False rows are batch
-        padding (born finished, they decode nothing).  The ladder is:
+        only with ``detect=True``); seed: the ladder's draw key, an ``int``
+        or its low word in one int64 on the device; active: [B] bool, False
+        rows are batch padding (born finished, they decode nothing).  At tp
+        1 the loops' and rungs' stop tests run on the device (the token
+        loop's ``on_device``): the window reads nothing on the host and is
+        captured as one graph on CUDA; ``eager`` runs the loops on
+        :meth:`_token_loop_eager` instead.  The ladder is:
 
           - ``B * len(TEMPERATURES) <= _SPECULATIVE_ROWS_MAX``: SPECULATIVE,
             every rung decodes at once as extra rows ``r*B + b`` of one
@@ -683,6 +868,8 @@ class DecodeEngine:
         cfg = self.cfg
         B = audio.shape[0]
         dev = audio.device
+        on_device = self._device_loops and not eager
+        loop = self._token_loop_eager if eager else self._token_loop
         with annotate("window_front"):  # mel, encoder, cross-K/V, detection, prefill
             feats, xk, xv, prefix, langs, lang_probs = self._window_front(
                 audio, langs, detect=detect
@@ -700,15 +887,14 @@ class DecodeEngine:
         gated0 = (nsp > NO_SPEECH_THRESHOLD) | ~active
 
         if B * R <= self._SPECULATIVE_ROWS_MAX:
-            temps_row = torch.tensor(TEMPERATURES, dtype=torch.float32, device=dev)
-            temps_row = temps_row.repeat_interleave(B)
-            toks, n, slp = self._token_loop(
+            temps_row = torch.cat([torch.full((B,), t, dtype=torch.float32, device=dev) for t in TEMPERATURES])
+            toks, n, slp = loop(
                 xk, xv,
                 _tile_rows(cache_k, R), _tile_rows(cache_v, R),
                 next_logits.repeat(R, 1), tokens_init.repeat(R, 1), 3,
                 prefix[:, -1].repeat(R), prefix[:, -2].repeat(R),
                 temps_row, _rung_seed(seed, 0),
-                n_rungs=R, fin_init=gated0.repeat(R),
+                n_rungs=R, fin_init=gated0.repeat(R), on_device=on_device,
             )
             with annotate("ladder_finish"):
                 avg = slp / torch.clamp(n, min=1).to(torch.float32)
@@ -725,21 +911,25 @@ class DecodeEngine:
                 return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
         btoks, bn, bavg, brung = self._sequential_rungs(
-            xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0,
+            xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0, on_device=on_device, loop=loop,
         )
         with annotate("ladder_finish"):
             return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
     def _sequential_rungs(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0,
-        *, start_rung: int = 0,
+        *, start_rung: int = 0, on_device: bool = False, loop=None,
     ):
         """Sequential temperature ladder: try rungs in order, stopping once
         every stream has settled.  Rung r draws with key
         ``_rung_seed(seed, r)`` and reports TEMPERATURES[r]; settled rows are
         born finished; ``start_rung`` > 0 skips rungs a caller already ran
-        (the speculative engine's t=0 pass).  Returns (btoks, bn, bavg,
-        brung); rows never accepted carry brung = -1."""
+        (the speculative engine's t=0 pass).  The host reads "any stream
+        unsettled" before each rung; ``on_device`` reads nothing: every rung
+        runs its loops, which run no step once every row is born finished,
+        and a rung then takes no row.  ``loop``: the token loop (default
+        :meth:`_token_loop`).  Returns (btoks, bn, bavg, brung); rows never
+        accepted carry brung = -1."""
         B = tokens_init.shape[0]
         dev = tokens_init.device
         settled = settled0.clone()
@@ -747,16 +937,18 @@ class DecodeEngine:
         bn = torch.full((B,), 3, dtype=torch.int32, device=dev)
         bavg = torch.zeros(B, dtype=torch.float32, device=dev)
         brung = torch.full((B,), -1, dtype=torch.int64, device=dev)
+        loop = loop or self._token_loop
         for r in range(start_rung, len(TEMPERATURES)):
-            self.host_syncs += 1
-            if not bool((~settled).any()):
-                break
+            if not on_device:
+                self.host_syncs += 1
+                if not bool((~settled).any()):
+                    break
             t = TEMPERATURES[r]
-            toks, n, slp = self._token_loop(
+            toks, n, slp = loop(
                 xk, xv, cache_k, cache_v, next_logits, tokens_init, 3,
                 prefix[:, -1], prefix[:, -2],
                 torch.full((B,), t, dtype=torch.float32, device=dev),
-                _rung_seed(seed, r), fin_init=settled, greedy_only=t == 0.0,
+                _rung_seed(seed, r), fin_init=settled, greedy_only=t == 0.0, on_device=on_device,
             )
             avg = slp / torch.clamp(n, min=1).to(torch.float32)
             accept = ~(avg < LOGPROB_THRESHOLD)  # NaN avg accepted, as above
@@ -826,17 +1018,43 @@ class DecodeEngine:
         )
 
     # The window splits into dispatch and fetch (the batching scheduler
-    # pipelines rounds on it).  The token loop reads its stop condition on
-    # the host once per chunk, so the window's device work is finished or
-    # nearly so when the dispatch returns: the split overlaps only the last
-    # chunk, the final copy and the host unpack.
+    # pipelines rounds on it): on CUDA at tp 1 the dispatch queues the
+    # window's graph and returns before its device work; the fetch is the
+    # window's one host read.
     supports_async_window = True
 
     @torch.no_grad()
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
-        """Run the window up to its packed device result, without the final
-        device->host copy; :meth:`transcribe_window_fetch` completes it."""
+        """Queue the window: on CUDA (without tp, or with every tp rank in
+        this process) its inputs' copies, its graph and the copies of its
+        result to pinned host memory, all on the current stream, and return
+        without waiting; several windows may be in flight, in stream order.
+        A window shape's first call runs the window once on the side stream
+        (one pass of each loop), captures its graph, then replays it.
+        Elsewhere (the CPU, a rank of NCCL worker processes) the window
+        runs up to its packed device result.
+        :meth:`transcribe_window_fetch` completes it."""
         langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
+        key = int(seed) & 0xFFFFFFFF
+        if self.device.type == "cuda" and self._device_loops:
+            return self._window_graph_async(audio, langs_arr, key, active, detect)
+        return self._window_run(audio, langs_arr, key, active, detect)
+
+    @torch.no_grad()
+    def transcribe_window_eager(
+        self, audio, langs, seed: int, n_active: Optional[int] = None
+    ) -> Tuple[List[Optional[DecodingResult]], dict]:
+        """:meth:`transcribe_window` with no graphs, its loops on
+        :meth:`_token_loop_eager` (a host read of the finished flags before
+        every step): the same results from the same steps, the comparison
+        path on the card."""
+        langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
+        return self.transcribe_window_fetch(
+            self._window_run(audio, langs_arr, int(seed) & 0xFFFFFFFF, active, detect, eager=True)
+        )
+
+    def _window_run(self, audio, langs_arr, seed: int, active, detect: bool, eager: bool = False):
+        """The window run up to its packed device result, outside a graph."""
         if isinstance(audio, torch.Tensor):
             audio_t = audio.to(self.device, torch.float32)
         else:
@@ -844,15 +1062,84 @@ class DecodeEngine:
         packed = self._ladder_impl(
             audio_t,
             torch.from_numpy(np.array(langs_arr, np.int64)).to(self.device),
-            int(seed),
+            torch.tensor([seed], dtype=torch.int64, device=self.device),
             torch.from_numpy(active).to(self.device),
-            detect=detect,
+            detect=detect, eager=eager,
         )
         return packed, active, detect
 
+    def _window_graph_async(self, audio, langs_arr, seed: int, active, detect: bool) -> _PendingWindow:
+        B, samples = int(audio.shape[0]), int(audio.shape[-1])
+        key = (B, samples, detect)
+        win = self._window_graphs.get(key)
+        if win is None:
+            n_out = self.cfg.max_target_positions + 5 + (len(self._lang_ids) if detect else 1)  # _pack_ladder's
+            # A pass counter per WHILE node: at most one node per cache crop
+            # in each of the ladder's loops.
+            n_nodes = len(TEMPERATURES) * len(self._loop_crops(3))
+            win = self._window_graphs[key] = _WindowGraph(B, samples, n_out, n_nodes, self.device)
+        staging = win.take()
+        for name, value in (("audio", audio), ("langs", langs_arr), ("active", active), ("seed", [seed])):
+            if isinstance(value, torch.Tensor) and value.device.type == "cuda":
+                getattr(win, name).copy_(value, non_blocking=True)
+                continue
+            staging[name].numpy()[...] = np.asarray(value)
+            getattr(win, name).copy_(staging[name], non_blocking=True)
+        if win.graph is None:
+            self._capture_window(win, detect)
+        with annotate("window_graph"):  # a profiler's device span of the replay's kernels
+            win.graph.replay()
+        _build.count_all(win.launches)
+        staging["packed"].copy_(win.packed, non_blocking=True)
+        staging["iters"].copy_(win.iters, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _PendingWindow(win, staging, done, active, detect)
+
+    def _capture_window(self, win: _WindowGraph, detect: bool) -> None:
+        """A window shape's first call: the window run on the side stream on
+        ``win``'s inputs, one pass of each loop (it readies the kernel
+        library, cuBLAS, cuFFT and the allocator before the capture; its
+        result is dropped), then captured into ``win``."""
+        dev = self.device
+        run = lambda: self._ladder_impl(win.audio, win.langs, win.seed, win.active, detect=detect)
+        with _CAPTURE_LOCK:  # no capture in flight in the process while the tracer starts
+            prime_device_tracer()
+        self._warming = True
+        try:
+            self._warm_run(dev, run)
+        finally:
+            self._warming = False
+
+        def capture():
+            win.iters.zero_()
+            win.loops, win.stats = [], {}
+            self._capturing = win
+            try:
+                out = run()
+            finally:
+                self._capturing = None
+            win.stats["nodes"] = capture_nodes(torch.cuda.current_stream(dev))
+            return out
+
+        win.graph, win.launches, win.packed, seconds = self._capture(dev, capture)
+        win.stats.update(seconds)
+
     def transcribe_window_fetch(self, pending) -> Tuple[List[Optional[DecodingResult]], dict]:
-        """Copy a :meth:`transcribe_window_async` result to the host and
-        unpack it."""
+        """Complete a :meth:`transcribe_window_async` window: the window's
+        one host read (a graph window: wait for its copies; then its WHILE
+        nodes' passes scale their launches and steps into the counters),
+        and the unpack."""
+        if isinstance(pending, _PendingWindow):
+            pending.done.synchronize()
+            self.host_syncs += 1
+            win, staging = pending.win, pending.staging
+            packed = staging["packed"].numpy().copy()
+            for passes, tally in zip(staging["iters"].tolist(), win.loops):
+                _build.count_all({c: n * passes for c, n in tally.items()})
+                self.decode_steps += passes
+            win.give(staging)
+            return self._unpack_ladder(packed, pending.active, pending.detect)
         packed, active, detect = pending
         return self._unpack_ladder(self._host(packed), active, detect)
 

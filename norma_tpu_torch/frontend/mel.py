@@ -16,6 +16,8 @@ Pipeline per window:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,13 @@ def hann_window(n: int = N_FFT) -> np.ndarray:
     """Periodic hann window, matching torch.hann_window(n, periodic=True)."""
     i = np.arange(n, dtype=np.float64)
     return (0.5 * (1.0 - np.cos(2.0 * np.pi * i / n))).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _constants_on(n_mels: int, dev: torch.device):
+    """(hann window, mel filterbank) on ``dev``, copied once per device: a
+    window captured as a CUDA graph copies nothing from the host."""
+    return torch.from_numpy(hann_window()).to(dev), torch.from_numpy(mel_filterbank(n_mels)).to(dev)
 
 
 def pad_or_trim(audio: np.ndarray, length: int = N_SAMPLES) -> np.ndarray:
@@ -79,10 +88,10 @@ def log_mel_spectrogram(
             f"audio too short: {audio.shape[1]} < {need}; use prepare_audio"
         )
     frames = audio.unfold(1, N_FFT, HOP_LENGTH)[:, :n_frames]  # [B, T, n_fft]
-    frames = frames * torch.from_numpy(hann_window()).to(dev)
+    window, filters = _constants_on(n_mels, dev)
+    frames = frames * window
     spec = torch.fft.rfft(frames, n=N_FFT, dim=-1)  # [B, T, 201]
     power = spec.real.square() + spec.imag.square()
-    filters = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
     mel = torch.matmul(filters, power.transpose(1, 2))  # [B, n_mels, T]
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     log_max = log_spec.amax(dim=(1, 2), keepdim=True)

@@ -103,6 +103,15 @@ SIGNATURES = {
         I, I, I, I,  # row tiles of 8, cluster size, warps, is_bf16
         P,  # stream
     ],
+    "norma_loop_cond": [P, I, P, I64, P, P],  # fin, B, pos, pos_end, out, stream
+    # While a stream captures (ops/loop_cond.py::while_node): fin, B, pos,
+    # pos_end, the body's stream, the handle (out), the capturing stream;
+    # the handle, fin, B, pos, pos_end, iterations, the body's nodes (out),
+    # the body's stream; a capturing stream and its nodes so far (out).
+    "norma_while_begin": [P, I, P, I64, P, P, P],
+    "norma_while_end": [U64, P, I, P, I64, P, P, P],
+    "norma_capture_nodes": [P, P],
+    "norma_capture_abort": [P],
     "norma_log_mel": [
         P, I64, I64,  # audio, row stride, samples per row
         P, P, P, P, I,  # cos/sin fragments, mel start, count, weights, weights per mel

@@ -30,9 +30,10 @@ position runs:
 
 Any other mesh (a tp group over distinct cards that also shares a card)
 raises.  Each position's engine runs in its own thread, on its own CUDA
-stream where it is in this process: the port's window runs its whole
-ladder, host reads included, inside the call, so positions that shared a
-host thread or the legacy default stream would run one after the other.
+stream where it is in this process: a window's first call of its shape
+and the windows of tp worker processes run with host reads inside the call, so
+positions that shared a host thread or the legacy default stream would
+run one after the other.
 
 Every window entry point splits its rows over the replicas when the batch
 B divides by dp (each replica chooses its ladder arm on its local batch,
@@ -261,14 +262,20 @@ class DataParallelEngine:
         return self._merge_windows(_gather(f for _, f in parts))
 
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
-        """Start every replica's window and return at once; the replicas run
-        concurrently until :meth:`transcribe_window_fetch`."""
-        return self._map("transcribe_window_async", audio, self._langs(audio, langs), seed, window=True,
-                         n_active=n_active)
+        """Start every replica's window; the windows run until
+        :meth:`transcribe_window_fetch`.  At tp 1, or with each position's
+        tp ranks in this process, it returns once each replica has queued
+        its window graph (a replica's dispatch returns before its device
+        work); a position of tp worker processes runs most of its window
+        with host reads, so it returns at once, the replicas' calls still
+        running in their threads."""
+        parts = self._map("transcribe_window_async", audio, self._langs(audio, langs), seed, window=True,
+                          n_active=n_active)
+        return [(rep, f.result()) for rep, f in parts] if self.tp == 1 or not self.remote else parts
 
     def transcribe_window_fetch(self, pending):
-        fetches = [rep.submit(lambda f=f, rep=rep: rep.engine.transcribe_window_fetch(f.result()))
-                   for rep, f in pending]
+        fetches = [rep.submit(lambda p=p, rep=rep: rep.engine.transcribe_window_fetch(
+            p.result() if isinstance(p, concurrent.futures.Future) else p)) for rep, p in pending]
         return self._merge_windows(_gather(fetches))
 
     def detect_language(self, feats) -> np.ndarray:

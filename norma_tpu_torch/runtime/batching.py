@@ -37,7 +37,6 @@ import time
 from typing import Dict, List
 
 import numpy as np
-import torch
 
 from ..constants import TEMPERATURES
 from ..decode.longform import LanguageState, LongFormDecoder
@@ -506,16 +505,17 @@ class BatchedTranscriber:
             s.seed += len(TEMPERATURES)
             s.in_flight = True
 
-        # A dp engine moves each replica's rows to its own device.
-        audio_t = windows if self._mesh is not None else torch.from_numpy(windows).to(self.engine.device)
+        # The engine moves the rows itself, without a host wait where it
+        # dispatches asynchronously (a dp engine each replica's rows to its
+        # own device).
         t_dispatch = time.monotonic()
         if self.pipeline_rounds:
             pending = self.engine.transcribe_window_async(
-                audio_t, langs, seed=ready[0].seed, n_active=n
+                windows, langs, seed=ready[0].seed, n_active=n
             )
         else:
             pending = self.engine.transcribe_window(
-                audio_t, langs, seed=ready[0].seed, n_active=n
+                windows, langs, seed=ready[0].seed, n_active=n
             )
         return ready, pending, B, t_dispatch
 

@@ -38,11 +38,17 @@ import huggingface_hub  # noqa: F401
 from huggingface_hub import hf_hub_download  # noqa: F401
 print("# API surface OK")
 PY
-    # Steps 2-4: every flag the script passes must exist.
+    # Steps 2-4: every flag the script passes must exist.  A tool whose
+    # --help fails is reported as that failure, with the end of its output.
     check_flags() {
         local tool="$1"; shift
-        local help
-        help="$(python -m "$tool" --help 2>&1)"
+        local help rc=0
+        help="$(python -m "$tool" --help 2>&1)" || rc=$?
+        if [ "$rc" -ne 0 ]; then
+            echo "FAILED: python -m $tool --help exited $rc; the end of its output:"
+            echo "$help" | tail -n 15
+            exit 1
+        fi
         for flag in "$@"; do
             echo "$help" | grep -q -- "$flag" || {
                 echo "DRIFT: $tool lost flag $flag"; exit 1; }

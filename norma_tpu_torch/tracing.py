@@ -11,13 +11,17 @@
     ``profiled_device_ms`` — device time by name from those traces: the
     one measurement path for every device-ms figure; ``idle_share`` — the
     share of a call's wall time with no device work, overlapping streams
-    counted once  A CUDA session
+    counted once.  A CUDA session
     checks its own trace and raises :class:`DeviceEventsLost` where a
     launch came back without its device events
+  - ``prime_device_tracer`` — one short session, once in a process,
+    before its first CUDA graph with WHILE nodes is captured (the engine
+    calls it): a graph captured before the process's first session is
+    traced with each WHILE body's first pass only
 
 The report reads the trace's event categories as JAX's reads xplane lines:
-``"kernel"`` (one event per kernel, graph replays' included) is the
-counterpart of "XLA Ops", ``"gpu_user_annotation"`` (the device span of
+``"kernel"`` (one event per kernel, graph replays' included, every pass
+of a graph's WHILE nodes) is the counterpart of "XLA Ops", ``"gpu_user_annotation"`` (the device span of
 each :func:`annotate` region) that of "XLA Modules"; ``"gpu_memcpy"`` and
 ``"gpu_memset"`` are the copies and fills.  Host events are ignored.
 """
@@ -147,6 +151,8 @@ last_profile: Dict[str, Any] = {"sessions": 0, "lost": []}
 # when the device clock reads behind the host's).
 last_session: Dict[str, Any] = {}
 _session = 0
+# Whether a session has been opened in this process (prime_device_tracer).
+_tracer_started = False
 
 
 class DeviceEventsLost(RuntimeError):
@@ -235,12 +241,13 @@ def profile(log_dir: str = os.path.join(tempfile.gettempdir(), "norma_tpu_torch_
     did not.  Then the session checks its own trace: every kernel or graph
     launch of the region must have its device events, or the trace is
     renamed ``*.lost`` and :class:`DeviceEventsLost` is raised."""
-    global _session
+    global _session, _tracer_started
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     cuda = torch.cuda.is_available()
+    _tracer_started = True
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
     if cuda:
@@ -267,6 +274,33 @@ def profile(log_dir: str = os.path.join(tempfile.gettempdir(), "norma_tpu_torch_
         if lost:
             os.replace(path, path + ".lost")
             raise DeviceEventsLost(path, len(lost), launches, dev_events, _lost_detail(events, lost))
+
+
+def prime_device_tracer() -> None:
+    """Open and close one short ``torch.profiler`` session on the card,
+    once in the process, unless a session was opened before (or is open).
+
+    On the H100 the traces of a CUDA graph with WHILE nodes that was
+    captured before the process's first profiler session held only the
+    first pass of each WHILE body: the kernels of every later pass ran out
+    of the trace's sight, and the device-busy and idle figures read low.
+    A graph captured after a session is traced whole, so the engine calls
+    this before it captures a window graph (with no capture in flight in
+    the process).  Without CUDA it does nothing."""
+    global _tracer_started
+    import torch
+
+    if _tracer_started or not torch.cuda.is_available():
+        return
+    _tracer_started = True
+    if torch.autograd.profiler._is_profiler_enabled:  # a session is open: it started the tracer
+        return
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
 
 
 def annotate(name: str):

@@ -13,9 +13,10 @@ these tests hold:
     and logprob sums exactly: greedy and t>0 (the CPU generator), across
     bucket boundaries, at several chunk lengths, with rows finished early;
   - a step run after every row has finished changes no loop state;
-  - the chunk plan never crosses a bucket boundary, never passes
-    ``mtp - 1 - n0`` steps, and a window's host syncs stay within
-    ``ceil(steps / k) + 4``;
+  - the chunk plan never crosses a bucket boundary and never passes
+    ``mtp - 1 - n0`` steps, and a window makes one host read, its fetch
+    (its loops' stop tests are device work, read on the host only on
+    the CPU);
   - the engine's own tree: the K-major encoder prep leaves the caller's
     params as they were (pointers, strides, values), so a second engine in
     "w8a16" mode reads codes in the w8 kernel's layout, and unprepped codes
@@ -225,27 +226,25 @@ def test_loop_plan_follows_buckets(chunk, buckets):
         assert len(plan) <= math.ceil((mtp - 1 - n0) / chunk) + len(buckets)
 
 
-@pytest.mark.parametrize("chunk", [4, 16])
-def test_window_host_syncs(chunk):
+@pytest.mark.parametrize("buckets", [(), (16,)], ids=["one_crop", "two_crops"])
+def test_window_host_syncs(buckets):
     """A B=1 window (speculative ladder) on texty confident weights: it
-    decodes to the cap, and makes at most ceil(steps / k) + 4 host syncs
-    against one per step (plus the fetch) for the per-step loop."""
-    cfg = texty_config(decode_buckets=(16,))
+    decodes to the cap and makes one host read, its fetch, whether its
+    loop is one WHILE node or one a crop, against one per step (plus the
+    fetch) for the per-step loop."""
+    cfg = texty_config(decode_buckets=buckets)
     jp = confident_params(cfg)
     engine = DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
-    engine._loop_chunk = chunk
     raw = np.random.default_rng(5).standard_normal(2 * cfg.max_source_positions * 160).astype(np.float32) * 0.1
     audio = prepare_audio(raw, n_frames=2 * cfg.max_source_positions)[None]
     engine.transcribe_window(audio, [TEST_LANG_IDS[0]], seed=0)
     steps, syncs = engine.decode_steps, engine.host_syncs
     assert steps == cfg.max_target_positions - 4
-    assert syncs <= math.ceil(steps / chunk) + 4
+    assert syncs == 1
     eager = DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
-    eager._token_loop = eager._token_loop_eager
-    drs_e, _ = eager.transcribe_window(audio, [TEST_LANG_IDS[0]], seed=0)
+    drs_e, _ = eager.transcribe_window_eager(audio, [TEST_LANG_IDS[0]], seed=0)
     assert eager.decode_steps == steps and eager.host_syncs == steps + 1  # one per step, the fetch
     engine2 = DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
-    engine2._loop_chunk = chunk
     drs_g, _ = engine2.transcribe_window(audio, [TEST_LANG_IDS[0]], seed=0)
     assert [d and d.tokens for d in drs_g] == [d and d.tokens for d in drs_e]
 

@@ -296,3 +296,32 @@ def test_profile_leaves_the_environment_alone(tmp_path, monkeypatch):
             torch.ones(4).add_(1)
     assert dict(os.environ) == env
     assert len([p for p in tmp_path.iterdir() if p.name.endswith(".pt.trace.json")]) == 2
+
+
+@pytest.mark.parametrize("case", ["no_card", "after_a_session", "session_open", "first"])
+def test_prime_device_tracer_once(monkeypatch, case):
+    """The engine's tracer start before a WHILE graph's capture: one short
+    session, once in the process, and none without a card, after a session
+    of :func:`profile`, or while another session is open."""
+    import contextlib
+
+    import torch.profiler
+
+    opened = []
+
+    @contextlib.contextmanager
+    def fake_session(activities):
+        opened.append(activities)
+        yield
+
+    zeros = torch.zeros
+    monkeypatch.setattr(torch.profiler, "profile", fake_session)
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **k: zeros(*a, **k))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: case != "no_card")
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled", case == "session_open")
+    monkeypatch.setattr(ttr, "_tracer_started", case == "after_a_session")
+    for _ in range(2):
+        ttr.prime_device_tracer()
+    assert len(opened) == (case == "first")
+    assert ttr._tracer_started == (case != "no_card")
