@@ -187,7 +187,7 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      token_loop, ladder_finish; the graph's replay, window_graph), the idle
      share split into the host's ends and the gaps between device events,
      and the graph window's wall untraced, beside the card's name and power
-     limit.
+     limit; loop_cond's device ms per launch in the graph window.
  20. tensor parallelism (after phase 19): phase 9's serving config on
      make_mesh(tp=2) over the card named twice (one process, a
      LocalGroup): the ranks' encoder outputs bit for bit, a padded B=8
@@ -219,15 +219,26 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      WhisperModel.warmup(batch=8), then a live window and one forced into
      the t>0 fallback, no capture after the warm-up.
  21. tensor parallelism over the cards (phase 20's second half; with one
-     card it prints that it did not run).  tp=2 over cuda:0,1 (a worker
-     process each, NCCL): the prefill's logits within phase 20's tolerance
-     of one engine's and bit for bit equal to tp=2 in one process, every
-     row of the window equal to that run's, launches per rank, B=1 walls
-     against one engine, each card's idle share and memory, a served run;
-     with four cards, tp=4 and dp2 x tp2 over the cards (logits and
-     no-speech within the tolerance) and phase 19's one row a card with
-     threads of one process against worker processes, in turns, results
-     bit for bit.  Then speculative decoding at tp=2 over cuda:0,1 in
+     card it prints that it did not run).  tp=2 over cuda:0,1 (a worker process each, NCCL): the
+     prefill's logits within phase 20's tolerance of one engine's and bit
+     for bit equal to tp=2 in one process, every row of the window equal
+     to that run's, launches per rank, B=1 walls against one engine, each
+     card's idle share and memory; a warm B=1 and a padded B=8 window on
+     every rank one CUDA graph whose loops are WHILE nodes holding the
+     collectives: the dispatch under set_sync_debug_mode("error") returns
+     with the stream busy, one host read a rank, no capture, every rank's
+     rows bit for bit equal to its eager window's and to tp=2 in one
+     process; each rank's graph nodes by type; a window of a new shape
+     (B=2) dispatched while a warm B=8 window is in flight (its capture's
+     run before it launches collectives outside a graph, which wait for
+     the B=8 graph), both windows' rows bit for bit equal to tp=2 in one
+     process and one capture a rank; a served run (no capture after
+     warmup, the B=8 round median).  With four cards, tp=4 and dp2 x
+     tp2 over the cards (logits and no-speech within the tolerance; dp2 x
+     tp2 also the warm-window checks on each replica's ranks).  Over every
+     card, phase 19's one row a card with threads of one process against
+     worker processes, in turns, results bit for bit, and each worker
+     alone.  Then speculative decoding at tp=2 over cuda:0,1 in
      worker processes (each gets its rank's target and draft shards, one
      NCCL communicator) on phase 14's target cut to 4/4 layers with the
      serving knobs: a padded B=8 and a B=1 window's rows, rounds and
@@ -330,7 +341,7 @@ KERNEL_FUNCS = {
     "cross_decode": ("cross_decode_kernel",), "flash_encoder": ("flash_encoder",),
     "q8a8": ("q8a8_wgmma_kernel",), "w8_matmul": ("w8_mma_kernel",),
     "w4_matmul": ("w4_mma_kernel",), "log_mel": ("log_mel_kernel", "log_mel_clamp_kernel"),
-    "philox_uniform": ("philox_uniform_kernel",),
+    "philox_uniform": ("philox_uniform_kernel",), "loop_cond": ("loop_cond_kernel",),
 }
 
 
@@ -1596,20 +1607,34 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
     if mesh is not None:
         # The dp engine's dispatch returns at once: time each replica's part
         # in its own thread, its stream synchronized (the k-th part of every
-        # replica is round k's: every round's batch divides over dp).
+        # replica is round k's: every round's batch divides over dp).  A
+        # replica in worker processes runs its window on their streams: its
+        # part ends at its fetch, so its span is dispatch to fetch (the
+        # pipelined scheduler fetches round k after it dispatches round
+        # k + 1), not dispatch to the device's end.
         for i, rep in enumerate(engine.replicas):
             e = rep.engine
-            part = e.transcribe_window_async
+            part, fetch, starts = e.transcribe_window_async, e.transcribe_window_fetch, []
 
-            def timed_part(audio, langs, seed, n_active=None, i=i, e=e, part=part):
+            def timed_part(audio, langs, seed, n_active=None, i=i, e=e, part=part, starts=starts, remote=rep.remote):
                 s0, h0, w0 = e.decode_steps, e.host_syncs, time.perf_counter()
                 out = part(audio, langs, seed, n_active)
+                if remote:
+                    starts.append(w0)
+                    return out
                 if cuda:
                     torch.cuda.current_stream().synchronize()  # the replica's stream
                 spans.setdefault(i, []).append((w0, time.perf_counter(), e.decode_steps - s0, e.host_syncs - h0))
                 return out
 
+            def timed_fetch(pending, i=i, fetch=fetch, starts=starts):
+                out = fetch(pending)  # its steps and reads count in the round's fetch
+                spans.setdefault(i, []).append((starts.pop(0), time.perf_counter(), 0, 0))
+                return out
+
             e.transcribe_window_async = timed_part
+            if rep.remote:
+                e.transcribe_window_fetch = timed_fetch
             restore.append(e)
         rounds_n = {}
 
@@ -1665,6 +1690,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
         engine.transcribe_window_async, engine.transcribe_window_fetch = inner_async, inner_fetch
         for e in restore:
             del e.transcribe_window_async
+            e.__dict__.pop("transcribe_window_fetch", None)
         LongFormDecoder.feed, RecycledRing.try_send, LongFormDecoder.apply_result = orig_feed, orig_send, orig_apply
         bt.close()
         src.close()
@@ -3549,8 +3575,10 @@ def phase_device_report(rec, dev):
 
     if "serving_window" not in rec:
         raise RuntimeError("device_report needs the serving phase: it profiles phase 9's served engine")
+    from norma_tpu_torch.ops.loop_cond import loop_cond
+
     engine, rows_t, langs = rec.pop("serving_window")
-    counters = kernel_counters()
+    counters = dict(kernel_counters(), loop_cond=loop_cond)
     res = {}
     for mode in ("eager", "graph"):
         run = engine.transcribe_window_eager if mode == "eager" else engine.transcribe_window
@@ -3605,6 +3633,15 @@ def phase_device_report(rec, dev):
         missing = set(want) - set(res[mode]["regions"])
         if missing:
             raise AssertionError(f"{mode} window: regions {sorted(missing)} not on the device timeline")
+    # The WHILE nodes' stop test, device-only in the graph window (its
+    # launches: one a WHILE node and one a pass).
+    cond = [(c, t) for k, (t, c) in tracing.device_time_report(os.path.join(TRACES, "report_graph")).items()
+            if KERNEL_FUNCS["loop_cond"][0] in k and t > 0]
+    if cond:
+        n = sum(c for c, _ in cond)
+        rec.setdefault("profile", {})["loop_cond"] = dict(
+            launches=n, ms_per_launch=sum(t for _, t in cond) / n, ms_total=sum(t for _, t in cond),
+            tries=res["graph"]["sessions"], missed=res["graph"]["lost"], counted=res["graph"]["counters"].get("loop_cond"))
     served = lambda c: {k: v for k, v in c.items() if k in SERVED_KERNELS}  # noqa: E731
     if served(res["graph"]["counters"]) != served(res["eager"]["counters"]):
         raise AssertionError(f"graph window counters {served(res['graph']['counters'])} != eager "
@@ -3625,6 +3662,10 @@ def phase_device_report(rec, dev):
             + "; ".join(f"{k} {v[0]} x {v[1]:.1f} / {v[2]:.1f}" for k, v in r["regions"].items()) + f"; {smi}")
         log(f"  top 12 kernels ({mode}, ms per window, launches): " + "; ".join(
             f"{row['op'][:60]} {row['ms_per_call']:.3f} x {row['n']}" for row in r["top"]))
+    lc_prof = rec.get("profile", {}).get("loop_cond")
+    log("  loop_cond in the graph B=8 window: " + (
+        f"{lc_prof['ms_per_launch']:.4f} device ms per launch over {lc_prof['launches']} traced launches "
+        f"({lc_prof['counted']} counted), {lc_prof['ms_total']:.2f} ms in all" if lc_prof else "not measured"))
     log(f"phase 18 device report: ok; the graph window's counters equal the eager window's, and its trace holds "
         f"them within {{n: max(4, n // 1000)}} records (eager = counters {res['eager']['seen']}; graph trace "
         f"{res['graph']['seen']}); {smi}")
@@ -4740,24 +4781,101 @@ def phase_tp_cards(rec, dev, seconds=(12.0, 24.0)):
                        language_token_ids=lang_ids, quantize_cross_kv=True)
     try:
         local = tp_window_check(tp2, one, rows, langs, n_active, TP_TOL)
+        rec["tp_cards"] = tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, TP_TOL, local,
+                                        seconds, audio, local_eng=tp2)
     finally:
         tp2.close()
-    del tp2
-    gc.collect()
-    rec["tp_cards"] = tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, TP_TOL, local, seconds,
-                                    audio)
-    del one, params
+    del tp2, one, params
     gc.collect()
     torch.cuda.empty_cache()
     rec["tp_cards"]["speculative"] = spec_over_cards(dev)
     log(f"phase 21 tp_cards: ok over {n_cards} cards through worker processes; {smi_line()}")
 
 
-def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, local, seconds, audio, devices=None):
+def rank_counters(engine):
+    """A worker rank's engine counters (``WorkerEngine.on_ranks``)."""
+    return dict(host_syncs=engine.host_syncs, graph_captures=engine.graph_captures, decode_steps=engine.decode_steps)
+
+
+def rank_window(engine, audio, langs, seed, n_active):
+    """On one tp rank in its worker (``WorkerEngine.on_ranks``), a window
+    of a shape it captured before: on the card :func:`one_read_window`'s
+    checks (no synchronizing call in the dispatch, the stream busy when it
+    returns, one host read, no capture), on the CPU its host reads and
+    captures; then the same window through ``transcribe_window_eager``
+    (every rank runs it, so its collectives meet).  Returns (the graph
+    window's results, the eager window's, the one-read figures)."""
+    if engine.device.type == "cuda":
+        drs, info = one_read_window(engine, audio, langs, seed, n_active)
+    else:
+        h0, c0 = engine.host_syncs, engine.graph_captures
+        drs, _ = engine.transcribe_window_fetch(engine.transcribe_window_async(audio, langs, seed, n_active))
+        info = dict(syncs=[engine.host_syncs - h0], captures=engine.graph_captures - c0)
+        if info["syncs"] != [1] or info["captures"]:
+            raise AssertionError(f"a warm window on a rank: {info}")
+    eager, _ = engine.transcribe_window_eager(audio, langs, seed, n_active)
+    return drs, eager, info
+
+
+def worker_window_checks(w, local_eng, rows, langs, n_active, cuda):
+    """Phase 21's warm window on the worker engine ``w`` (NCCL ranks, each
+    one CUDA graph with WHILE-node loops; the shape captured before): on
+    every rank :func:`rank_window`, every rank's results bit for bit equal
+    to rank 0's, to its eager window's and to ``local_eng``'s (tp=2 in one
+    process, a LocalGroup) on the same rows.  Returns (the ranks' one-read
+    figures, each rank's window graphs' stats)."""
+    reps = w.on_ranks(rank_window, rows, langs, 1, n_active)
+    want, _ = local_eng.transcribe_window(rows, langs, seed=1, n_active=n_active)
+    for k, (got, eager, _) in enumerate(reps):
+        bad = [i for i, (g, e, l0, r0) in enumerate(zip(got, eager, want, reps[0][0]))
+               if not (_same_result(g, e) and _same_result(g, l0) and _same_result(g, r0))]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"rank {k}'s graph window on rows {bad} differs from its eager window, tp=2 in one "
+                                 f"process or rank 0")
+    return [r[2] for r in reps], (w.on_ranks(window_graph_stats) if cuda else [])
+
+
+def new_shape_in_flight(w, local_eng, want8, rows, langs, n_active, cuda=True):
+    """A window of a shape not captured yet (B=2) dispatched to the worker
+    engine ``w`` while a warm padded B=8 window is in flight, then both
+    fetched: the B=2 window's capture first runs it outside a graph, whose
+    collectives must wait for the B=8 graph (``ProcessGroup.
+    graph_launched``).  Both windows' rows must equal tp=2 in one process
+    (``want8``, and ``local_eng``'s B=2 window) bit for bit, and each rank
+    captures one graph (none on the CPU, where a window is no graph).
+    Returns the dispatch ms and captures per rank."""
+    na2 = min(n_active, 2)
+    want2, _ = local_eng.transcribe_window(rows[:2], langs[:2], seed=1, n_active=na2)
+    c0 = w.on_ranks(rank_counters)
+    t0 = time.perf_counter()
+    k8 = w.transcribe_window_async(rows, langs, 1, n_active)
+    t1 = time.perf_counter()
+    k2 = w.transcribe_window_async(rows[:2], langs[:2], 1, na2)
+    t2 = time.perf_counter()
+    got8, _ = w.transcribe_window_fetch(k8)
+    got2, _ = w.transcribe_window_fetch(k2)
+    caps = [b["graph_captures"] - a["graph_captures"] for a, b in zip(c0, w.on_ranks(rank_counters))]
+    bad8 = [i for i, (a, b) in enumerate(zip(got8, want8)) if not _same_result(a, b)]
+    bad2 = [i for i, (a, b) in enumerate(zip(got2, want2)) if not _same_result(a, b)]
+    if bad8 or bad2 or len(got8) != len(want8) or len(got2) != 2 or caps != [int(cuda)] * len(caps):
+        raise AssertionError(f"a new shape while a window was in flight: B=8 rows {bad8} and B=2 rows {bad2} differ "
+                             f"from tp=2 in one process; captures per rank {caps} (want {int(cuda)} each)")
+    return dict(dispatch_ms=[(t1 - t0) * 1e3, (t2 - t1) * 1e3], captures=caps)
+
+
+def rank_stats_text(stats) -> str:
+    return " | ".join(f"rank {k}: " + "; ".join(
+        f"B={key[0]} {g.get('nodes')} + {g.get('body_nodes', 0)} body nodes {g.get('body_types')}, record "
+        f"{g.get('record_s', float('nan')):.2f} s" for key, g in e[0]["graphs"].items()) for k, e in enumerate(stats))
+
+
+def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, local, seconds, audio, devices=None,
+                  local_eng=None):
     """Phase 21 (the module docstring); ``local`` is
-    :func:`tp_window_check`'s result for tp=2 in one process.  A CPU
-    rehearsal passes ``devices=["cpu"] * 4``: its positions run in gloo
-    worker processes (:func:`worker_positions`), with no device profile."""
+    :func:`tp_window_check`'s result for tp=2 in one process, on
+    ``local_eng``.  A CPU rehearsal passes ``devices=["cpu"] * 4``: its
+    positions run in gloo worker processes (:func:`worker_positions`), with
+    no device profile."""
     import numpy as np
     import torch
 
@@ -4832,6 +4950,26 @@ def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, lo
         log(f"  tp=2 over cuda:0,1: B=1 window walls ms in turns, one engine {[round(x, 1) for x in wl['a']]}, tp=2 "
             f"{[round(x, 1) for x in wl['b']]}; per card under torch.profiler: " + "; ".join(
                 f"rank {k}: wall {v[0]:.1f} ms, busy {v[1]:.1f} ms, idle {v[2]:.1%}" for k, v in enumerate(idle)))
+        c0 = w.on_ranks(rank_counters)
+        for name, B in (("B=1", 1), ("padded B=8", 8)):
+            na = min(n_active, B)
+            reads, stats = worker_window_checks(w, local_eng, rows[:B], langs[:B], na, cuda)
+            out[f"tp2_{B}"] = dict(one_read=reads, stats=stats)
+            log(f"  tp=2 over cuda:0,1, warm {name} window, each NCCL rank one CUDA graph with WHILE-node loops: "
+                + "; ".join(f"rank {k}: " + (one_read_text(r) if cuda else str(r)) for k, r in enumerate(reads))
+                + f"; every rank bit for bit equal to its eager window and to tp=2 in one process")
+        c1 = w.on_ranks(rank_counters)
+        caps = [b["graph_captures"] - a["graph_captures"] for a, b in zip(c0, c1)]
+        if any(caps):
+            raise AssertionError(f"tp=2 over the cards: warm windows captured {caps} graphs")
+        out["tp2_graphs"] = stats
+        if cuda:
+            log(f"  tp=2 over cuda:0,1 window graphs per rank: {rank_stats_text(stats)}")
+        out["tp2_new_shape"] = new_shape_in_flight(w, local_eng, local["got"], rows, langs, n_active, cuda)
+        log(f"  tp=2 over cuda:0,1, a B=2 window (a new shape) dispatched while a warm padded B=8 window was in "
+            f"flight: both windows' rows bit for bit equal to tp=2 in one process; captures per rank "
+            f"{out['tp2_new_shape']['captures']}; B=8 dispatch {out['tp2_new_shape']['dispatch_ms'][0]:.2f} ms, "
+            f"B=2 dispatch (its capture) {out['tp2_new_shape']['dispatch_ms'][1]:.1f} ms")
         model = WhisperModel(eng, _IdsTokenizer(), LanguageState(const=lang_ids[0]), language_tokens=lang_ids)
         rep = serve_streams(model, 8, seconds, mesh=mesh)
         check_served(rep, 8)
@@ -4847,7 +4985,8 @@ def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, lo
         eng.close()
 
     if n >= 4:
-        # tp=4 over the cards, then dp2 x tp2.
+        # tp=4 over the cards, then dp2 x tp2 (with phase 21's graph window
+        # checks on each replica's ranks).
         for name, mesh, B in (("tp=4", make_mesh(tp=4), 1), ("dp2 x tp2", make_mesh(dp=2, tp=2), 8)):
             t0 = time.perf_counter()
             eng = engine(shard_params(params, mesh), cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
@@ -4865,11 +5004,25 @@ def tp_over_cards(cfg, params, st, lang_ids, one, rows, langs, n_active, tol, lo
                     f"max |d no_speech| {chk['d_no_speech']:.3g}, "
                     f"{chk['rows_equal']}/{B} rows equal; walls ms in turns, one engine "
                     f"{[round(x, 1) for x in wl['a']]}, {name} {[round(x, 1) for x in wl['b']]}")
+                if mesh.shape["dp"] == 2:
+                    eng.transcribe_window(rows[:1], langs[:1], seed=1)  # B=1 runs whole on replica 0: its capture
+                    b = B // 2
+                    checks = [(0, rows[:1], langs[:1], 1)] + [
+                        (i, rows[i * b:(i + 1) * b], langs[:b], min(max(na - i * b, 0), b)) for i in range(2)]
+                    reads = []
+                    for i, r, lg, nai in checks:
+                        rd, _ = worker_window_checks(eng.replicas[i].engine, local_eng, r, lg, nai, cuda)
+                        reads.append(rd)
+                    out[name]["one_read"] = reads
+                    log(f"  {name}: warm B=1 (replica 0) and padded B=8 (4 rows a replica) windows, each NCCL "
+                        f"rank one CUDA graph: one host read and busy at return on every rank "
+                        f"{[[r['syncs'] for r in rd] for rd in reads]}, rows bit for bit equal to each rank's "
+                        f"eager window and to tp=2 in one process")
             finally:
                 eng.close()
-        out["dp_rows"] = dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices)
     else:
-        log(f"  tp=4, dp2 x tp2 and the one-row-a-card comparison over the cards: not run ({n} cards; they need 4)")
+        log(f"  tp=4 and dp2 x tp2 over the cards: not run ({n} cards; they need 4)")
+    out["dp_rows"] = dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices)
     return out
 
 
@@ -4961,7 +5114,9 @@ def dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices):
     ``devices``: replicas in threads of this process (what the mesh
     chooses) against one worker process a card (:func:`worker_positions`),
     in turns threads, processes, processes, threads, twice; then each
-    worker alone.  Results must be equal bit for bit."""
+    thread replica alone and each worker alone.  Results must be equal bit
+    for bit, and the threads at once within 1.25x of their slowest replica
+    alone (the replicas run at once)."""
     import numpy as np
     import torch
 
@@ -4995,19 +5150,30 @@ def dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices):
                 e.transcribe_window(r1, one_row, seed=1)
                 sync_all()
                 w.setdefault(who, []).append((time.perf_counter() - w0) * 1e3)
-        alone = []
+        alone, th_alone = [], []
         for rep in pr.replicas:
             w0 = time.perf_counter()
             rep.engine.transcribe_window(r1[:1], one_row[:1], seed=1)
             alone.append((time.perf_counter() - w0) * 1e3)
+        for rep in th.replicas:
+            sync_all()
+            w0 = time.perf_counter()
+            rep.submit(rep.engine.transcribe_window, r1[:1], one_row[:1], 1).result()
+            sync_all()
+            th_alone.append((time.perf_counter() - w0) * 1e3)
     finally:
         th.close()
         pr.close()
+    ratio = float(np.median(w["threads"])) / max(th_alone)
     log(f"  dp={n} over {[str(d) for d in devices]}, one row a card, all at once, walls ms in turns: threads "
         f"(one process) {[round(x, 1) for x in w['threads']]}, worker processes {[round(x, 1) for x in w['processes']]}; "
-        f"each worker alone {[round(x, 1) for x in alone]}; results equal bit for bit; "
+        f"each thread replica alone {[round(x, 1) for x in th_alone]}, each worker alone {[round(x, 1) for x in alone]}; "
+        f"threads at once {ratio:.2f}x their slowest alone; results equal bit for bit; "
         f"{smi_line() if torch.device(devices[0]).type == 'cuda' else 'cpu'}")
-    return dict(walls=w, alone=alone)
+    if torch.device(devices[0]).type == "cuda" and ratio > 1.25:
+        raise AssertionError(f"dp replicas in threads over the cards ran {ratio:.2f}x their slowest alone: "
+                             "not at once")
+    return dict(walls=w, alone=alone, threads_alone=th_alone, ratio=ratio)
 
 
 def main(argv=None) -> int:

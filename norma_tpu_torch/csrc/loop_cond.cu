@@ -17,12 +17,17 @@
 // condition's kernel and a WHILE node whose body graph the given body
 // stream then captures into; norma_while_end puts the condition's kernel at
 // the end of that body (it also counts the iteration) and ends the body's
-// capture; norma_capture_nodes counts a capture's nodes.  norma_loop_cond
-// runs the condition alone, outside any graph, writing the predicate: its
-// check against the plain version.
+// capture; norma_capture_nodes counts a capture's nodes and
+// norma_graph_census a graph's nodes by type (what a failed body holds:
+// a WHILE body admits kernel, memcpy, memset, empty, child-graph and
+// conditional nodes only).  norma_loop_cond runs the condition alone,
+// outside any graph, writing the predicate: its check against the plain
+// version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
@@ -66,9 +71,10 @@ extern "C" int norma_loop_cond(const bool* fin, int B, const int64_t* pos, long 
 // While `stream` captures: a conditional handle on its graph, the
 // condition's kernel after its current nodes, then a WHILE node after that
 // kernel; `stream` continues after the node, and `body` starts capturing
-// into the node's body graph.  The handle goes to *handle_out.
+// into the node's body graph.  The handle goes to *handle_out, the body
+// graph to *body_out.
 extern "C" int norma_while_begin(const bool* fin, int B, const int64_t* pos, long long pos_end, void* body,
-                                 unsigned long long* handle_out, void* stream) {
+                                 unsigned long long* handle_out, void** body_out, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaStreamCaptureStatus status;
@@ -92,6 +98,7 @@ extern "C" int norma_while_begin(const bool* fin, int B, const int64_t* pos, lon
   NT_TRY(cudaStreamBeginCaptureToGraph((cudaStream_t)body, params.conditional.phGraph_out[0], nullptr, nullptr, 0,
                                        cudaStreamCaptureModeThreadLocal));
   *handle_out = h;
+  *body_out = (void*)params.conditional.phGraph_out[0];
   return (int)cudaSuccess;
 }
 
@@ -107,22 +114,41 @@ extern "C" int norma_capture_nodes(void* stream, unsigned long long* n_out) {
   return (int)cudaSuccess;
 }
 
-// The end of a WHILE body captured on `body`: the condition's kernel sets
-// the handle for the next iteration and adds one to iters[0]; the body's
-// nodes go to *nodes_out; then the body's capture ends (the body graph
-// belongs to its node).
+// `graph`'s nodes by type: counts[t] += the nodes of cudaGraphNodeType t
+// (a type at or past n_types counts in counts[n_types - 1]).
+extern "C" int norma_graph_census(void* graph, unsigned long long* counts, int n_types) {
+  if (n_types <= 0) return (int)cudaErrorInvalidValue;
+  cudaGraph_t g = (cudaGraph_t)graph;
+  size_t n = 0;
+  NT_TRY(cudaGraphGetNodes(g, nullptr, &n));
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n) NT_TRY(cudaGraphGetNodes(g, nodes.data(), &n));
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType t;
+    NT_TRY(cudaGraphNodeGetType(nodes[i], &t));
+    const int k = (int)t;
+    counts[(k >= 0 && k < n_types) ? k : n_types - 1] += 1;
+  }
+  return (int)cudaSuccess;
+}
+
+// The end of a WHILE body captured on `body` into `body_graph`: the
+// condition's kernel sets the handle for the next iteration and adds one
+// to iters[0]; the body's nodes by type go to counts (norma_graph_census);
+// then the body's capture ends (the body graph belongs to its node).
 extern "C" int norma_while_end(unsigned long long handle, const bool* fin, int B, const int64_t* pos,
-                               long long pos_end, int64_t* iters, unsigned long long* nodes_out, void* body) {
+                               long long pos_end, int64_t* iters, void* body_graph, unsigned long long* counts,
+                               int n_types, void* body) {
   cudaStream_t s = (cudaStream_t)body;
   cudaError_t e = launch_cond(s, handle, 1, fin, B, pos, pos_end, iters, nullptr);
-  if (e == cudaSuccess) e = (cudaError_t)norma_capture_nodes(body, nodes_out);
+  if (e == cudaSuccess) e = (cudaError_t)norma_graph_census(body_graph, counts, n_types);
   cudaGraph_t g;
   const cudaError_t ended = cudaStreamEndCapture(s, &g);
   return (int)(e != cudaSuccess ? e : ended);
 }
 
 // End a body's capture after an error in it (the outer capture is then
-// invalid and its end reports the failure).
+// invalid and its end reports the failure); returns the end's error.
 extern "C" int norma_capture_abort(void* stream) {
   cudaGraph_t g = nullptr;
   const cudaError_t e = cudaStreamEndCapture((cudaStream_t)stream, &g);

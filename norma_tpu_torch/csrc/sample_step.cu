@@ -361,3 +361,7 @@ extern "C" int norma_philox_uniform(unsigned long long seed, int step, int rows,
 extern "C" const char* norma_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+extern "C" const char* norma_error_name(int code) {
+  return cudaGetErrorName((cudaError_t)code);
+}

@@ -23,9 +23,10 @@ Semantics preserved from the reference, in prob space (post first softmax):
 
 The token loop: all per-step state (tokens, n, prev tokens, last
 timestamp, sum of logprobs, finished flags, step, position, draw key)
-stays on the device.  The loop advances in chunks of ``LOOP_CHUNK``
-steps at one cache crop, testing "any row unfinished" before each chunk
-(the JAX package runs one ``lax.while_loop`` per crop).
+stays on the device.  Run alone (``run_loop``, the speculative engine's
+fallback) it advances in chunks of ``LOOP_CHUNK`` steps at one cache
+crop, testing "any row unfinished" on the host before each chunk (the
+JAX package runs one ``lax.while_loop`` per crop).
 
 A window (:meth:`DecodeEngine.transcribe_window_async`) is one device
 program, as the JAX package's is: on CUDA one CUDA graph per window shape
@@ -38,12 +39,13 @@ package runs one ``lax.while_loop`` per crop, and a sequential rung whose
 rows have all settled runs its loops zero times.  The seed is one of the
 graph's inputs.  The window's one host read is its fetch.  On the CPU the
 same structure runs eagerly, the conditions read on the host.  This holds
-for an engine without tp and for one whose tp ranks share its process (a
-``LocalGroup``, whose collectives are plain device work); an engine that
-is one rank of worker processes over NCCL keeps a host read of the flags
-per chunk, as the token loop run alone does (``run_loop``, the
-speculative engine's fallback), each chunk a CUDA graph on CUDA.  Every
-device->host read is counted in :attr:`DecodeEngine.host_syncs`.
+for every engine: without tp, with tp ranks that share its process (a
+``LocalGroup``) and for one rank of worker processes over NCCL (a
+``ProcessGroup``), whose collectives the graph holds inside its WHILE
+bodies too, as GSPMD puts the psums inside the JAX package's loops.  The
+ranks sample from the same gathered logits, so their flags, hence their
+stop tests and passes, agree.
+Every device->host read is counted in :attr:`DecodeEngine.host_syncs`.
 
 Tensor parallelism: an engine built on
 :class:`~norma_tpu_torch.parallel.collectives.TPParams` (the tp shards of
@@ -55,8 +57,8 @@ params, cross-K/V, self-attention caches -- are
 :class:`~norma_tpu_torch.parallel.collectives.RankList`; what the ranks
 share (logits, which every rank gets whole, tokens, the loop's state) is
 held once, so the sampler and the ladder run once per process and every
-rank's step reads the same token.  The token loop's chunk graphs hold
-every local rank's work and its collectives.
+rank's step reads the same token.  A window graph, and the token loop's
+chunk graphs, hold every local rank's work and its collectives.
 
 ``quantize_cross_kv`` (int8, or int4 under ``cross_kv_impl="kernel"``)
 quantizes the cross-K/V the token loop reads, per window after prefill;
@@ -101,11 +103,11 @@ from ..model.whisper import (
     quantize_self_kv_cache,
 )
 from ..ops import _build
-from ..ops.loop_cond import capture_nodes, loop_cond, while_node
+from ..ops.loop_cond import capture_nodes, census_text, loop_cond, while_node
 from ..ops.paged_cross import prep_cross_kv_kernel, prep_cross_kv_kernel4
 from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
-from ..parallel.collectives import LocalGroup, Rank, RankList, TPParams, first, lockstep, per_rank, unzip
+from ..parallel.collectives import Rank, RankList, TPParams, first, lockstep, per_rank, unzip
 from ..parallel.sharding import ShardedParams
 from ..tracing import annotate, decode_telemetry, instrument, prime_device_tracer
 from .masks import SpecialTokens, build_masks
@@ -425,13 +427,14 @@ class DecodeEngine:
         self._graph_buffers: dict = {}
         self._graph_pool = None
         self._side_stream = None
-        # Windows as one device program (module docstring) without tp or
-        # with every rank in this process: on CUDA their graphs by (rows,
-        # samples, detection); the graph being captured, whose loops become
-        # WHILE nodes; the stream their bodies are captured on.  A rank of
-        # NCCL worker processes keeps a host read a chunk: its collectives
-        # inside a WHILE body were not tried on the cards (ROADMAP).
-        self._device_loops = self._group is None or isinstance(self._group, LocalGroup)
+        # A rank in worker processes tells its group of every graph it
+        # replays (``ProcessGroup.graph_launched``: no NCCL launch outside
+        # a graph may start while one is in flight).
+        self._graph_launched = getattr(self._group, "graph_launched", None)
+        # Windows as one device program (module docstring): on CUDA their
+        # graphs by (rows, samples, detection); the graph being captured,
+        # whose loops become WHILE nodes; the stream their bodies are
+        # captured on.
         self._window_graphs: dict = {}
         self._capturing: Optional[_WindowGraph] = None
         self._warming = False  # a window's run before its capture
@@ -671,10 +674,13 @@ class DecodeEngine:
                 raise RuntimeError(f"a window graph has more than {win.iters.numel()} token loops' WHILE nodes")
             if self._body_stream is None:
                 self._body_stream = torch.cuda.Stream(device=buf.fin.device)
-            tally, nodes = while_node(buf.fin, buf.pos, pos_end, body, pool=self._graph_pool,
-                                      body_stream=self._body_stream, iters=win.iters[i:i + 1])
+            tally, census = while_node(buf.fin, buf.pos, pos_end, body, pool=self._graph_pool,
+                                       body_stream=self._body_stream, iters=win.iters[i:i + 1])
             win.loops.append(tally)
-            win.stats["body_nodes"] = win.stats.get("body_nodes", 0) + nodes
+            win.stats["body_nodes"] = win.stats.get("body_nodes", 0) + sum(census.values())
+            types = win.stats.setdefault("body_types", {})
+            for k, v in census.items():
+                types[k] = types.get(k, 0) + v
             return
         if self._warming:
             body()
@@ -743,6 +749,10 @@ class DecodeEngine:
         if graph is not None:
             graph.replay()
             _build.count_all(buf.launches[key])
+            if self._graph_launched is not None:
+                done = torch.cuda.Event()
+                done.record()
+                self._graph_launched(done)
             return
         self._warm_run(dev, fn)
         buf.graphs[key], buf.launches[key], _, _ = self._capture(dev, fn)
@@ -848,9 +858,9 @@ class DecodeEngine:
         audio: [B, S] padded PCM; langs: [B] language tokens (-1 = detect,
         only with ``detect=True``); seed: the ladder's draw key, an ``int``
         or its low word in one int64 on the device; active: [B] bool, False
-        rows are batch padding (born finished, they decode nothing).  At tp
-        1 the loops' and rungs' stop tests run on the device (the token
-        loop's ``on_device``): the window reads nothing on the host and is
+        rows are batch padding (born finished, they decode nothing).  The
+        loops' and rungs' stop tests run on the device (the token loop's
+        ``on_device``): the window reads nothing on the host and is
         captured as one graph on CUDA; ``eager`` runs the loops on
         :meth:`_token_loop_eager` instead.  The ladder is:
 
@@ -868,7 +878,7 @@ class DecodeEngine:
         cfg = self.cfg
         B = audio.shape[0]
         dev = audio.device
-        on_device = self._device_loops and not eager
+        on_device = not eager
         loop = self._token_loop_eager if eager else self._token_loop
         with annotate("window_front"):  # mel, encoder, cross-K/V, detection, prefill
             feats, xk, xv, prefix, langs, lang_probs = self._window_front(
@@ -1018,25 +1028,23 @@ class DecodeEngine:
         )
 
     # The window splits into dispatch and fetch (the batching scheduler
-    # pipelines rounds on it): on CUDA at tp 1 the dispatch queues the
-    # window's graph and returns before its device work; the fetch is the
-    # window's one host read.
+    # pipelines rounds on it): on CUDA the dispatch queues the window's
+    # graph and returns before its device work; the fetch is the window's
+    # one host read.
     supports_async_window = True
 
     @torch.no_grad()
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
-        """Queue the window: on CUDA (without tp, or with every tp rank in
-        this process) its inputs' copies, its graph and the copies of its
-        result to pinned host memory, all on the current stream, and return
-        without waiting; several windows may be in flight, in stream order.
-        A window shape's first call runs the window once on the side stream
-        (one pass of each loop), captures its graph, then replays it.
-        Elsewhere (the CPU, a rank of NCCL worker processes) the window
-        runs up to its packed device result.
-        :meth:`transcribe_window_fetch` completes it."""
+        """Queue the window: on CUDA its inputs' copies, its graph and the
+        copies of its result to pinned host memory, all on the current
+        stream, and return without waiting; several windows may be in
+        flight, in stream order.  A window shape's first call runs the
+        window once on the side stream (one pass of each loop), captures
+        its graph, then replays it.  On the CPU the window runs up to its
+        packed result.  :meth:`transcribe_window_fetch` completes it."""
         langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
         key = int(seed) & 0xFFFFFFFF
-        if self.device.type == "cuda" and self._device_loops:
+        if self.device.type == "cuda":
             return self._window_graph_async(audio, langs_arr, key, active, detect)
         return self._window_run(audio, langs_arr, key, active, detect)
 
@@ -1054,7 +1062,8 @@ class DecodeEngine:
         )
 
     def _window_run(self, audio, langs_arr, seed: int, active, detect: bool, eager: bool = False):
-        """The window run up to its packed device result, outside a graph."""
+        """The window run up to its packed device result, outside a graph
+        (the CPU, and the eager comparison path)."""
         if isinstance(audio, torch.Tensor):
             audio_t = audio.to(self.device, torch.float32)
         else:
@@ -1094,6 +1103,8 @@ class DecodeEngine:
         staging["iters"].copy_(win.iters, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
+        if self._graph_launched is not None:
+            self._graph_launched(done)
         return _PendingWindow(win, staging, done, active, detect)
 
     def _capture_window(self, win: _WindowGraph, detect: bool) -> None:
@@ -1122,8 +1133,33 @@ class DecodeEngine:
             win.stats["nodes"] = capture_nodes(torch.cuda.current_stream(dev))
             return out
 
-        win.graph, win.launches, win.packed, seconds = self._capture(dev, capture)
+        try:
+            win.graph, win.launches, win.packed, seconds = self._capture(dev, capture)
+        except RuntimeError as e:
+            raise RuntimeError(f"a window graph's capture failed: {e}; its WHILE bodies' nodes: "
+                               f"{census_text(win.stats.get('body_types', {}))}") from e
         win.stats.update(seconds)
+
+    @staticmethod
+    def window_passes(pending) -> Optional[List[int]]:
+        """The WHILE passes of an async window graph in flight, so far, per
+        token loop (read on a stream of their own, so a window that does not
+        end does not hold the read; None if the read does not end within 5
+        s, or the window is no graph)."""
+        if not isinstance(pending, _PendingWindow):
+            return None
+        side = torch.cuda.Stream(device=pending.win.iters.device)
+        out = torch.empty(pending.win.iters.shape, dtype=torch.int64, pin_memory=True)
+        with torch.cuda.stream(side):
+            out.copy_(pending.win.iters, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        t0 = time.monotonic()
+        while not done.query():
+            if time.monotonic() - t0 > 5.0:
+                return None
+            time.sleep(0.001)
+        return out.tolist()[:len(pending.win.loops)]
 
     def transcribe_window_fetch(self, pending) -> Tuple[List[Optional[DecodingResult]], dict]:
         """Complete a :meth:`transcribe_window_async` window: the window's

@@ -105,12 +105,15 @@ SIGNATURES = {
     ],
     "norma_loop_cond": [P, I, P, I64, P, P],  # fin, B, pos, pos_end, out, stream
     # While a stream captures (ops/loop_cond.py::while_node): fin, B, pos,
-    # pos_end, the body's stream, the handle (out), the capturing stream;
-    # the handle, fin, B, pos, pos_end, iterations, the body's nodes (out),
-    # the body's stream; a capturing stream and its nodes so far (out).
-    "norma_while_begin": [P, I, P, I64, P, P, P],
-    "norma_while_end": [U64, P, I, P, I64, P, P, P],
+    # pos_end, the body's stream, the handle (out), the body graph (out),
+    # the capturing stream; the handle, fin, B, pos, pos_end, iterations,
+    # the body graph, its node counts by type (out) and their length, the
+    # body's stream; a capturing stream and its nodes so far (out); a graph,
+    # its node counts by type (out) and their length.
+    "norma_while_begin": [P, I, P, I64, P, P, P, P],
+    "norma_while_end": [U64, P, I, P, I64, P, P, P, I, P],
     "norma_capture_nodes": [P, P],
+    "norma_graph_census": [P, P, I],
     "norma_capture_abort": [P],
     "norma_log_mel": [
         P, I64, I64,  # audio, row stride, samples per row
@@ -213,8 +216,9 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(cdll, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            cdll.norma_error_string.argtypes = [I]
-            cdll.norma_error_string.restype = ctypes.c_char_p
+            for name in ("norma_error_string", "norma_error_name"):
+                getattr(cdll, name).argtypes = [I]
+                getattr(cdll, name).restype = ctypes.c_char_p
             _lib = cdll
     return _lib
 
@@ -222,8 +226,12 @@ def lib() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:
-        msg = lib().norma_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg}) at launch")
+        raise RuntimeError(f"{what}: CUDA error {error_text(code)} at launch")
+
+
+def error_text(code: int) -> str:
+    """A CUDA error code as ``<code> (<name>: <description>)``."""
+    return f"{code} ({lib().norma_error_name(code).decode()}: {lib().norma_error_string(code).decode()})"
 
 
 def launch(entry: str, counter, device, *args) -> None:

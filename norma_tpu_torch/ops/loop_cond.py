@@ -18,7 +18,8 @@ token loops with no host read:
     whose body is ``body()`` (captured on a stream of its own, its memory
     from the graph's pool) followed by the condition's kernel again, which
     also counts the body's iterations on the device; :func:`capture_nodes`
-    counts a capture's nodes.
+    counts a capture's nodes, and a WHILE body's nodes by type come back
+    with it (what a failed body holds is in its error).
 """
 
 from __future__ import annotations
@@ -64,6 +65,26 @@ def capture_nodes(stream) -> int:
     return n.value
 
 
+# cudaGraphNodeType by value (CUDA 12.4+; 12 is the driver's batch of
+# memory operations, which the runtime's enum does not name), and the types
+# a conditional node's body admits.
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event", "event_record",
+              "ext_semaphore_signal", "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional", "other")
+BODY_TYPES = frozenset({"kernel", "memcpy", "memset", "graph", "empty", "conditional"})
+
+
+def _census(counts) -> dict:
+    """``norma_graph_census``'s counts as ``{type name: nodes}``."""
+    return {name: int(n) for name, n in zip(NODE_TYPES, counts) if n}
+
+
+def census_text(census: dict) -> str:
+    """A census, with the types a WHILE body does not admit named."""
+    bad = sorted(set(census) - BODY_TYPES)
+    return f"{census}" + (f", not admitted in a WHILE body: {bad}" if bad else "")
+
+
 def while_node(fin: torch.Tensor, pos: torch.Tensor, pos_end: int, body, *, pool, body_stream, iters):
     """Capture ``while loop_cond(fin, pos, pos_end): body()`` into the graph
     the current stream is capturing, as one WHILE node; ``iters`` (one
@@ -73,18 +94,21 @@ def while_node(fin: torch.Tensor, pos: torch.Tensor, pos_end: int, body, *, pool
     device that nothing else uses while this runs), its allocations routed
     to the capture's memory ``pool``.  Returns (the kernel launches the
     body recorded, ``{counter: launches per iteration}``, which the caller
-    adds once per iteration it learns of; the body graph's nodes).  The
-    condition's two launches are counted: one in the graph, one in the
-    body's tally.  A failure raises; the graph's capture is then invalid."""
+    adds once per iteration it learns of; the body graph's nodes by type,
+    ``{type name: nodes}``).  The condition's two launches are counted: one
+    in the graph, one in the body's tally.  A failure raises, naming the
+    CUDA error and the body's nodes by type so far; the graph's capture is
+    then invalid."""
     _check(fin, pos)
     dev = fin.device
     lib = _build.lib()
     outer = torch.cuda.current_stream(dev)
-    handle = ctypes.c_uint64()
+    handle, body_graph = ctypes.c_uint64(), ctypes.c_void_p()
     args = (fin.data_ptr(), fin.numel(), pos.data_ptr(), int(pos_end))
-    _build.check(lib.norma_while_begin(*args, body_stream.cuda_stream, ctypes.byref(handle), outer.cuda_stream),
-                 "while_begin")
+    _build.check(lib.norma_while_begin(*args, body_stream.cuda_stream, ctypes.byref(handle),
+                                       ctypes.byref(body_graph), outer.cuda_stream), "while_begin")
     _build.count(loop_cond)
+    counts = (ctypes.c_uint64 * len(NODE_TYPES))()
     # The caching allocator sends one stream's allocations to a capture's
     # pool at a time: the body's stream takes it over while the body is
     # captured, then the outer stream takes it back.  Each begin adds a
@@ -95,18 +119,29 @@ def while_node(fin: torch.Tensor, pos: torch.Tensor, pos_end: int, body, *, pool
         with torch.cuda.stream(body_stream), _build.recording_launches() as tally:
             torch._C._cuda_beginAllocateCurrentStreamToPool(idx, pool)
             try:
-                body()
-                nodes = ctypes.c_uint64()
-                _build.check(lib.norma_while_end(handle.value, *args, iters.data_ptr(), ctypes.byref(nodes),
-                                                 body_stream.cuda_stream), "while_end")
+                try:
+                    body()
+                except Exception as e:
+                    counts_so_far = (ctypes.c_uint64 * len(NODE_TYPES))()
+                    lib.norma_graph_census(body_graph, counts_so_far, len(NODE_TYPES))
+                    code = lib.norma_capture_abort(body_stream.cuda_stream)
+                    raise RuntimeError(
+                        f"a WHILE body's capture failed: {type(e).__name__}: {e}; ending it: CUDA error "
+                        f"{_build.error_text(code)}; the body's nodes so far: {census_text(_census(counts_so_far))}"
+                    ) from e
+                except BaseException:
+                    lib.norma_capture_abort(body_stream.cuda_stream)
+                    raise
+                code = lib.norma_while_end(handle.value, *args, iters.data_ptr(), body_graph, counts,
+                                           len(NODE_TYPES), body_stream.cuda_stream)
+                if code:
+                    raise RuntimeError(f"a WHILE body's capture failed at its end: CUDA error "
+                                       f"{_build.error_text(code)}; the body's nodes: {census_text(_census(counts))}")
                 _build.count(loop_cond)
-            except BaseException:
-                lib.norma_capture_abort(body_stream.cuda_stream)
-                raise
             finally:
                 torch._C._cuda_endAllocateToPool(idx, pool)
                 torch._C._cuda_releasePool(idx, pool)
     finally:
         torch._C._cuda_beginAllocateCurrentStreamToPool(idx, pool)
         torch._C._cuda_releasePool(idx, pool)
-    return tally, nodes.value
+    return tally, _census(counts)

@@ -31,6 +31,7 @@ group's collectives.
 from __future__ import annotations
 
 import datetime
+import time
 from dataclasses import dataclass
 from typing import List, Sequence
 
@@ -168,7 +169,22 @@ class ProcessGroup(TPGroup):
     on a card, gloo on the CPU), rendezvous on a ``FileStore`` at
     ``store_path``.  The communicator is set up by a first collective here,
     so it is warm before any CUDA graph capture.  A collective that waits
-    ``timeout_s`` for a peer fails the process (the parent then raises)."""
+    ``timeout_s`` for a peer fails the process (the parent then raises).
+
+    Every collective is synchronous, so NCCL runs it on the current stream
+    (no side stream, event or ``record_stream``), and does no host-side
+    work beyond its launch: no read, no event query, and no allocation but
+    the gather's one output buffer, which a capture takes from its pool.  A
+    window graph's WHILE bodies capture them as they capture kernels.
+
+    The workers run NCCL without its support for mixing graph and eager
+    launches (``parallel/workers.py``, ``WORKER_ENV``).  NCCL then supports
+    no collective launched outside a graph while a graph that holds the
+    communicator's collectives is in flight, whatever the streams' order.
+    So the engine reports each such graph it replays
+    (:meth:`graph_launched`), and a collective outside a capture first
+    waits until those graphs are done (at most ``timeout_s``).  A rank
+    replays its graphs on one stream, so no two of them run at once."""
 
     def __init__(self, rank: int, size: int, device, store_path: str, timeout_s: float = 180.0):
         import torch.distributed as dist
@@ -183,35 +199,67 @@ class ProcessGroup(TPGroup):
             timeout=datetime.timedelta(seconds=timeout_s), **kw,
         )
         self._dist = dist
+        self._timeout_s = timeout_s
+        self._graphs: list = []  # done events of graphs in flight (graph_launched)
+        # all_gather_into_tensor, renamed all_gather_single in newer torch
+        self._gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
         warm = torch.ones(1, device=self.device)
         dist.all_reduce(warm)  # NCCL creates its communicator here, outside any capture
         if int(warm.item()) != size:
             raise NormaError(f"tp group of {size}: the first all-reduce gave {warm.item()}")
 
+    def graph_launched(self, done) -> None:
+        """Note a replayed graph that holds this group's collectives;
+        ``done`` is an event recorded after it (class docstring)."""
+        self._graphs = [e for e in self._graphs if not e.query()] + [done]
+
+    def _quiet(self) -> None:
+        """Wait until the graphs in flight are done, before a collective
+        outside a capture; a graph not done in ``timeout_s`` raises (its
+        ranks would wait on each other inside it)."""
+        if not self._graphs or (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            return  # a captured collective launches nothing now
+        t0 = time.monotonic()
+        while self._graphs:
+            if self._graphs[0].query():
+                self._graphs.pop(0)
+            elif time.monotonic() - t0 > self._timeout_s:
+                raise NormaError(f"rank {self.rank}: a graph with this group's collectives is not done after "
+                                 f"{self._timeout_s:g} s; no collective outside a graph may start before it ends")
+            else:
+                time.sleep(0.0002)
+
     def all_reduce_sum(self, ts):
         (t,) = ts
+        self._quiet()
         self._dist.all_reduce(t)
         return [t]
 
     def all_reduce_max(self, ts):
         (t,) = ts
+        self._quiet()
         self._dist.all_reduce(t, op=self._dist.ReduceOp.MAX)
         return [t]
 
     def all_gather(self, ts, dim, sizes):
+        """The shards along ``dim``: every rank sends the widest shard's rows
+        (a narrower one padded with zeros) into one [size * widest, ...]
+        buffer, which a ragged split then narrows to each rank's rows."""
         (t,) = ts
         if t.shape[dim] != sizes[self.rank]:
             raise ValueError(f"rank {self.rank}'s shard is {t.shape[dim]} wide along dim {dim}, "
                              f"expected {sizes[self.rank]}")
         w = max(sizes)
         x = t.movedim(dim, 0)
-        if x.shape[0] < w:  # ragged: every rank sends the widest shard's rows
+        if x.shape[0] < w:
             x = torch.cat([x, x.new_zeros((w - x.shape[0],) + tuple(x.shape[1:]))])
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        self._dist.all_gather(parts, x)
-        out = torch.cat([p[:n] for p, n in zip(parts, sizes)]).movedim(0, dim)
-        return [out.contiguous()]
+        out = x.new_empty((self.size * w,) + tuple(x.shape[1:]))
+        self._quiet()
+        self._gather_into(out, x)
+        if any(n != w for n in sizes):
+            out = torch.cat([out[k * w:k * w + n] for k, n in enumerate(sizes)])
+        return [out.movedim(0, dim).contiguous()]
 
     def close(self) -> None:
         if self._dist.is_initialized():

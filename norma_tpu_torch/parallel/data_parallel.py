@@ -21,19 +21,19 @@ position runs:
     speculative draft's shards go to the same workers and reduce over the
     same communicator);
   - tp 1 on distinct cards: each replica is an engine in this process, as
-    on virtual devices.  These replicas run one after the other, and
-    worker processes were measured to run them at once (PERF.md section
-    7); the workers take them over once the multi-card serving checks
-    drive them;
+    on virtual devices.  Each replica's window is one CUDA graph replay
+    and one host read, so the replicas' threads run at once (one row a
+    card over four H100s: 1.01x the slowest replica alone; PERF.md
+    section 6);
   - each position's ranks on one device of their own: engines in this
     process, one LocalGroup each.
 
 Any other mesh (a tp group over distinct cards that also shares a card)
 raises.  Each position's engine runs in its own thread, on its own CUDA
 stream where it is in this process: a window's first call of its shape
-and the windows of tp worker processes run with host reads inside the call, so
-positions that shared a host thread or the legacy default stream would
-run one after the other.
+runs with host reads inside the call (its run before the capture), and a
+worker engine's calls wait on its pipes, so positions that shared a host
+thread or the legacy default stream would run one after the other.
 
 Every window entry point splits its rows over the replicas when the batch
 B divides by dp (each replica chooses its ladder arm on its local batch,
@@ -262,20 +262,17 @@ class DataParallelEngine:
         return self._merge_windows(_gather(f for _, f in parts))
 
     def transcribe_window_async(self, audio, langs, seed: int, n_active: Optional[int] = None):
-        """Start every replica's window; the windows run until
-        :meth:`transcribe_window_fetch`.  At tp 1, or with each position's
-        tp ranks in this process, it returns once each replica has queued
-        its window graph (a replica's dispatch returns before its device
-        work); a position of tp worker processes runs most of its window
-        with host reads, so it returns at once, the replicas' calls still
-        running in their threads."""
+        """Start every replica's window, in the replicas' threads at once;
+        it returns once each replica has queued its window graph (a
+        replica's dispatch, in this process or in its workers, returns
+        before its device work).  :meth:`transcribe_window_fetch`
+        completes them."""
         parts = self._map("transcribe_window_async", audio, self._langs(audio, langs), seed, window=True,
                           n_active=n_active)
-        return [(rep, f.result()) for rep, f in parts] if self.tp == 1 or not self.remote else parts
+        return [(rep, f.result()) for rep, f in parts]
 
     def transcribe_window_fetch(self, pending):
-        fetches = [rep.submit(lambda p=p, rep=rep: rep.engine.transcribe_window_fetch(
-            p.result() if isinstance(p, concurrent.futures.Future) else p)) for rep, p in pending]
+        fetches = [rep.submit(rep.engine.transcribe_window_fetch, p) for rep, p in pending]
         return self._merge_windows(_gather(fetches))
 
     def detect_language(self, feats) -> np.ndarray:

@@ -202,9 +202,8 @@ def in_workers(mesh: Mesh) -> bool:
     """Whether ``mesh``'s tp ranks run in worker processes, one a card: a tp
     above 1 over distinct cards (NCCL takes one rank a process).  Every
     other mesh runs in this process, dp of tp 1 on distinct cards in
-    threads: worker processes run such replicas at once where threads do
-    not (PERF.md section 7), but the multi-card serving checks do not
-    drive them there yet."""
+    threads, which run the replicas' windows at once (each is one CUDA
+    graph replay; PERF.md section 6)."""
     devs = list(mesh.devices.flat)
     return mesh.shape["tp"] > 1 and len(set(devs)) == len(devs) and all(d.type == "cuda" for d in devs)
 

@@ -27,6 +27,15 @@ same pickled bytes (their results bit for bit), else the call raises.  A
 worker that dies, or a spawn that is not ready in time, raises
 :class:`~norma_tpu_torch.errors.NormaError` in the parent; nothing falls
 back to the parent's device.
+
+A window dispatched with ``transcribe_window_async`` runs on each card as
+one CUDA graph whose token loops are WHILE nodes with the collectives
+inside (``decode/engine.py``), and the call returns after the dispatch.
+Its fetch waits at most ``FETCH_TIMEOUT_S``: ranks whose loops ran
+different passes would wait on each other inside the graph, where NCCL's
+watchdog does not look, so a window not done by then raises
+:class:`~norma_tpu_torch.errors.NormaError` naming each rank's WHILE passes
+so far.
 """
 
 from __future__ import annotations
@@ -51,6 +60,10 @@ from ..errors import NormaError
 # Seconds a worker may take from spawn to a built engine (imports, the
 # shard's copy, the communicator).
 SPAWN_TIMEOUT_S = 600.0
+
+# Seconds a worker waits at a fetch for its window's device work (a
+# window takes well under a second on the card; a deadlock never ends).
+FETCH_TIMEOUT_S = 60.0
 
 
 def _tree(params) -> dict:
@@ -109,6 +122,36 @@ def _host(x):
     return x
 
 
+def _fetch(engine, pending, rank: int):
+    """``engine.transcribe_window_fetch(pending)`` once the window's device
+    work is done, waiting at most ``FETCH_TIMEOUT_S`` (module docstring)."""
+    done = getattr(pending, "done", None)  # a window graph's replay in flight
+    t0 = time.monotonic()
+    while done is not None and not done.query():
+        if time.monotonic() - t0 > FETCH_TIMEOUT_S:
+            raise NormaError(f"rank {rank}: the window is not done after {FETCH_TIMEOUT_S:g} s; its token loops' "
+                             f"WHILE passes so far: {engine.window_passes(pending)}")
+        time.sleep(0.0002)
+    return engine.transcribe_window_fetch(pending)
+
+
+# The group's ranks are processes of this machine: NCCL's and gloo's
+# sockets stay on the loopback interface, and NCCL takes no InfiniBand.
+# NCCL's support for mixing graph and eager launches on one communicator
+# adds event-record and event-wait nodes to each collective's capture,
+# which a WHILE node's body does not admit (the window graph's
+# instantiation fails with cudaErrorInvalidValue: NCCL 2.28, CUDA 12.8).
+# Without it a body holds kernel nodes only, and NCCL supports neither
+# graphs with the communicator's collectives in flight at once on streams
+# that do not order them, nor a collective launched outside a graph while
+# such a graph is in flight, whatever the streams' order.  A rank replays
+# its graphs on one stream, and its ProcessGroup waits for the graphs in
+# flight before a collective outside a capture (``ProcessGroup.
+# graph_launched``).
+WORKER_ENV = (("NCCL_SOCKET_IFNAME", "lo"), ("GLOO_SOCKET_IFNAME", "lo"), ("NCCL_IB_DISABLE", "1"),
+              ("NCCL_GRAPH_MIXING_SUPPORT", "0"))
+
+
 def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> None:
     """A worker: build the engine from the first message, then answer calls
     until "close" (module docstring).  It ends with ``os._exit``: tearing
@@ -121,9 +164,7 @@ def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> No
         from .collectives import ProcessGroup, TPParams, first
 
         torch.set_num_threads(2)  # a worker's host work is dispatch, not math
-        # The group's ranks are processes of this machine: NCCL's and gloo's
-        # sockets stay on the loopback interface, and NCCL takes no InfiniBand.
-        for k, v in (("NCCL_SOCKET_IFNAME", "lo"), ("GLOO_SOCKET_IFNAME", "lo"), ("NCCL_IB_DISABLE", "1")):
+        for k, v in WORKER_ENV:
             os.environ.setdefault(k, v)
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -160,7 +201,9 @@ def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> No
                         for c in launch_counters().values():
                             c.launches = 0
                 elif op == "fetch":  # a pending async window, by key
-                    res = engine.transcribe_window_fetch(pending.pop(a[0]))
+                    res = _fetch(engine, pending.pop(a[0]), rank)
+                elif op == "on_ranks":  # name: a function of the engine
+                    res = name(engine, *a, **kw)
                 elif op == "run_loop":  # a prefill state, by key (a ladder reruns one)
                     res = engine.run_loop(states[a[0]], *a[1:], **kw)
                 elif op in ("idle_share", "profiled_device_ms"):
@@ -272,9 +315,10 @@ class WorkerEngine:
                 raise NormaError(f"the worker on {self.devices[k]} did not answer in {timeout_s:.0f} s")
         raws = [raws[k] for k in range(len(self._conns))]
         outs = [pickle.loads(r) for r in raws]
-        for k, (status, val) in enumerate(outs):
-            if status != "ok":
-                raise NormaError(f"the worker on {self.devices[k]} failed:\n{val}")
+        failed = [f"the worker on {self.devices[k]} failed:\n{val}" for k, (status, val) in enumerate(outs)
+                  if status != "ok"]
+        if failed:
+            raise NormaError("\n".join(failed))
         if compare and any(r != raws[0] for r in raws[1:]):
             raise NormaError(f"tp ranks on {[str(d) for d in self.devices]} returned different results")
         return [v for _, v in outs]
@@ -287,14 +331,22 @@ class WorkerEngine:
             except OSError:
                 raise NormaError(f"the worker on {self.devices[k]} died (exit code {p.exitcode})") from None
 
-    def _call(self, op: str, name: str, *args, **kwargs):
+    def _call(self, op: str, name, *args, timeout_s: Optional[float] = None, **kwargs):
         with self._lock:
             self._send((op, name, args, kwargs))
-            return self._replies()[0]
+            return self._replies(timeout_s)[0]
 
     def call(self, name: str, *args, **kwargs):
         """``engine.name(*args, **kwargs)`` on every rank; rank 0's result."""
         return self._call("call", name, *_host(args), **_host(kwargs))
+
+    def on_ranks(self, fn, *args, **kwargs) -> list:
+        """``fn(engine, *args, **kwargs)`` in every worker (``fn`` a module's
+        function, sent by name: a measurement or check of each rank's
+        engine); every rank's result, not compared."""
+        with self._lock:
+            self._send(("on_ranks", fn, _host(args), _host(kwargs)))
+            return self._replies(compare=False)
 
     def profile(self, kind: str, trace_dir: str, name: str, *args, n: int = 1, ops: int = 0, **kwargs):
         """``tracing.idle_share`` or ``tracing.profiled_device_ms`` (``kind``;
@@ -340,7 +392,9 @@ class WorkerEngine:
         return self.call("transcribe_window_async", audio, langs, int(seed), n_active=n_active)
 
     def transcribe_window_fetch(self, pending):
-        return self._call("fetch", "transcribe_window_fetch", pending)
+        """The workers' fetch of a dispatched window: each waits at most
+        ``FETCH_TIMEOUT_S`` for its device work (module docstring)."""
+        return self._call("fetch", "transcribe_window_fetch", pending, timeout_s=FETCH_TIMEOUT_S + 30.0)
 
     def detect_language(self, feats) -> np.ndarray:
         return self.call("detect_language", feats)

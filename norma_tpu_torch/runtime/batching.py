@@ -24,9 +24,12 @@ its own device, thread and stream (``parallel/data_parallel.py``).
 Port notes: round windows go to the engine's device as tensors (as numpy
 to a dp engine, which moves each replica's rows); the SLA round cap
 counts streams, not bucket widths.  The engine's window splits into
-dispatch and fetch, so rounds pipeline as in the JAX package, but the
-token loop's per-chunk host reads finish the window's device work inside
-the dispatch.
+dispatch and fetch, so rounds pipeline as in the JAX package: on the card
+every engine's dispatch -- one card, dp replicas, tp ranks in one process
+or in NCCL worker processes -- queues the window's CUDA graph and returns
+before its device work, and the fetch is the window's one host read (each
+rank's).  ``warmup`` captures every bucket's graphs on every replica and
+rank, so served rounds capture nothing.
 """
 
 from __future__ import annotations
