@@ -27,7 +27,8 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      same rows, and by cluster size against the plan's (each size's output
      checked);
   4. the golden config (tests/golden/engine_small.json) on the card,
-     through the graph loop and the per-step eager loop alike;
+     through run_loop's graph (one host read each) and the per-step eager
+     loop (run_loop_eager) alike;
   5. the single-stream slice: distil-large-v3 at mtp=448, buckets
      (128, 256), self_kv_impl="kernel", f32, seeded random weights:
      WhisperModel over 30 s of audio in three chunks (constant language,
@@ -120,16 +121,22 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      peaked softmax.  f32: the speculative tokens equal the plain engine's
      greedy decode at B=1 and B=8 (5 active), at spec_k=4 and "auto"
      (a failure prints the first differing position and the target's logit
-     margin there); a self-draft accepts every proposal; the round loop's
-     CUDA graphs give its round-by-round eager twin's result; at most one
-     host read per chunk of rounds plus two.  bf16 serving knobs (fused QKV,
-     int8 decoder, int4 head, w8a8 + flash encoder; int8 draft): B=8 rows
-     against the plain engine (printed), the launches of sample_step, w8,
-     w4, flash and q8a8 in one speculative window (all must move), walls
-     of both engines at B=1 and B=8 in turns; then the public entry,
+     margin there); each window is one CUDA graph (one capture) with one
+     host read, its round loop one WHILE node whose passes equal the
+     rounds, and each graph's nodes by type are printed; a self-draft
+     accepts every proposal; at 4 target layers the window graph's packed
+     rows equal the round-by-round eager window's bit for bit and
+     transcribe_window equals transcribe_window_eager.  bf16 serving knobs
+     (fused QKV, int8 decoder, int4 head, w8a8 + flash encoder; int8
+     draft): B=8 rows against the plain engine (printed), the launches of
+     sample_step, w8, w4, flash and q8a8 in one speculative window (all
+     must move), warm walls of both engines at B=1 and B=8 in turns beside
+     the walls of the round loop read on the host in chunks, one host read
+     a speculative window (two with its fallback); then the public entry,
      monolingual.Definition(draft_local_dir=...) over two BF16 checkpoints
      it writes (depth cut to 4 layers), warmup() running the fallback, and
-     30 s transcribed in three chunks.  Phase 2 also holds sample_step at
+     30 s transcribed in three chunks with no capture after warmup().
+     Phase 2 also holds sample_step at
      the verify chunk's 5, 40 and 104 rows (greedy_only, per-row steps);
  15. the README's Quick start with the microphone: the stub libasound
      (tests/stub_alsa, gcc) and the port's native ALSA runtime (g++) built
@@ -205,19 +212,21 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      named twice on phase 14's configs, full width and depth: f32, the
      greedy speculative rung's tokens of a B=1 and a padded B=8 window
      (5 active) equal tp=1's (phase 14's rows of the same run), and a
-     window of padding rows captures the round loop's graph (the live
-     B=1 window then captures none); the bf16 serving knobs: w8 against
+     window of padding rows captures the window's graph (the live B=1
+     window then captures none), one host read a window; the bf16 serving
+     knobs: w8 against
      its plain version on both ranks' shards at the path's rows, the
-     verify chunk's logits within SPEC_CHUNK_TOL of tp=1's (the gap also
+     verify chunk's logits within VERIFY_TOL of tp=1's (the gap also
      printed at target depths 4, 8 and 16 beside 32, and at 32 in f32
      unquantized, the shards' witness), and after a
      warm-up (a window of padding rows at B=1 and B=8, as silence under
      the no-speech gate) a B=8 window whose sample_step, w8, w4, flash
      and q8a8 launches must all move, a B=1 window, valid tokens, no CUDA
-     graph captured after the warm-up, walls beside phase 14's and rows
-     against its rows (printed, not gated); at 4/4 target layers,
-     WhisperModel.warmup(batch=8), then a live window and one forced into
-     the t>0 fallback, no capture after the warm-up.
+     graph captured after the warm-up, one host read a window (two with
+     the fallback), walls beside phase 14's and rows against its rows
+     (printed, not gated); at 4/4 target layers, WhisperModel.warmup(
+     batch=8), then a live window and one forced into the t>0 fallback
+     (two host reads), no capture after the warm-up.
  21. tensor parallelism over the cards (phase 20's second half; with one
      card it prints that it did not run).  tp=2 over cuda:0,1 (a worker process each, NCCL): the
      prefill's logits within phase 20's tolerance of one engine's and bit
@@ -242,8 +251,9 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      worker processes (each gets its rank's target and draft shards, one
      NCCL communicator) on phase 14's target cut to 4/4 layers with the
      serving knobs: a padded B=8 and a B=1 window's rows, rounds and
-     tokens per round bit for bit equal to tp=2 in one process, and B=1
-     walls of both.
+     tokens per round bit for bit equal to tp=2 in one process, one host
+     read a window on each rank (two with the fallback, as in one
+     process), and B=1 walls of both.
  22. (run after phase 2) loop_cond, the token loop's stop test in the
      window graphs' WHILE nodes, bit for bit against its plain version at
      rows 1/6/8/48 (flags none, some, all set; positions below, at and past
@@ -484,11 +494,13 @@ def one_read_text(r) -> str:
             f"under set_sync_debug_mode('error')), window {r['wall_ms']:.1f} ms, host reads {r['syncs']}")
 
 
-def window_graph_stats(engine):
-    """Per window graph of ``engine`` (each replica's on a dp engine): its
-    key (rows, samples, detection), nodes (its own, its
-    WHILE bodies'), record and instantiate seconds; and per engine its
-    graph pool's reserved bytes."""
+def window_graph_stats(engine, kinds=("window",)):
+    """Per device program of ``engine`` (each replica's on a dp engine) whose
+    kind is one of ``kinds`` (``DecodeEngine._programs``: "window",
+    "loop", "spec", "fallback"): its key, nodes (its own, its WHILE
+    bodies', and theirs by type), record and instantiate seconds and the
+    WHILE passes of its last fetch; and per engine its graph pool's
+    reserved bytes."""
     import torch
 
     out = []
@@ -498,15 +510,29 @@ def window_graph_stats(engine):
         pool = e._graph_pool
         pool_bytes = sum(s["total_size"] for s in segs
                          if pool is not None and tuple(s.get("segment_pool_id", ())) == tuple(pool))
-        out.append(dict(pool_bytes=pool_bytes, graphs={k: dict(v.stats) for k, v in e._window_graphs.items()}))
+        out.append(dict(pool_bytes=pool_bytes, graphs={k: dict(v.stats, passes=v.passes)
+                                                       for k, v in e._programs.items() if k[0] in kinds}))
     return out
+
+
+def program_text(key) -> str:
+    """A device program's key, short: rows, detection, K."""
+    kind = key[0]
+    if kind == "window":
+        return f"B={key[1]} detect={key[3]}"
+    if kind == "spec":
+        return f"spec B={key[1]} detect={key[3]} K={key[4]}"
+    if kind == "fallback":
+        return f"fallback B={key[1]}"
+    return f"run_loop P={key[2]} greedy={key[3]}"
 
 
 def graph_stats_text(stats) -> str:
     return " | ".join(
         f"pool {e['pool_bytes'] / 2**30:.2f} GiB: " + "; ".join(
-            f"B={k[0]} detect={k[2]}: {g.get('nodes')} + {g.get('body_nodes', 0)} body nodes, record "
-            f"{g.get('record_s', float('nan')):.2f} s, instantiate {g.get('instantiate_s', float('nan')):.3f} s"
+            f"{program_text(k)}: {g.get('nodes')} + {g.get('body_nodes', 0)} body nodes "
+            f"{g.get('body_types', {})}, record {g.get('record_s', float('nan')):.2f} s, instantiate "
+            f"{g.get('instantiate_s', float('nan')):.3f} s, last passes {g.get('passes')}"
             for k, g in e["graphs"].items())
         for e in stats)
 
@@ -970,7 +996,7 @@ def phase_golden(rec, dev):
     st = SpecialTokens(sot=50258, eot=50257, task=50359, no_speech=50362,
                        no_timestamps=50363, zero_sec=50364, one_sec=50414)
     engine = DecodeEngine(init_params(cfg, seed=0, device=dev), cfg, st)
-    got = {}
+    got, reads = {}, []
     for kind in ("tone", "noise", "mix"):
         # tests/test_golden_tokens.py::make_audio(kind, 6.0, seed=1)
         rng = np.random.default_rng(1)
@@ -984,13 +1010,12 @@ def phase_golden(rec, dev):
         mel = log_mel_spectrogram(
             torch.from_numpy(prepare_audio(audio, n_frames=2 * msp))[None].to(dev), n_mels=80, n_frames=2 * msp
         )
-        dr = engine.run_loop(engine.prefill(engine.encode(mel), 50259), 0.0, seed=0)[0]
+        state = engine.prefill(engine.encode(mel), 50259)
+        h0 = engine.host_syncs
+        dr = engine.run_loop(state, 0.0, seed=0)[0]
+        reads.append(engine.host_syncs - h0)
         # The same window through the per-step eager loop (no graphs).
-        engine._token_loop = engine._token_loop_eager
-        try:
-            dr_eager = engine.run_loop(engine.prefill(engine.encode(mel), 50259), 0.0, seed=0)[0]
-        finally:
-            engine.__dict__.pop("_token_loop", None)
+        dr_eager = engine.run_loop_eager(state, 0.0, seed=0)[0]
         if dr_eager.tokens != dr.tokens:
             raise AssertionError(f"golden {kind}: graph-loop tokens differ from the per-step loop's")
         got[kind] = dr.tokens == golden["windows"][kind]["tokens"]
@@ -1000,8 +1025,10 @@ def phase_golden(rec, dev):
             log(f"  golden {kind}: first difference at token {first} of {len(want)}")
     if not all(got.values()):
         raise AssertionError(f"golden windows differ: {got}")
-    log("phase 4 golden: ok windows tone/noise/mix token-exact vs tests/golden/engine_small.json, through "
-        "the graph loop and the per-step eager loop alike")
+    if reads != [1, 1, 1]:
+        raise AssertionError(f"golden: run_loop host reads {reads}, want one each (its program's fetch)")
+    log(f"phase 4 golden: ok windows tone/noise/mix token-exact vs tests/golden/engine_small.json, through "
+        f"run_loop's graph ({reads} host reads) and the per-step eager loop (run_loop_eager) alike")
 
 
 def phase_slice(rec, dev):
@@ -1573,7 +1600,7 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
         return out
 
     def checked_fetch(pending):
-        active = pending.active if hasattr(pending, "active") else pending[1]
+        active = pending.meta[0] if hasattr(pending, "meta") else pending[1]
         drs, info = fetched(pending)
         if any(d is not None for d, a in zip(drs, active) if not a):
             pad_bad.append(list(active))
@@ -2781,19 +2808,33 @@ def spec_params(cfg, dcfg, dev, quantized: bool):
                                                        logit_std=SPEC_LOGIT_STD)))
 
 
-def spec_packed(spec, windows, B, k, dev, lang):
+def spec_packed(spec, windows, B, k, dev, lang, eager=False):
     """The greedy speculative rung of window B on ``spec`` (a speculative
     engine, or a one-position mesh engine's replica), as the packed host
-    rows: tokens, n, ..., live rounds last."""
-    import torch
+    rows: tokens, n, ..., live rounds last.  On the card one window graph
+    (``SpeculativeEngine._spec_packed``: one host read); ``eager``: round
+    by round, a host read before each."""
+    import numpy as np
 
     eng = spec.replicas[0].engine if hasattr(spec, "replicas") else spec
     audio, na = windows[B]
-    active = torch.zeros(B, dtype=torch.bool)
+    active = np.zeros(B, bool)
     active[:na] = True
-    packed, _ = eng._spec_window(torch.from_numpy(audio).to(dev), torch.full((B,), lang, device=dev),
-                                 active.to(dev), detect=False, k=k)
-    return eng._host(packed)
+    return eng._spec_packed(audio, np.full(B, lang), active, False, k, eager=eager)[0]
+
+
+def spec_program(spec, windows, B, k):
+    """The window graph ``spec_packed`` replays for window B at K ``k``
+    (None before its first call, or off the card)."""
+    eng = spec.replicas[0].engine if hasattr(spec, "replicas") else spec
+    return eng._programs.get(("spec", B, windows[B][0].shape[-1], False, k))
+
+
+# Phase 14's bf16 window walls while its round loop was read on the host
+# in chunks of 8 rounds (PERF.md, section 5: NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's: B=1 medians and B=8 (its first window, with
+# the captures), speculative and plain.
+SPEC_WALLS_CHUNKED_MS = {1: dict(spec=5024.4, plain=5900.6), 8: dict(spec=13800.9, plain=8671.3)}
 
 
 def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, public_cfgs=None, seconds=30.0):
@@ -2810,7 +2851,6 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
     import torch
 
     from norma_tpu_torch.decode import DecodeEngine, SpeculativeEngine
-    from norma_tpu_torch.decode.speculative import SPEC_CHUNK
     from norma_tpu_torch.frontend.mel import log_mel_spectrogram
     from norma_tpu_torch.model import PRESETS, fuse_qkv
     from norma_tpu_torch.model.whisper import decoder_full, encode
@@ -2893,31 +2933,32 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         want = greedy_rows(plain, B)
         sync()
         plain_ms = (time.perf_counter() - w0) * 1e3
-        h0, w0 = spec4.host_syncs, time.perf_counter()
+        h0, c0, w0 = spec4.host_syncs, spec4.graph_captures, time.perf_counter()
         packed = spec_packed(spec4, windows, B, 4, dev, lang)
         sync()
         spec_ms, reads = (time.perf_counter() - w0) * 1e3, spec4.host_syncs - h0
         check_equal("f32 spec_k=4", plain, B, want, spec_rows(packed, windows[B][1]))
         rounds = int(packed[:, -1].max())
-        # One read per chunk of rounds, one that finds every row finished
-        # (unless the last chunk ends at the round budget), and the packed
-        # result.
-        if reads > -(-rounds // SPEC_CHUNK) + 2:
-            raise AssertionError(f"B={B}: {reads} host reads for {rounds} rounds")
+        # The window is one program: one host read, its fetch; its round
+        # loop's WHILE node ran one pass a round.
+        prog = spec_program(spec4, windows, B, 4)
+        passes = prog.passes if prog is not None else None
+        if reads != 1 or (cuda and (passes != [rounds] or spec4.graph_captures - c0 != 1)):
+            raise AssertionError(f"B={B}: {reads} host reads (want 1), WHILE passes {passes} for {rounds} rounds, "
+                                 f"{spec4.graph_captures - c0} graphs captured (want 1)")
         f32_out[B] = dict(rounds=packed[:, -1].astype(int).tolist(), n=packed[:, Tmax].astype(int).tolist(),
-                          reads=reads, plain_greedy_ms=plain_ms, spec_ms=spec_ms)
+                          reads=reads, passes=passes, plain_greedy_ms=plain_ms, spec_ms=spec_ms)
         spec_ref.setdefault("f32", {})[B] = packed  # phase 20 holds tp=2 to these rows
-    graphs = sum(len(b.graphs) for b in spec4._spec_buffers.values())
-    if cuda and not graphs:
-        raise AssertionError("the round loop captured no CUDA graph")
+    graphs = window_graph_stats(spec4, kinds=("spec",)) if cuda else []
     del plain, spec4
     free()
     log(f"phase 14 speculative: f32 large-v3 target ({cfg.decoder_layers} decoder layers) + distil-large-v3 "
         f"draft ({dcfg.decoder_layers}), drawn in {make_s:.1f} s: spec_k=4 tokens equal to the plain greedy decode "
         f"at B=1 and B=8 (5 active); " + "; ".join(
-            f"B={B}: rounds {v['rounds'][:windows[B][1]]} for n {v['n'][:windows[B][1]]}, {v['reads']} host reads, "
-            f"window {v['spec_ms']:.1f} ms (plain greedy loop {v['plain_greedy_ms']:.1f} ms)"
-            for B, v in f32_out.items()) + f"; {graphs} round-loop CUDA graphs captured")
+            f"B={B}: rounds {v['rounds'][:windows[B][1]]} for n {v['n'][:windows[B][1]]}, {v['reads']} host read(s), "
+            f"WHILE passes {v['passes']}, window {v['spec_ms']:.1f} ms with its capture (plain greedy loop "
+            f"{v['plain_greedy_ms']:.1f} ms)" for B, v in f32_out.items()))
+    log(f"  speculative window graphs (f32 spec_k=4): {graph_stats_text(graphs) if cuda else 'cpu'}")
 
     # ---- 1b. f32, the target's decoder cut to 4 layers: "auto", the
     # self-draft, the graphs against the round-by-round eager twin --------
@@ -2948,27 +2989,34 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
     if not (r >= 1 and (r - 1) * 5 < committed <= r * 5 + 1):
         raise AssertionError(f"self-draft did not accept every proposal: {committed} tokens in {r} rounds")
     selfdraft = dict(rounds=r, tokens=committed)
-    # The round loop's CUDA graphs against its round-by-round eager twin.
-    modes = {}
+    # The window graph against the round-by-round eager window, warm: the
+    # packed rows (rounds included) and the public window's results bit
+    # for bit, in turns graph, eager, eager, graph.
+    modes, rows_by_mode, results = {"graph": [], "eager": []}, {}, {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        eager = mode == "eager"
+        sync()
+        h0, w0 = selfd.host_syncs, time.perf_counter()
+        rows_by_mode[mode] = spec_packed(selfd, windows, 1, 4, dev, lang, eager=eager)
+        sync()
+        modes[mode].append(((time.perf_counter() - w0) * 1e3, selfd.host_syncs - h0))
     for mode in ("graph", "eager"):
-        if mode == "eager":
-            selfd._spec_loop = selfd._spec_loop_eager
-        try:
-            sync()
-            w0 = time.perf_counter()
-            p_ = spec_packed(selfd, windows, 1, 4, dev, lang)
-            sync()
-            modes[mode] = ((time.perf_counter() - w0) * 1e3, p_)
-        finally:
-            selfd.__dict__.pop("_spec_loop", None)
-    if not np.array_equal(modes["graph"][1], modes["eager"][1], equal_nan=True):
-        raise AssertionError("the round loop's graphs and its eager twin differ")
-    modes = {k: round(v[0], 1) for k, v in modes.items()}
+        run = selfd.transcribe_window_eager if mode == "eager" else selfd.transcribe_window
+        results[mode] = run(windows[1][0], [lang], 0)[0]
+    if not np.array_equal(rows_by_mode["graph"], rows_by_mode["eager"], equal_nan=True):
+        raise AssertionError("the speculative window graph and the round-by-round eager window differ")
+    if not all(_same_result(a, b) for a, b in zip(results["graph"], results["eager"])):
+        raise AssertionError("transcribe_window and transcribe_window_eager differ on the self-draft B=1 window")
+    if any(reads != 1 for _, reads in modes["graph"]):
+        raise AssertionError(f"self-draft window graph host reads {[x[1] for x in modes['graph']]}, want 1 each")
+    modes = {k: dict(ms=[round(x[0], 1) for x in v], reads=[x[1] for x in v]) for k, v in modes.items()}
     del plain, auto, selfd, cut, params, dparams
     free()
     log(f"  f32 at {ccfg.decoder_layers} target decoder layers: 'auto' (K used {ks}) equal to the plain greedy "
         f"decode on {compared} rung-0 rows; self-draft {committed} tokens in {r} rounds (all accepted); self-draft "
-        f"B=1 window graph {modes['graph']} ms vs round-by-round eager {modes['eager']} ms (equal)")
+        f"B=1 window graph {modes['graph']['ms']} ms ({modes['graph']['reads']} host reads) vs round by round eager "
+        f"{modes['eager']['ms']} ms ({modes['eager']['reads']} reads): packed rows bit for bit; "
+        f"transcribe_window equal to transcribe_window_eager")
 
     # ---- 2-4. bf16 serving knobs, the full target -------------------------
     bf16 = torch.bfloat16
@@ -2980,6 +3028,9 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
                 "w4_matmul": quant_matmul.w4_matmul, "flash_encoder": flash_encoder.flash_self_attention,
                 "q8a8": quant_matmul.q8a8_dense}
     audio8, na8 = windows[8]
+    fallbacks = []  # each speculative window's fallback runs (a second host read each)
+    inner_fb = spec._fallback
+    spec._fallback = lambda *a, **k: (fallbacks.append(1), inner_fb(*a, **k))[1]
     # ---- the speculative path: counts from zero ----
     for c in counters.values():
         c.launches = 0
@@ -3003,36 +3054,45 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         raise AssertionError("bf16 speculative rows out of range or empty")
     if any(r is not None for r in out_s[na8:]):
         raise AssertionError("pad rows gave results")
-    # Walls at B=1, the two engines in turns (each one's first window
-    # captures its graphs; the median of three leaves that one out).
-    audio1 = windows[1][0]
-    w = {"plain": [], "spec": [], "reads": []}
-    for who in ("spec", "plain", "plain", "spec", "spec", "plain"):
+    # Warm walls, the two engines in turns (each one's first window of a
+    # shape captures its graphs; at B=1 the median of three leaves that one
+    # out).  A speculative window makes one host read, two with its
+    # fallback.
+    w = {(who, B): [] for who in ("plain", "spec") for B in (1, 8)}
+    reads = {1: [], 8: []}
+    for who, B in (("spec", 1), ("plain", 1), ("plain", 1), ("spec", 1), ("spec", 1), ("plain", 1),
+                   ("spec", 8), ("plain", 8)):
         eng = plain if who == "plain" else spec
+        audio, na = windows[B]
         sync()
-        h0, w0 = eng.host_syncs, time.perf_counter()
-        res1, _ = eng.transcribe_window(audio1, [lang], 0)
+        h0, f0, w0 = eng.host_syncs, len(fallbacks), time.perf_counter()
+        res, _ = eng.transcribe_window(audio, [lang] * B, 0, n_active=na)
         sync()
-        w[who].append((time.perf_counter() - w0) * 1e3)
+        w[who, B].append((time.perf_counter() - w0) * 1e3)
         if who == "spec":
-            spec_ref["bf16"][1] = [None if r is None else r.tokens for r in res1]
-        if who == "spec":
-            w["reads"].append(eng.host_syncs - h0)
-    walls = dict(plain_ms=w["plain"], spec_ms=w["spec"], plain_median_ms=float(np.median(w["plain"])),
-                 spec_median_ms=float(np.median(w["spec"])), rounds=spec.last_spec_rounds,
-                 tokens_per_round=spec.last_tokens_per_round, spec_reads=w["reads"],
-                 b8=dict(spec_ms=spec8_ms, plain_ms=plain8_ms, rounds=rounds8[0], tokens_per_round=rounds8[1]))
+            spec_ref["bf16"][B] = [None if r is None else r.tokens for r in res]
+            reads[B].append((eng.host_syncs - h0, len(fallbacks) - f0))
+    if any(n != 1 + f for B in reads for n, f in reads[B]):
+        raise AssertionError(f"speculative window host reads (reads, fallbacks) {reads}: want 1, 2 with a fallback")
+    walls = dict(plain_ms=w["plain", 1], spec_ms=w["spec", 1], plain_median_ms=float(np.median(w["plain", 1])),
+                 spec_median_ms=float(np.median(w["spec", 1])), rounds=spec.last_spec_rounds,
+                 tokens_per_round=spec.last_tokens_per_round, spec_reads=reads,
+                 b8=dict(spec_ms=spec8_ms, plain_ms=plain8_ms, rounds=rounds8[0], tokens_per_round=rounds8[1],
+                         warm_spec_ms=w["spec", 8], warm_plain_ms=w["plain", 8]))
     del plain, spec, pq, dq
     free()
     smi = smi_line() if cuda else "cpu"
     log(f"  bf16 serving knobs (fuse_qkv, int8 decoder, int4 head, w8a8 + flash encoder; draft int8), full "
         f"target: B=8 (5 active) rows equal to the plain engine {equal_bf16} (printed, not gated: bf16 on random "
         f"weights); launches in that speculative window {launches}; its wall {spec8_ms:.1f} ms with first-use "
-        f"captures (plain {plain8_ms:.1f} ms), {rounds8[0]} rounds, {rounds8[1]} tokens/round")
+        f"captures (plain {plain8_ms:.1f} ms), {rounds8[0]} rounds, {rounds8[1]} tokens/round; warm B=8: "
+        f"speculative {[round(x, 1) for x in w['spec', 8]]} ms, plain {[round(x, 1) for x in w['plain', 8]]} ms")
     log(f"  bf16 B=1 window walls on {smi}: plain {[round(x, 1) for x in walls['plain_ms']]} ms (median "
         f"{walls['plain_median_ms']:.1f}), speculative {[round(x, 1) for x in walls['spec_ms']]} ms (median "
-        f"{walls['spec_median_ms']:.1f}); {walls['rounds']} rounds, {walls['tokens_per_round']} tokens/round, "
-        f"host reads {walls['spec_reads']}")
+        f"{walls['spec_median_ms']:.1f}); with the round loop read on the host in chunks (PERF.md, section 5), "
+        f"speculative / plain ms: " + "; ".join(f"B={B} {v['spec']} / {v['plain']}" for B, v in
+                                                 SPEC_WALLS_CHUNKED_MS.items())
+        + f"; {walls['rounds']} rounds, {walls['tokens_per_round']} tokens/round; host reads, fallbacks by B {reads}")
 
     # ---- 5. the public entry: Definitions over checkpoints on disk -------
     tcfg5, dcfg5 = public_cfgs or (
@@ -3060,6 +3120,7 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
         model.warmup()
         if not fallback_runs:
             raise AssertionError("warmup() did not run the speculative engine's fallback")
+        caps0 = model.engine.graph_captures
         chunks = np.array_split(base, 3)
         texts = {}
         for name, m in (("spec", model), ("plain", pmodel)):
@@ -3072,13 +3133,17 @@ def phase_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, pub
                 raise AssertionError(f"{name}: buffer not drained")
         if not all(isinstance(x, str) for x in texts["spec"]):
             raise AssertionError("the speculative model's transcripts are not strings")
+        caps = model.engine.graph_captures - caps0
+        if cuda and caps:
+            raise AssertionError(f"the fixed-K speculative model captured {caps} CUDA graphs after warmup()")
     rec["speculative"] = dict(f32=f32_out, auto_ks=ks, selfdraft=selfdraft, modes=modes, bf16_equal=equal_bf16,
                               launches=launches, walls=walls, public=dict(write_s=write_s, ckpt_bytes=nb,
-                              ms=(texts["spec_ms"], texts["plain_ms"]), equal=texts["spec"] == texts["plain"]))
+                              ms=(texts["spec_ms"], texts["plain_ms"]), equal=texts["spec"] == texts["plain"],
+                              captures_after_warmup=caps))
     log(f"  public entry: monolingual.Definition(draft_local_dir=...) over two BF16 checkpoints "
         f"({nb / 2**30:.2f} GiB, written in {write_s:.1f} s; target {tcfg5.encoder_layers}/{tcfg5.decoder_layers} "
         f"layers, draft {dcfg5.encoder_layers}/{dcfg5.decoder_layers}), int8 decoder + int4 head: warmup ran the "
-        f"fallback; {seconds:.0f} s in 3 chunks {texts['spec_ms']:.1f} ms (plain {texts['plain_ms']:.1f} ms), "
+        f"fallback, {caps} graphs captured after it; {seconds:.0f} s in 3 chunks {texts['spec_ms']:.1f} ms (plain {texts['plain_ms']:.1f} ms), "
         f"transcripts equal to the plain model's: {texts['spec'] == texts['plain']} (bf16: printed, not gated)")
 
 
@@ -4319,7 +4384,7 @@ def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, 
 # in each of the target's 32 layers, and the logits spread 12
 # (SPEC_LOGIT_STD).  Read on the H100: 0.73 at B=1, 0.81 at B=8; a wrong
 # shard or gather moves them by the spread.
-SPEC_CHUNK_TOL = 2.0
+VERIFY_TOL = 2.0
 SPEC_PATH = ("sample_step", "w8_matmul", "w4_matmul", "flash_encoder", "q8a8")  # the speculative path's kernels
 
 
@@ -4381,27 +4446,31 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
         del one
     eng = SpeculativeEngine(shard_params(params, mesh), cfg, shard_params(dparams, mesh), dcfg, st,
                             language_token_ids=lang_ids, spec_k=4)
-    got, ms, caps = {}, {}, []
+    got, ms, caps, reads = {}, {}, [], []
+    r0 = eng.replicas[0].engine
     try:
         # A B=1 window whose rows are all finished before the first round
-        # (as silence is under the no-speech gate) captures the round loop's
-        # chunk, so the live B=1 window after it captures nothing.
-        c0 = eng.graph_captures
+        # (as silence is under the no-speech gate) captures the window's
+        # graph, its round loop included, so the live B=1 window after it
+        # captures nothing.  Each window makes one host read.
+        c0, h0 = eng.graph_captures, r0.host_syncs
         spec_packed(eng, {1: (windows[1][0], 0)}, 1, 4, dev, lang)
         caps.append(eng.graph_captures - c0)
+        reads.append(r0.host_syncs - h0)
         for B in (1, 8):
-            c0 = eng.graph_captures
+            c0, h0 = eng.graph_captures, r0.host_syncs
             sync()
             w0 = time.perf_counter()
             got[B] = spec_packed(eng, windows, B, 4, dev, lang)
             sync()
             ms[B] = (time.perf_counter() - w0) * 1e3
             caps.append(eng.graph_captures - c0)
+            reads.append(r0.host_syncs - h0)
     finally:
         eng.close()
-    if cuda and caps != [1, 0, 1]:
+    if (cuda and caps != [1, 0, 1]) or reads != [1, 1, 1]:
         raise AssertionError(f"speculative tp=2 captures: {caps} for the all-finished B=1 window, the live B=1 and "
-                             "B=8 windows; expected [1, 0, 1]")
+                             f"B=8 windows; expected [1, 0, 1]; host reads {reads}, expected one each")
     del eng, params, dparams
     free()
     for B in (1, 8):
@@ -4414,13 +4483,14 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
                                      f"(tp=1 {w_[i:i + 3]}, tp=2 {g_[i:i + 3]})")
         out[f"f32_b{B}"] = dict(n=[len(x) for x in tg], rounds_tp1=want[B][:na, -1].astype(int).tolist(),
                                 rounds_tp2=got[B][:na, -1].astype(int).tolist(), ms=ms[B])
-    out["f32_captures"] = caps
+    out["f32_captures"], out["f32_reads"] = caps, reads
     log(f"  speculative tp=2 over {[str(d) for d in mesh.devices.flat]} (one process), f32 {cfg.decoder_layers}-layer "
         f"target + {dcfg.decoder_layers}-layer draft, spec_k=4: greedy tokens equal {src} at B=1 and B=8 "
         f"({windows[8][1]} active); " + "; ".join(
             f"B={B}: n {v['n']}, rounds tp=2 {v['rounds_tp2']} (tp=1 {v['rounds_tp1']}), window "
             f"{v['ms']:.1f} ms" for B, v in ((1, out["f32_b1"]), (8, out["f32_b8"])))
-        + f"; graphs captured by an all-finished B=1 window, then the live B=1 and B=8 windows: {caps}")
+        + f"; graphs captured by an all-finished B=1 window, then the live B=1 and B=8 windows: {caps}, host "
+        f"reads {reads}")
 
     # ---- 2. the serving knobs, bf16, full depth ----
     cfgq = cfg.with_(encoder_attn_impl="flash", encoder_q8_mode="w8a8")
@@ -4445,9 +4515,9 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
         d_chunk = {B: float((spec_chunk_logits(eng, windows[B][0], lang, chunks[B]) - want_lg[B]).abs().max())
                    for B in (1, 8)}
         z_chunk = {B: float(want_lg[B].abs().max()) for B in (1, 8)}
-        if not max(d_chunk.values()) <= SPEC_CHUNK_TOL:
+        if not max(d_chunk.values()) <= VERIFY_TOL:
             raise AssertionError(f"speculative tp=2 verify chunk against tp=1: max |d logits| {d_chunk} "
-                                 f"(tolerance {SPEC_CHUNK_TOL})")
+                                 f"(tolerance {VERIFY_TOL})")
         del want_lg
         # The warm-up of the measured windows: at B=1 and B=8 a window whose
         # rows are all finished before the first round (what
@@ -4464,10 +4534,15 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
         warm_s = time.perf_counter() - w0
         caps0 = eng.graph_captures
         audio8, na8 = windows[8]
+        r0 = eng.replicas[0].engine
+        fallbacks = []  # a window that runs its fallback makes a second host read
+        inner_fb = r0._fallback
+        r0._fallback = lambda *a, **k: (fallbacks.append(1), inner_fb(*a, **k))[1]
         # ---- the speculative tp path: counts from zero ----
         sync()
         for c in counters.values():
             c.launches = 0
+        h0 = r0.host_syncs
         w0 = time.perf_counter()
         out8, _ = eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
         sync()
@@ -4475,11 +4550,14 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
         # ---- end of the path ----
         ms8 = (time.perf_counter() - w0) * 1e3
         tel8 = (eng.last_spec_rounds, eng.last_tokens_per_round)
+        reads = [(r0.host_syncs - h0, len(fallbacks))]
         sync()
+        h0, f0 = r0.host_syncs, len(fallbacks)
         w0 = time.perf_counter()
         out1, _ = eng.transcribe_window(windows[1][0], [lang], 0)
         sync()
         ms1 = (time.perf_counter() - w0) * 1e3
+        reads.append((r0.host_syncs - h0, len(fallbacks) - f0))
         tel1 = (eng.last_spec_rounds, eng.last_tokens_per_round)
         caps = eng.graph_captures - caps0
     finally:
@@ -4490,6 +4568,9 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
         raise AssertionError(f"speculative tp=2: kernels not launched on the path: {launches}")
     if cuda and caps:
         raise AssertionError(f"speculative tp=2: {caps} CUDA graphs captured after the warm-up")
+    if any(n != 1 + f for n, f in reads):
+        raise AssertionError(f"speculative tp=2: host reads, fallbacks of the B=8 and B=1 windows {reads}; want 1, "
+                             "2 with a fallback")
     for r in out8[:na8] + out1:
         if r is None or not r.tokens or not all(0 <= x < cfg.vocab_size for x in r.tokens):
             raise AssertionError("speculative tp=2: a bf16 row is empty or out of range")
@@ -4505,14 +4586,16 @@ def tp_speculative(rec, dev, cfg=None, dcfg=None, st=None, lang_ids=None, second
            f"{walls14['b8']['tokens_per_round']} tokens/round" if walls14 else "phase 14 not run")
     out["bf16"] = dict(warm_s=warm_s, ms_b8=ms8, ms_b1=ms1, rounds_b8=tel8[0], tokens_per_round_b8=tel8[1],
                        rounds_b1=tel1[0], tokens_per_round_b1=tel1[1], launches=launches, captures_after_warmup=caps,
+                       reads=reads,
                        equal_tp1=equal, n=[len(t) for t in tokens[8]], w8_shards=w8, d_chunk_logits=d_chunk)
     log(f"  speculative tp=2, serving knobs (bf16, fused QKV, int8 decoder, int4 head, w8a8 + flash encoder; int8 "
         f"draft), {cfg.decoder_layers}/{dcfg.decoder_layers} decoder layers: w8_dense against w8_dense_torch on both "
         f"ranks' shards at the path's rows, worst of max|y| {w8}; verify chunk logits (B x {K + 1}) against tp=1's "
-        f"on the same prefill, max |d| {d_chunk} (tolerance {SPEC_CHUNK_TOL}); warm-up (a window of padding rows "
+        f"on the same prefill, max |d| {d_chunk} (tolerance {VERIFY_TOL}); warm-up (a window of padding rows "
         f"at B=1 and B=8) {warm_s:.1f} s; B=8 ({na8} active) {ms8:.1f} ms, {tel8[0]} rounds, "
         f"{tel8[1]} tokens/round, launches {launches}; B=1 {ms1:.1f} ms, {tel1[0]} rounds, {tel1[1]} tokens/round; "
-        f"graph captures after the warm-up {caps}; rows equal to phase 14's tp=1 rows {equal} (printed, not gated); "
+        f"graph captures after the warm-up {caps}; host reads, fallbacks (B=8, B=1) {reads}; rows equal to phase "
+        f"14's tp=1 rows {equal} (printed, not gated); "
         f"{w14}; {smi_line() if cuda else 'cpu'}")
 
     # The verify chunk's tp=2 gap at cut depths beside the full depth's.
@@ -4677,14 +4760,14 @@ def spec_warmup_check(dev, cfg, dcfg, st, lang_ids, windows, mesh):
                             language_token_ids=lang_ids, spec_k=4)
     del pq, dq
     inner = eng.replicas[0].engine if hasattr(eng, "replicas") else eng
-    rungs, fb = [], inner._fallback_rungs
+    rungs, fb = [], inner._fallback
 
-    def fallback(*a):
-        packed = fb(*a)
-        rungs.append(packed[:, -1].to(torch.int64).tolist())  # each row's settling rung, -1: none
-        return packed
+    def fallback(*a, **k):
+        rows = fb(*a, **k)  # host rows: one program, one read
+        rungs.append(rows[:, -1].astype(int).tolist())  # each row's settling rung, -1: none
+        return rows
 
-    inner._fallback_rungs = fallback
+    inner._fallback = fallback
     try:
         model = WhisperModel(eng, _IdsTokenizer(), LanguageState(const=lang))
         sync()
@@ -4693,16 +4776,19 @@ def spec_warmup_check(dev, cfg, dcfg, st, lang_ids, windows, mesh):
         sync()
         warm_s = time.perf_counter() - w0
         warm_fb, caps0 = len(rungs), eng.graph_captures
+        h0 = inner.host_syncs
         eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
         n0 = len(rungs)
+        reads = [(inner.host_syncs - h0, n0 - warm_fb)]
         threshold = spec_mod.LOGPROB_THRESHOLD
         spec_mod.LOGPROB_THRESHOLD = float("inf")  # every active row takes the fallback
         try:
             sync()
-            w0 = time.perf_counter()
+            h0, w0 = inner.host_syncs, time.perf_counter()
             forced, _ = eng.transcribe_window(audio8, [lang] * 8, 0, n_active=na8)
             sync()
             forced_ms = (time.perf_counter() - w0) * 1e3
+            reads.append((inner.host_syncs - h0, len(rungs) - n0))
         finally:
             spec_mod.LOGPROB_THRESHOLD = threshold
         caps = eng.graph_captures - caps0
@@ -4722,13 +4808,16 @@ def spec_warmup_check(dev, cfg, dcfg, st, lang_ids, windows, mesh):
             raise AssertionError(f"speculative tp=2: forced-fallback row {r} against its rung {rung}")
     if cuda and caps:
         raise AssertionError(f"speculative tp=2: {caps} CUDA graphs captured after WhisperModel.warmup")
+    if any(n != 1 + f for n, f in reads):
+        raise AssertionError(f"speculative tp=2: host reads, fallbacks of the live and the forced window {reads}; "
+                             "want 1, 2 with a fallback")
     log(f"  speculative tp=2 at {cut.encoder_layers}/{cut.decoder_layers} target layers (serving knobs): "
         f"WhisperModel.warmup(batch=8) {warm_s:.1f} s, {warm_fb} fallback pass(es), the last's rungs by row "
         f"{rungs[warm_fb - 1]}; then a live B=8 window ({na8} active) and the same window forced to the fallback "
         f"({forced_ms:.1f} ms, rungs by row {forced_rungs[0]}; -1: every rung ran, none accepted): graph captures "
-        f"after the warm-up {caps}")
+        f"after the warm-up {caps}; host reads, fallbacks {reads}")
     return dict(warm_s=warm_s, warm_fallback_passes=warm_fb, captures_after_warmup=caps, forced_ms=forced_ms,
-                forced_rungs=forced_rungs[0])
+                forced_rungs=forced_rungs[0], reads=reads)
 
 
 def worker_positions(*args, cls=None, **kwargs):
@@ -4865,7 +4954,7 @@ def new_shape_in_flight(w, local_eng, want8, rows, langs, n_active, cuda=True):
 
 def rank_stats_text(stats) -> str:
     return " | ".join(f"rank {k}: " + "; ".join(
-        f"B={key[0]} {g.get('nodes')} + {g.get('body_nodes', 0)} body nodes {g.get('body_types')}, record "
+        f"{program_text(key)} {g.get('nodes')} + {g.get('body_nodes', 0)} body nodes {g.get('body_types')}, record "
         f"{g.get('record_s', float('nan')):.2f} s" for key, g in e[0]["graphs"].items()) for k, e in enumerate(stats))
 
 
@@ -5058,18 +5147,30 @@ def spec_over_cards(dev, devices=None, cfg=None, dcfg=None, st=None, lang_ids=No
     kw = dict(language_token_ids=lang_ids, spec_k=4)
 
     def run(eng):
-        """(B=8 rows, B=1 rows, each one's telemetry, B=1 walls in ms): the
-        first B=1 window captures, the next two are timed."""
-        out8, _ = eng.transcribe_window(windows[8][0], [lang] * 8, 0, n_active=windows[8][1])
+        """(B=8 rows, B=1 rows, each one's telemetry, B=1 walls in ms, host
+        reads per window and rank): the first B=1 window captures, the next
+        two are timed."""
+        rep = eng.replicas[0]
+        syncs = ((lambda: [c["host_syncs"] for c in rep.engine.on_ranks(rank_counters)]) if rep.remote
+                 else (lambda: [rep.engine.host_syncs]))
+        reads = []
+
+        def window(B):
+            h0 = syncs()
+            out, _ = eng.transcribe_window(windows[B][0], [lang] * B, 0, n_active=windows[B][1])
+            reads.append([b - a for a, b in zip(h0, syncs())])
+            return out
+
+        out8 = window(8)
         tel8 = (eng.last_spec_rounds, eng.last_tokens_per_round)
         walls = []
         for _ in range(3):
             sync()
             w0 = time.perf_counter()
-            out1, _ = eng.transcribe_window(windows[1][0], [lang], 0)
+            out1 = window(1)
             sync()
             walls.append((time.perf_counter() - w0) * 1e3)
-        return out8, out1, tel8, (eng.last_spec_rounds, eng.last_tokens_per_round), walls[1:]
+        return out8, out1, tel8, (eng.last_spec_rounds, eng.last_tokens_per_round), walls[1:], reads
 
     local = SpeculativeEngine(shard_params(pq, local_mesh), cfgq, shard_params(dq, local_mesh), dcfg, st, **kw)
     try:
@@ -5100,13 +5201,19 @@ def spec_over_cards(dev, devices=None, cfg=None, dcfg=None, st=None, lang_ids=No
                              f"telemetry B=8 {got[2]} vs {want[2]}, B=1 {got[3]} vs {want[3]}")
     if any(r is None for r in want[0][:windows[8][1]] + want[1]):
         raise AssertionError("speculative tp=2: an active bf16 row gave no result")
+    # One host read a window and rank (two with the fallback, which the
+    # same rows take in both engines).
+    if any(n not in (1, 2) for (n,) in want[5]) or any(r != w * 2 for r, w in zip(got[5], want[5])):
+        raise AssertionError(f"speculative tp=2 host reads per window: workers {got[5]} (a rank each), one process "
+                             f"{want[5]}; want 1, or 2 with a fallback, alike")
     log(f"  speculative tp=2 over {[str(d) for d in card_mesh.devices.flat]} (2 worker processes, one communicator "
         f"for target and draft; spawned in {spawn_s:.1f} s), large-v3 target cut to {cfg.encoder_layers}/"
         f"{cfg.decoder_layers} layers with the serving knobs: B=8 ({windows[8][1]} active) and B=1 rows, rounds and "
         f"tokens per round bit for bit equal to tp=2 in one process (B=8 {got[2]}, B=1 {got[3]}); B=1 walls ms "
-        f"workers {[round(x, 1) for x in got[4]]}, one process {[round(x, 1) for x in want[4]]}")
+        f"workers {[round(x, 1) for x in got[4]]}, one process {[round(x, 1) for x in want[4]]}; host reads per "
+        f"window, each rank {got[5]} (one process {want[5]})")
     return dict(spawn_s=spawn_s, telemetry_b8=got[2], telemetry_b1=got[3], b1_walls_workers=got[4],
-                b1_walls_one_process=want[4])
+                b1_walls_one_process=want[4], reads_workers=got[5], reads_one_process=want[5])
 
 
 def dp_rows_over_cards(cfg, params, st, lang_ids, audio, devices):

@@ -23,28 +23,33 @@ Semantics preserved from the reference, in prob space (post first softmax):
 
 The token loop: all per-step state (tokens, n, prev tokens, last
 timestamp, sum of logprobs, finished flags, step, position, draw key)
-stays on the device.  Run alone (``run_loop``, the speculative engine's
-fallback) it advances in chunks of ``LOOP_CHUNK`` steps at one cache
-crop, testing "any row unfinished" on the host before each chunk (the
-JAX package runs one ``lax.while_loop`` per crop).
-
-A window (:meth:`DecodeEngine.transcribe_window_async`) is one device
-program, as the JAX package's is: on CUDA one CUDA graph per window shape
-(rows, samples, detection), captured on the shape's first window and
-replayed after, holds mel, encoder, cross-K/V, detection, prefill, the
-no-speech gate, the ladder and its packing.  Its loops' stop tests run on
-the device: each cache crop's loop is a WHILE node whose body is one step
-followed by the condition's kernel (``ops/loop_cond.py``), as the JAX
+stays on the device, and its stop tests run there: each cache crop's loop
+is one :meth:`DecodeEngine._device_while` of one-step passes, as the JAX
 package runs one ``lax.while_loop`` per crop, and a sequential rung whose
-rows have all settled runs its loops zero times.  The seed is one of the
-graph's inputs.  The window's one host read is its fetch.  On the CPU the
-same structure runs eagerly, the conditions read on the host.  This holds
-for every engine: without tp, with tp ranks that share its process (a
-``LocalGroup``) and for one rank of worker processes over NCCL (a
-``ProcessGroup``), whose collectives the graph holds inside its WHILE
-bodies too, as GSPMD puts the psums inside the JAX package's loops.  The
-ranks sample from the same gathered logits, so their flags, hence their
-stop tests and passes, agree.
+rows have all settled runs its loops zero times.
+
+Every entry point that runs a loop is one device program with one host
+read, as the JAX package's jitted programs are: a window
+(:meth:`DecodeEngine.transcribe_window_async`), :meth:`DecodeEngine.
+run_loop`, and the speculative engine's window and its t>0 fallback
+(``decode/speculative.py``).  On CUDA each is one CUDA graph
+(:class:`_Program`) per shape, captured on the shape's first call and
+replayed after: a window's holds mel, encoder, cross-K/V, detection,
+prefill, the no-speech gate, the ladder and its packing; ``run_loop``'s
+the loop over copies of its prefill state.  Each ``_device_while`` in it
+is a WHILE node whose body is one step (or one speculative round) followed
+by the condition's kernel (``ops/loop_cond.py``).  The seed and the
+temperatures are inputs of the graph.  The program's one host read is its
+fetch of the packed result.  On the CPU the same structure runs eagerly,
+the conditions read on the host.  This holds for every engine: without
+tp, with tp ranks that share its process (a ``LocalGroup``) and for one
+rank of worker processes over NCCL (a ``ProcessGroup``), whose collectives
+the graph holds inside its WHILE bodies too, as GSPMD puts the psums
+inside the JAX package's loops.  The ranks sample from the same gathered
+logits, so their flags, hence their stop tests and passes, agree.
+:meth:`DecodeEngine.transcribe_window_eager` and :meth:`DecodeEngine.
+run_loop_eager` run the same steps with a host read of the finished flags
+before each step and no graphs: the comparison paths on the card.
 Every device->host read is counted in :attr:`DecodeEngine.host_syncs`.
 
 Tensor parallelism: an engine built on
@@ -57,8 +62,8 @@ params, cross-K/V, self-attention caches -- are
 :class:`~norma_tpu_torch.parallel.collectives.RankList`; what the ranks
 share (logits, which every rank gets whole, tokens, the loop's state) is
 held once, so the sampler and the ladder run once per process and every
-rank's step reads the same token.  A window graph, and the token loop's
-chunk graphs, hold every local rank's work and its collectives.
+rank's step reads the same token.  A program's graph holds every local
+rank's work and its collectives.
 
 ``quantize_cross_kv`` (int8, or int4 under ``cross_kv_impl="kernel"``)
 quantizes the cross-K/V the token loop reads, per window after prefill;
@@ -83,6 +88,7 @@ import numpy as np
 import torch
 
 from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD, TEMPERATURES
+from ..errors import NormaError
 from ..frontend.mel import log_mel_spectrogram
 from ..model.config import WhisperConfig
 from ..model.load import Params
@@ -157,13 +163,6 @@ def _rung_seed(seed, rung: int):
     return (int(seed) & 0xFFFFFFFF) | (int(rung) << 32)
 
 
-# Steps per chunk of the token loop read on the host: one read of the
-# finished flags per chunk (PERF.md: chosen on the H100).  A window
-# graph's WHILE passes are one step each (PERF.md: passes of 16 steps gave
-# a large-v3 B=8 window graph ~1M nodes and a 45-95 s capture, and took
-# the same wall as one-step passes at distil-large-v3's depth).
-LOOP_CHUNK = 16
-
 # One CUDA graph capture at a time in the process: instantiating a graph
 # that holds conditional (WHILE) nodes waits on the device, so two threads
 # capturing at once on one card -- data-parallel replicas warming up --
@@ -203,22 +202,16 @@ def _copy_into(dst, src) -> None:
 
 class _LoopBuffers:
     """The token loop's tensors: its inputs (cross-K/V, self-attention
-    caches) and its state (logits, tokens, lengths, previous tokens, last
-    timestamp, sum of logprobs, finished flags, step, position, seed), all
-    on the device.
+    caches, the caller's own: rows >= n0 of the caches are written in place,
+    and rewritten before any read, so a caller may reuse them) and its state
+    (logits, tokens, lengths, previous tokens, last timestamp, sum of
+    logprobs, finished flags, step, position, seed), all on the device."""
 
-    A ``static`` one (CUDA) owns every tensor, at addresses its captured
-    graphs hold: :meth:`start` copies a loop's inputs in, so the caller's
-    caches are only read.  Otherwise (the CPU) the loop works on the
-    caller's cross-K/V and caches, writing rows >= n0 of the caches in place
-    (they are rewritten before any read, so a caller may reuse them)."""
-
-    def __init__(self, ins, static: bool = False):
+    def __init__(self, ins):
         next_logits, tokens_init = ins[4], ins[5]
         B, Tmax = tokens_init.shape
         dev = tokens_init.device
-        self.static = static
-        self.xk, self.xv, self.cache_k, self.cache_v = (_like(t) for t in ins[:4]) if static else ins[:4]
+        self.xk, self.xv, self.cache_k, self.cache_v = ins[:4]
         self.ll = torch.empty_like(next_logits)
         self.tokens = torch.empty((B, Tmax), dtype=torch.int32, device=dev)
         i32 = lambda: torch.empty(B, dtype=torch.int32, device=dev)
@@ -230,15 +223,8 @@ class _LoopBuffers:
         self.pos = torch.empty(1, dtype=torch.int64, device=dev)
         self.seed = torch.empty(1, dtype=torch.int64, device=dev)  # the 64-bit key's bits
         self.slots = torch.arange(Tmax, device=dev)[None]
-        self.graphs: dict = {}  # (S, k, n_rungs, greedy_only) -> CUDAGraph
-        self.launches: dict = {}  # the same key -> {counter: launches per replay}
 
     def start(self, ins, n0: int, prev1, prev2, temp, seed, fin_init) -> None:
-        if self.static:
-            for dst, src in zip((self.xk, self.xv, self.cache_k, self.cache_v), ins[:4]):
-                _copy_into(dst, src)
-        else:
-            self.xk, self.xv, self.cache_k, self.cache_v = ins[:4]
         self.ll.copy_(ins[4])
         self.tokens.copy_(ins[5])
         self.n.fill_(n0)
@@ -257,36 +243,48 @@ class _LoopBuffers:
         if isinstance(seed, torch.Tensor):  # the key's bits, on the device
             self.seed.copy_(seed.reshape(1))
             return
-        key = int(seed) & 0xFFFFFFFFFFFFFFFF
-        self.seed.fill_(key - (1 << 64) if key >= 1 << 63 else key)
+        self.seed.fill_(_signed_key(seed))
 
 
-class _WindowGraph:
-    """One window shape's CUDA graph (:meth:`DecodeEngine.
-    transcribe_window_async`): its static inputs (audio, language tokens,
-    active rows, seed) on the device; the graph, its packed result and its
-    WHILE nodes' pass counters ``iters`` (zeroed by each replay); the
-    launches each replay counts at once and, per WHILE node, the launches
-    of one pass (one step), which the fetch scales by the passes the device
-    counted; and pinned host staging, inputs and outputs, two sets taken in
-    turn by the windows in flight (a third one in flight gets a set of its
-    own).  ``stats``: the graph's nodes (its own and its WHILE bodies'),
-    and the seconds its capture took to record and to instantiate."""
+def _signed_key(seed: int) -> int:
+    """A 64-bit draw key's bits as the int64 that holds them."""
+    key = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return key - (1 << 64) if key >= 1 << 63 else key
 
-    def __init__(self, B: int, samples: int, n_out: int, n_nodes: int, dev: torch.device):
-        self._shapes = {
-            "audio": ((B, samples), torch.float32), "langs": ((B,), torch.int64), "active": ((B,), torch.bool),
-            "seed": ((1,), torch.int64), "packed": ((B, n_out), torch.float32), "iters": ((n_nodes,), torch.int64),
-        }
-        for name in ("audio", "langs", "active", "seed", "iters"):
-            shape, dtype = self._shapes[name]
-            setattr(self, name, torch.zeros(shape, dtype=dtype, device=dev))
+
+class _Program:
+    """One captured device program (module docstring): a window's, a
+    ``run_loop``'s, a speculative window's or its fallback's CUDA graph.
+
+    ``ins``: its static inputs on the device by name -- those named in
+    ``host`` (``{name: (shape, dtype)}``) zeroed, and one like each tensor
+    (or tree, :func:`_like`) of ``device``; the graph, its packed f32
+    result ``out`` (``out_shape``) and what else it returns that a later
+    program reads (``keep``); its WHILE nodes' pass counters ``iters``
+    (zeroed by each replay); the launches each replay counts at once and,
+    per WHILE node, the launches of one pass and whether a pass is a decode
+    step (``loops``), which the fetch scales by the passes the device
+    counted; and pinned host staging for the host inputs, the result and
+    the passes, ``staging`` sets of it taken in turn by the replays in
+    flight (one more is made when every set is in flight).  ``stats``: the
+    graph's nodes (its own and its WHILE bodies'), and the seconds its
+    capture took to record and to instantiate; ``passes``: the WHILE
+    passes of the last fetch."""
+
+    def __init__(self, dev: torch.device, n_nodes: int, out_shape, host: dict, device: Optional[dict] = None,
+                 staging: int = 1):
+        self.host = dict(host)
+        self.ins = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (shape, dtype) in self.host.items()}
+        self.ins.update({k: _like(v) for k, v in (device or {}).items()})
+        self.iters = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
+        self._shapes = {**self.host, "out": (tuple(out_shape), torch.float32), "iters": ((n_nodes,), torch.int64)}
         self.graph = None
-        self.packed = None
+        self.out = self.keep = None
+        self.passes: Optional[List[int]] = None  # per WHILE node, the last fetch's
         self.launches: dict = {}
-        self.loops: list = []  # per WHILE node: {counter: launches per pass}
+        self.loops: list = []  # per WHILE node: ({counter: launches per pass}, a pass is a decode step)
         self.stats: dict = {}
-        self._free = [self._staging() for _ in range(2)]
+        self._free = [self._staging() for _ in range(staging)]
 
     def _staging(self) -> dict:
         return {k: torch.empty(shape, dtype=dtype, pin_memory=True) for k, (shape, dtype) in self._shapes.items()}
@@ -298,18 +296,30 @@ class _WindowGraph:
     def give(self, staging: dict) -> None:
         self._free.append(staging)
 
+    def load(self, staging: dict, **values) -> None:
+        """Copy each input's value into ``ins``, on the current stream: a
+        host input from the host through its pinned staging, unless it is
+        a CUDA tensor already; a device input on the device."""
+        for name, value in values.items():
+            dst = self.ins[name]
+            if name in self.host and not (isinstance(value, torch.Tensor) and value.device.type == "cuda"):
+                staging[name].numpy()[...] = np.asarray(value)
+                dst.copy_(staging[name], non_blocking=True)
+            else:
+                _copy_into(dst, value)
+
 
 @dataclass
-class _PendingWindow:
-    """A window graph's replay in flight: its staging set, whose packed
-    result and pass counts are on their way to it, and the event after
-    those copies."""
+class _Pending:
+    """A program's replay in flight: its staging set, whose packed result
+    and pass counts are on their way to it, the event after those copies,
+    and what its fetch needs besides (a window's active rows and detect
+    flag)."""
 
-    win: _WindowGraph
+    prog: _Program
     staging: dict
     done: "torch.cuda.Event"
-    active: np.ndarray
-    detect: bool
+    meta: tuple = ()
 
 
 # The layer generators (model/whisper.py) of the model functions a tp
@@ -417,28 +427,27 @@ class DecodeEngine:
             else None
         )
         # Counters: device->host reads, decode steps run, and CUDA graphs
-        # captured (window graphs and the loop's chunk graphs).
+        # captured.
         self.host_syncs = 0
         self.decode_steps = 0
         self.graph_captures = 0
-        # The token loop: steps per chunk, and on CUDA its static buffers
-        # (by input signature) with their captured graphs.
-        self._loop_chunk = LOOP_CHUNK
-        self._graph_buffers: dict = {}
-        self._graph_pool = None
-        self._side_stream = None
-        # A rank in worker processes tells its group of every graph it
-        # replays (``ProcessGroup.graph_launched``: no NCCL launch outside
-        # a graph may start while one is in flight).
-        self._graph_launched = getattr(self._group, "graph_launched", None)
-        # Windows as one device program (module docstring): on CUDA their
-        # graphs by (rows, samples, detection); the graph being captured,
+        # Device programs (module docstring): on CUDA their graphs by key,
+        # the first item of which names the entry point; the memory pool
+        # and side stream of their captures; the program being captured,
         # whose loops become WHILE nodes; the stream their bodies are
         # captured on.
-        self._window_graphs: dict = {}
-        self._capturing: Optional[_WindowGraph] = None
-        self._warming = False  # a window's run before its capture
+        self._programs: dict = {}
+        self._graph_pool = None
+        self._side_stream = None
+        self._capturing: Optional[_Program] = None
+        self._warming = False  # a program's run before its capture
         self._body_stream = None
+        # A rank in worker processes tells its group of every graph it
+        # replays (``ProcessGroup.graph_launched``: no NCCL launch outside
+        # a graph may start while one is in flight), and its fetches wait at
+        # most ``fetch_timeout_s`` (``parallel/workers.py``).
+        self._graph_launched = getattr(self._group, "graph_launched", None)
+        self.fetch_timeout_s: Optional[float] = None
 
     @staticmethod
     def _kernel_params(params: Params, cfg: WhisperConfig, device: torch.device) -> Params:
@@ -519,17 +528,18 @@ class DecodeEngine:
         nsp = torch.softmax(logits[:, 0, :], dim=-1)[:, self.st.no_speech]
         return cache_k, cache_v, logits[:, -1, :].contiguous(), nsp
 
-    def _loop_plan(self, n0: int) -> List[Tuple[int, int]]:
-        """The token loop's chunks of up to ``_loop_chunk`` steps, as (crop
-        S, steps k).
+    def _loop_crops(self, n0: int) -> List[Tuple[int, int]]:
+        """The token loop's cache crops, ``(S, pos_end)``: the loop runs each
+        step against the smallest crop ``S`` of ``cfg.decode_buckets`` (and
+        ``mtp``) that holds its row, as the JAX package's one
+        ``lax.while_loop`` per cache crop does, and a crop's loop runs one
+        step a pass while a row is unfinished and the position is below
+        ``pos_end`` (one :meth:`_device_while`).
 
         The loop runs at most ``mtp - 1 - n0`` steps: a live row's length
         grows by at least one a step, so by then the ``mtp - 1`` guard has
         finished every row (the forward of the last step writes row
-        ``mtp - 2``).  Chunks follow the ``decode_buckets`` segments, as the
-        JAX package's one ``lax.while_loop`` per cache crop does: a chunk
-        never crosses a bucket boundary, so its crop S is fixed, and the
-        last chunk of a segment may be shorter than ``chunk``."""
+        ``mtp - 2``); the last crop ends there."""
         cfg = self.cfg
         mtp = cfg.max_target_positions
         buckets = sorted({int(b) for b in cfg.decode_buckets if 0 < int(b) < mtp})
@@ -539,44 +549,13 @@ class DecodeEngine:
                 f"decode_buckets {short} do not exceed the prefix length {n0}: "
                 "cropping to them would drop prefill rows"
             )
-        sizes = buckets + [mtp]
-        budget = mtp - 1 - n0
-        plan, s = [], 0
-        while s < budget:
-            pos = n0 + s
-            S = next(x for x in sizes if pos < x)
-            k = min(self._loop_chunk, budget - s, S - pos)
-            plan.append((S, k))
-            s += k
-        return plan
-
-    def _loop_crops(self, n0: int) -> List[Tuple[int, int]]:
-        """:meth:`_loop_plan`'s cache crops, ``(S, pos_end)``: ``pos_end``
-        is the position after the crop's last step, so a crop's loop runs
-        one step a pass while a row is unfinished and the position is below
-        ``pos_end`` (one WHILE node in a window graph)."""
         crops, pos = [], n0
-        for S, k in self._loop_plan(n0):
-            pos += k
-            if crops and crops[-1][0] == S:
-                crops[-1] = (S, pos)
-            else:
-                crops.append((S, pos))
+        for S in buckets + [mtp]:
+            if pos >= mtp - 1:
+                break
+            pos = min(S, mtp - 1)
+            crops.append((S, pos))
         return crops
-
-    def _loop_buffers(self, xk, xv, cache_k, cache_v, next_logits, tokens_init):
-        """The token loop's state and inputs as one :class:`_LoopBuffers`.
-        On the CPU a fresh one per loop; on CUDA the engine's static one for
-        these inputs' shapes, dtypes and strides (the quant tier and rows
-        among them), whose addresses its captured graphs hold."""
-        ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
-        if tokens_init.device.type != "cuda":
-            return _LoopBuffers(ins)
-        key = _signature(ins)
-        buf = self._graph_buffers.get(key)
-        if buf is None:
-            buf = self._graph_buffers[key] = _LoopBuffers(ins, static=True)
-        return buf
 
     def _token_loop(
         self,
@@ -594,91 +573,63 @@ class DecodeEngine:
         n_rungs: int = 1,
         fin_init=None,  # [B] bool — rows born finished (no-speech / settled)
         greedy_only: bool = False,
-        on_device: bool = False,
     ):
         """The autoregressive loop.  Returns (tokens [B, Tmax] int32, n [B]
         int32, sum_logprob [B] f32) on the device.
 
-        The loop advances in chunks of up to ``_loop_chunk`` steps at one
-        cache crop (:meth:`_loop_plan`), testing the finished flags before
-        each chunk.  ``on_device`` (a window's loop): each crop's steps are
-        one :meth:`_device_while` of one-step passes, a WHILE node when a
-        window graph is being captured; the loop works on its inputs in
-        place.
-        Otherwise the flags are read on the host before each chunk; on CUDA
-        each chunk is then a CUDA graph, captured on its first use per
-        (buffers, crop, steps, rungs, ``greedy_only``) and replayed after;
-        on the CPU the same steps run eagerly.  Steps after every row has
-        finished change no state.
-
-        On CUDA the inputs are copied into the loop's static buffers and the
-        caller's caches are only read; on the CPU rows >= n0 of the caller's
-        caches are written in place (rewritten before any read): either way
-        callers may reuse them for another loop over the same prefix.
-        ``cfg.decode_buckets`` runs each step against the
-        smallest cache crop ``cache[:, :, :S]`` that holds its row (a view,
-        so a bucket boundary copies nothing; rows beyond the fill are masked
-        out whatever they hold, as the JAX chain's zero padding is).
+        Each cache crop's steps (:meth:`_loop_crops`) are one
+        :meth:`_device_while` of one-step passes: a WHILE node while a
+        program is captured, else a host read of the stop test before each
+        pass on CUDA (none is counted on the CPU).  Steps after every row
+        has finished change no state.  The loop works on its inputs in
+        place: rows >= n0 of the caches are written (rewritten before any
+        read), so callers may reuse them for another loop over the same
+        prefix.  ``cfg.decode_buckets`` runs each step against the smallest
+        cache crop ``cache[:, :, :S]`` that holds its row (a view, so a
+        bucket boundary copies nothing; rows beyond the fill are masked out
+        whatever they hold, as the JAX chain's zero padding is).
         """
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
-        if on_device:
-            _, buf, generator = self._loop_start(
-                ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
-            )
-            with annotate("token_loop"):
-                for S, pos_end in self._loop_crops(n0):
-                    self._device_while(
-                        buf, pos_end, lambda S=S: self._loop_step(buf, S, n_rungs, greedy_only, generator)
-                    )
-            return buf.tokens, buf.n, buf.slp
-        plan, buf, generator = self._loop_start(
-            ins, self._loop_buffers(*ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
-        )
+        buf, generator = self._loop_start(ins, n0, prev1, prev2, temp, seed, fin_init, greedy_only)
         with annotate("token_loop"):
-            for S, k in plan:
-                self.host_syncs += 1
-                if not bool((~buf.fin).any()):
-                    break
-                self._graphed(buf, (S, k, n_rungs, bool(greedy_only)),
-                              lambda S=S, k=k: self._steps(buf, S, k, n_rungs, greedy_only, generator))
-                self.decode_steps += k
-        return buf.tokens.clone(), buf.n.clone(), buf.slp.clone()
+            for S, pos_end in self._loop_crops(n0):
+                self._device_while(buf, pos_end, lambda S=S: self._loop_step(buf, S, n_rungs, greedy_only, generator))
+        return buf.tokens, buf.n, buf.slp
 
-    def _loop_start(self, ins, buf, n0, prev1, prev2, temp, seed, fin_init, greedy_only):
-        """(plan, ``buf`` started on ``ins``, the CPU's t>0 generator or None)."""
-        plan = self._loop_plan(n0)
+    def _loop_start(self, ins, n0, prev1, prev2, temp, seed, fin_init, greedy_only):
+        """(a :class:`_LoopBuffers` started on ``ins``, the CPU's t>0
+        generator or None)."""
+        buf = _LoopBuffers(ins)
         buf.start(ins, n0, prev1, prev2, temp, seed, fin_init)
         generator = None
         if buf.fin.device.type == "cpu" and not greedy_only:
             generator = torch.Generator(device="cpu").manual_seed(int(seed))
-        return plan, buf, generator
-
-    def _steps(self, buf, S: int, k: int, n_rungs: int, greedy_only: bool, generator) -> None:
-        """Advance ``buf`` by ``k`` steps at crop ``S``."""
-        for _ in range(k):
-            self._loop_step(buf, S, n_rungs, greedy_only, generator)
+        return buf, generator
 
     def _device_while(self, buf, pos_end: int, body) -> None:
         """``while loop_cond(buf.fin, buf.pos, pos_end): body()``, ``body``
-        being one step: while a window graph is captured, one WHILE node
-        (:func:`~norma_tpu_torch.ops.loop_cond.while_node`), its passes
-        counted on the device for the fetch; in the run before a capture,
-        one pass whatever the condition (every kernel of the body runs
-        before it is captured; the run's result is dropped, and the pass
-        stays inside the crop: a loop's passes start at its first row);
-        otherwise the condition is read on the host before each pass."""
-        win = self._capturing
-        if win is not None:
-            i = len(win.loops)
-            if i >= win.iters.numel():
-                raise RuntimeError(f"a window graph has more than {win.iters.numel()} token loops' WHILE nodes")
+        being one pass (a token loop's step, with ``buf`` a
+        :class:`_LoopBuffers`, or a speculative round): while a program is
+        captured, one WHILE node (:func:`~norma_tpu_torch.ops.loop_cond.
+        while_node`), its passes counted on the device for the fetch; in
+        the run before a capture, one pass whatever the condition (every
+        kernel of the body runs before it is captured; the run's result is
+        dropped, and the pass stays inside the crop: a loop's passes start
+        at its first row); otherwise the condition is read on the host
+        before each pass (counted on CUDA)."""
+        steps = isinstance(buf, _LoopBuffers)
+        prog = self._capturing
+        if prog is not None:
+            i = len(prog.loops)
+            if i >= prog.iters.numel():
+                raise RuntimeError(f"a device program has more than {prog.iters.numel()} loops' WHILE nodes")
             if self._body_stream is None:
                 self._body_stream = torch.cuda.Stream(device=buf.fin.device)
             tally, census = while_node(buf.fin, buf.pos, pos_end, body, pool=self._graph_pool,
-                                       body_stream=self._body_stream, iters=win.iters[i:i + 1])
-            win.loops.append(tally)
-            win.stats["body_nodes"] = win.stats.get("body_nodes", 0) + sum(census.values())
-            types = win.stats.setdefault("body_types", {})
+                                       body_stream=self._body_stream, iters=prog.iters[i:i + 1])
+            prog.loops.append((tally, steps))
+            prog.stats["body_nodes"] = prog.stats.get("body_nodes", 0) + sum(census.values())
+            types = prog.stats.setdefault("body_types", {})
             for k, v in census.items():
                 types[k] = types.get(k, 0) + v
             return
@@ -693,7 +644,7 @@ class DecodeEngine:
             if not bool(go):
                 return
             body()
-            self.decode_steps += 1
+            self.decode_steps += steps
 
     def _capture(self, dev: torch.device, fn):
         """Capture ``fn()`` into a new CUDA graph on the engine's side stream
@@ -734,28 +685,6 @@ class DecodeEngine:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             return fn()
-
-    def _graphed(self, buf, key, fn) -> None:
-        """Run ``fn``, device work on ``buf``'s tensors: eagerly on the CPU;
-        on CUDA by replaying ``buf.graphs[key]``.  A key met for the first
-        time runs ``fn`` on the side stream (:meth:`_warm_run`: this call's
-        run), then captures it (:meth:`_capture`).  A capture or replay
-        error raises."""
-        dev = buf.fin.device
-        if dev.type != "cuda":
-            fn()
-            return
-        graph = buf.graphs.get(key)
-        if graph is not None:
-            graph.replay()
-            _build.count_all(buf.launches[key])
-            if self._graph_launched is not None:
-                done = torch.cuda.Event()
-                done.record()
-                self._graph_launched(done)
-            return
-        self._warm_run(dev, fn)
-        buf.graphs[key], buf.launches[key], _, _ = self._capture(dev, fn)
 
     def _loop_step(self, buf, S: int, n_rungs: int, greedy_only: bool, generator) -> None:
         """One step of the token loop on ``buf``'s tensors, in place: the
@@ -798,25 +727,24 @@ class DecodeEngine:
 
     def _token_loop_eager(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, n0: int, prev1, prev2, temp,
-        seed, n_rungs: int = 1, fin_init=None, greedy_only: bool = False, on_device: bool = False,
+        seed, n_rungs: int = 1, fin_init=None, greedy_only: bool = False,
     ):
         """The loop step by step with a host read of the finished flags
         before each step and no graphs: :meth:`_token_loop`'s results from
-        the same steps, for comparisons on the card (``on_device`` is
-        taken and ignored; :meth:`transcribe_window_eager` runs a window
-        on it)."""
+        the same steps, for comparisons on the card
+        (:meth:`transcribe_window_eager`, :meth:`run_loop_eager`)."""
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
-        plan, buf, generator = self._loop_start(
-            ins, _LoopBuffers(ins), n0, prev1, prev2, temp, seed, fin_init, greedy_only
-        )
+        buf, generator = self._loop_start(ins, n0, prev1, prev2, temp, seed, fin_init, greedy_only)
+        pos = n0
         with annotate("token_loop"):
-            for S, k in plan:
-                for _ in range(k):
+            for S, pos_end in self._loop_crops(n0):
+                for _ in range(pos_end - pos):
                     self.host_syncs += 1
                     if not bool((~buf.fin).any()):
                         return buf.tokens, buf.n, buf.slp
                     self._loop_step(buf, S, n_rungs, greedy_only, generator)
                     self.decode_steps += 1
+                pos = pos_end
         return buf.tokens, buf.n, buf.slp
 
     def _window_front(self, audio, langs, *, detect: bool):
@@ -859,10 +787,10 @@ class DecodeEngine:
         only with ``detect=True``); seed: the ladder's draw key, an ``int``
         or its low word in one int64 on the device; active: [B] bool, False
         rows are batch padding (born finished, they decode nothing).  The
-        loops' and rungs' stop tests run on the device (the token loop's
-        ``on_device``): the window reads nothing on the host and is
-        captured as one graph on CUDA; ``eager`` runs the loops on
-        :meth:`_token_loop_eager` instead.  The ladder is:
+        loops' and rungs' stop tests run on the device: the window reads
+        nothing on the host and is captured as one graph on CUDA; ``eager``
+        runs the loops on :meth:`_token_loop_eager` instead.  The ladder
+        is:
 
           - ``B * len(TEMPERATURES) <= _SPECULATIVE_ROWS_MAX``: SPECULATIVE,
             every rung decodes at once as extra rows ``r*B + b`` of one
@@ -878,7 +806,6 @@ class DecodeEngine:
         cfg = self.cfg
         B = audio.shape[0]
         dev = audio.device
-        on_device = not eager
         loop = self._token_loop_eager if eager else self._token_loop
         with annotate("window_front"):  # mel, encoder, cross-K/V, detection, prefill
             feats, xk, xv, prefix, langs, lang_probs = self._window_front(
@@ -904,7 +831,7 @@ class DecodeEngine:
                 next_logits.repeat(R, 1), tokens_init.repeat(R, 1), 3,
                 prefix[:, -1].repeat(R), prefix[:, -2].repeat(R),
                 temps_row, _rung_seed(seed, 0),
-                n_rungs=R, fin_init=gated0.repeat(R), on_device=on_device,
+                n_rungs=R, fin_init=gated0.repeat(R),
             )
             with annotate("ladder_finish"):
                 avg = slp / torch.clamp(n, min=1).to(torch.float32)
@@ -921,25 +848,25 @@ class DecodeEngine:
                 return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
         btoks, bn, bavg, brung = self._sequential_rungs(
-            xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0, on_device=on_device, loop=loop,
+            xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0, eager=eager,
         )
         with annotate("ladder_finish"):
             return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
 
     def _sequential_rungs(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0,
-        *, start_rung: int = 0, on_device: bool = False, loop=None,
+        *, start_rung: int = 0, eager: bool = False,
     ):
         """Sequential temperature ladder: try rungs in order, stopping once
         every stream has settled.  Rung r draws with key
         ``_rung_seed(seed, r)`` and reports TEMPERATURES[r]; settled rows are
         born finished; ``start_rung`` > 0 skips rungs a caller already ran
-        (the speculative engine's t=0 pass).  The host reads "any stream
-        unsettled" before each rung; ``on_device`` reads nothing: every rung
-        runs its loops, which run no step once every row is born finished,
-        and a rung then takes no row.  ``loop``: the token loop (default
-        :meth:`_token_loop`).  Returns (btoks, bn, bavg, brung); rows never
-        accepted carry brung = -1."""
+        (the speculative engine's t=0 pass).  The stop test is device work:
+        every rung runs its loops, which run no step once every row is born
+        finished, and a rung then takes no row.  ``eager`` (a comparison
+        path): the host reads "any stream unsettled" before each rung and
+        the rungs run :meth:`_token_loop_eager`.  Returns (btoks, bn, bavg,
+        brung); rows never accepted carry brung = -1."""
         B = tokens_init.shape[0]
         dev = tokens_init.device
         settled = settled0.clone()
@@ -947,9 +874,9 @@ class DecodeEngine:
         bn = torch.full((B,), 3, dtype=torch.int32, device=dev)
         bavg = torch.zeros(B, dtype=torch.float32, device=dev)
         brung = torch.full((B,), -1, dtype=torch.int64, device=dev)
-        loop = loop or self._token_loop
+        loop = self._token_loop_eager if eager else self._token_loop
         for r in range(start_rung, len(TEMPERATURES)):
-            if not on_device:
+            if eager:
                 self.host_syncs += 1
                 if not bool((~settled).any()):
                     break
@@ -958,7 +885,7 @@ class DecodeEngine:
                 xk, xv, cache_k, cache_v, next_logits, tokens_init, 3,
                 prefix[:, -1], prefix[:, -2],
                 torch.full((B,), t, dtype=torch.float32, device=dev),
-                _rung_seed(seed, r), fin_init=settled, greedy_only=t == 0.0, on_device=on_device,
+                _rung_seed(seed, r), fin_init=settled, greedy_only=t == 0.0,
             )
             avg = slp / torch.clamp(n, min=1).to(torch.float32)
             accept = ~(avg < LOGPROB_THRESHOLD)  # NaN avg accepted, as above
@@ -1077,43 +1004,52 @@ class DecodeEngine:
         )
         return packed, active, detect
 
-    def _window_graph_async(self, audio, langs_arr, seed: int, active, detect: bool) -> _PendingWindow:
+    def _window_graph_async(self, audio, langs_arr, seed: int, active, detect: bool) -> _Pending:
         B, samples = int(audio.shape[0]), int(audio.shape[-1])
-        key = (B, samples, detect)
-        win = self._window_graphs.get(key)
-        if win is None:
+        key = ("window", B, samples, detect)
+        prog = self._programs.get(key)
+        if prog is None:
             n_out = self.cfg.max_target_positions + 5 + (len(self._lang_ids) if detect else 1)  # _pack_ladder's
             # A pass counter per WHILE node: at most one node per cache crop
             # in each of the ladder's loops.
-            n_nodes = len(TEMPERATURES) * len(self._loop_crops(3))
-            win = self._window_graphs[key] = _WindowGraph(B, samples, n_out, n_nodes, self.device)
-        staging = win.take()
-        for name, value in (("audio", audio), ("langs", langs_arr), ("active", active), ("seed", [seed])):
-            if isinstance(value, torch.Tensor) and value.device.type == "cuda":
-                getattr(win, name).copy_(value, non_blocking=True)
-                continue
-            staging[name].numpy()[...] = np.asarray(value)
-            getattr(win, name).copy_(staging[name], non_blocking=True)
-        if win.graph is None:
-            self._capture_window(win, detect)
-        with annotate("window_graph"):  # a profiler's device span of the replay's kernels
-            win.graph.replay()
-        _build.count_all(win.launches)
-        staging["packed"].copy_(win.packed, non_blocking=True)
-        staging["iters"].copy_(win.iters, non_blocking=True)
+            prog = self._programs[key] = _Program(
+                self.device, len(TEMPERATURES) * len(self._loop_crops(3)), (B, n_out),
+                dict(audio=((B, samples), torch.float32), langs=((B,), torch.int64), active=((B,), torch.bool),
+                     seed=((1,), torch.int64)),
+                staging=2,  # two windows in flight take them in turn
+            )
+        staging = prog.take()
+        prog.load(staging, audio=audio, langs=langs_arr, active=active, seed=[seed])
+        ins = prog.ins
+        run = lambda: self._ladder_impl(ins["audio"], ins["langs"], ins["seed"], ins["active"], detect=detect)
+        return self._dispatch(prog, staging, run, "window_graph", meta=(active, detect))
+
+    def _dispatch(self, prog: _Program, staging: dict, run, region: str, meta: tuple = ()) -> _Pending:
+        """Replay ``prog`` on its inputs, as loaded into it, and queue the
+        copies of its result and passes to ``staging``, all on the current
+        stream, without waiting; a program's first call captures it first
+        (:meth:`_capture_program` of ``run``).  ``region``: a profiler's
+        device span of the replay's kernels."""
+        if prog.graph is None:
+            self._capture_program(prog, run)
+        with annotate(region):
+            prog.graph.replay()
+        _build.count_all(prog.launches)
+        staging["out"].copy_(prog.out, non_blocking=True)
+        staging["iters"].copy_(prog.iters, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         if self._graph_launched is not None:
             self._graph_launched(done)
-        return _PendingWindow(win, staging, done, active, detect)
+        return _Pending(prog, staging, done, meta)
 
-    def _capture_window(self, win: _WindowGraph, detect: bool) -> None:
-        """A window shape's first call: the window run on the side stream on
-        ``win``'s inputs, one pass of each loop (it readies the kernel
+    def _capture_program(self, prog: _Program, run) -> None:
+        """A program's first call: ``run()`` on the side stream on
+        ``prog``'s inputs, one pass of each loop (it readies the kernel
         library, cuBLAS, cuFFT and the allocator before the capture; its
-        result is dropped), then captured into ``win``."""
+        result is dropped), then captured into ``prog``: ``run`` returns the
+        packed result, or (the result, what the program keeps)."""
         dev = self.device
-        run = lambda: self._ladder_impl(win.audio, win.langs, win.seed, win.active, detect=detect)
         with _CAPTURE_LOCK:  # no capture in flight in the process while the tracer starts
             prime_device_tracer()
         self._warming = True
@@ -1123,35 +1059,36 @@ class DecodeEngine:
             self._warming = False
 
         def capture():
-            win.iters.zero_()
-            win.loops, win.stats = [], {}
-            self._capturing = win
+            prog.iters.zero_()
+            prog.loops, prog.stats = [], {}
+            self._capturing = prog
             try:
                 out = run()
             finally:
                 self._capturing = None
-            win.stats["nodes"] = capture_nodes(torch.cuda.current_stream(dev))
+            prog.stats["nodes"] = capture_nodes(torch.cuda.current_stream(dev))
             return out
 
         try:
-            win.graph, win.launches, win.packed, seconds = self._capture(dev, capture)
+            prog.graph, prog.launches, out, seconds = self._capture(dev, capture)
         except RuntimeError as e:
-            raise RuntimeError(f"a window graph's capture failed: {e}; its WHILE bodies' nodes: "
-                               f"{census_text(win.stats.get('body_types', {}))}") from e
-        win.stats.update(seconds)
+            raise RuntimeError(f"a device program's capture failed: {e}; its WHILE bodies' nodes: "
+                               f"{census_text(prog.stats.get('body_types', {}))}") from e
+        prog.out, prog.keep = out if isinstance(out, tuple) else (out, None)
+        prog.stats.update(seconds)
 
     @staticmethod
     def window_passes(pending) -> Optional[List[int]]:
-        """The WHILE passes of an async window graph in flight, so far, per
-        token loop (read on a stream of their own, so a window that does not
-        end does not hold the read; None if the read does not end within 5
-        s, or the window is no graph)."""
-        if not isinstance(pending, _PendingWindow):
+        """The WHILE passes of a program's replay in flight, so far, per
+        loop (read on a stream of their own, so a replay that does not end
+        does not hold the read; None if the read does not end within 5 s,
+        or ``pending`` is no replay)."""
+        if not isinstance(pending, _Pending):
             return None
-        side = torch.cuda.Stream(device=pending.win.iters.device)
-        out = torch.empty(pending.win.iters.shape, dtype=torch.int64, pin_memory=True)
+        side = torch.cuda.Stream(device=pending.prog.iters.device)
+        out = torch.empty(pending.prog.iters.shape, dtype=torch.int64, pin_memory=True)
         with torch.cuda.stream(side):
-            out.copy_(pending.win.iters, non_blocking=True)
+            out.copy_(pending.prog.iters, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         t0 = time.monotonic()
@@ -1159,23 +1096,49 @@ class DecodeEngine:
             if time.monotonic() - t0 > 5.0:
                 return None
             time.sleep(0.001)
-        return out.tolist()[:len(pending.win.loops)]
+        return out.tolist()[:len(pending.prog.loops)]
+
+    def _await(self, pending) -> None:
+        """Wait until a replay in flight (what has a ``done`` event; a CPU
+        window has none) is done: at most ``fetch_timeout_s`` when set,
+        since ranks whose loops ran different passes would wait on each
+        other inside the graph, where NCCL's watchdog does not look; then
+        raise ``NormaError`` naming this rank's WHILE passes so far."""
+        done = getattr(pending, "done", None)
+        if done is None:
+            return
+        limit = self.fetch_timeout_s
+        if limit is None:
+            done.synchronize()
+            return
+        t0 = time.monotonic()
+        while not done.query():
+            if time.monotonic() - t0 > limit:
+                raise NormaError(f"rank {getattr(self._group, 'rank', 0)}: the device program is not done after "
+                                 f"{limit:g} s; its loops' WHILE passes so far: {self.window_passes(pending)}")
+            time.sleep(0.0002)
+
+    def _fetch(self, pending: _Pending) -> np.ndarray:
+        """A replay's one host read: wait for its copies (:meth:`_await`),
+        then scale each WHILE node's launches, and steps, by its passes
+        into the counters.  Returns the packed result."""
+        self._await(pending)
+        self.host_syncs += 1
+        prog, staging = pending.prog, pending.staging
+        out = staging["out"].numpy().copy()
+        prog.passes = staging["iters"].tolist()[:len(prog.loops)]
+        for passes, (tally, steps) in zip(prog.passes, prog.loops):
+            _build.count_all({c: n * passes for c, n in tally.items()})
+            if steps:
+                self.decode_steps += passes
+        prog.give(staging)
+        return out
 
     def transcribe_window_fetch(self, pending) -> Tuple[List[Optional[DecodingResult]], dict]:
         """Complete a :meth:`transcribe_window_async` window: the window's
-        one host read (a graph window: wait for its copies; then its WHILE
-        nodes' passes scale their launches and steps into the counters),
-        and the unpack."""
-        if isinstance(pending, _PendingWindow):
-            pending.done.synchronize()
-            self.host_syncs += 1
-            win, staging = pending.win, pending.staging
-            packed = staging["packed"].numpy().copy()
-            for passes, tally in zip(staging["iters"].tolist(), win.loops):
-                _build.count_all({c: n * passes for c, n in tally.items()})
-                self.decode_steps += passes
-            win.give(staging)
-            return self._unpack_ladder(packed, pending.active, pending.detect)
+        one host read (a graph window: :meth:`_fetch`), and the unpack."""
+        if isinstance(pending, _Pending):
+            return self._unpack_ladder(self._fetch(pending), *pending.meta)
         packed, active, detect = pending
         return self._unpack_ladder(self._host(packed), active, detect)
 
@@ -1264,24 +1227,47 @@ class DecodeEngine:
     @torch.no_grad()
     def run_loop(self, state, temperature: float, seed: int) -> List[DecodingResult]:
         """One token loop at one temperature over a :meth:`prefill` state
-        (which it may reuse: see :meth:`_token_loop`)."""
-        st = self.st
-        prefix = np.asarray(state["prefix"])
+        (which it may reuse), as one device program with one host read, the
+        fetch of its packed ``[tokens | n | sum_logprob]`` (the JAX
+        package's one loop program and one fetch).  On CUDA a graph per
+        (state's tensors' signature, prefix length, greedy): the state is
+        copied into the graph's own inputs, so the caller's caches are only
+        read, and the temperature and the seed are inputs too.  On the CPU
+        the same structure runs eagerly, writing rows of the state's caches
+        that it rewrites before any read (:meth:`_token_loop`)."""
+        return self._run_loop(state, temperature, seed, eager=False)
+
+    @torch.no_grad()
+    def run_loop_eager(self, state, temperature: float, seed: int) -> List[DecodingResult]:
+        """:meth:`run_loop` with no graphs, its loop on
+        :meth:`_token_loop_eager` (a host read of the finished flags before
+        every step): the same results from the same steps, the comparison
+        path on the card."""
+        return self._run_loop(state, temperature, seed, eager=True)
+
+    def _run_loop(self, state, temperature: float, seed: int, eager: bool) -> List[DecodingResult]:
+        prefix = np.asarray(state["prefix"], np.int32)
         B, P = prefix.shape
         Tmax = self.cfg.max_target_positions
-        tokens_init = np.zeros((B, Tmax), np.int32)
-        tokens_init[:, :P] = prefix
-        as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        tokens, n, slp = self._token_loop(
-            state["xk"], state["xv"], state["cache_k"], state["cache_v"],
-            state["next_logits"], as_dev(tokens_init), P,
-            as_dev(prefix[:, -1]), as_dev(prefix[:, -2]),
-            torch.full((B,), float(temperature), dtype=torch.float32, device=self.device),
-            int(seed), greedy_only=temperature == 0.0,
-        )
-        packed = self._host(
-            torch.cat([tokens.to(torch.float32), n.to(torch.float32)[:, None], slp[:, None]], 1)
-        )
+        greedy = temperature == 0.0
+        temps = np.full(B, temperature, np.float32)
+        ins = {k: state[k] for k in ("xk", "xv", "cache_k", "cache_v", "next_logits")}
+        if self.device.type == "cuda" and not eager:
+            key = ("loop", _signature(tuple(ins.values())), P, greedy)
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = _Program(
+                    self.device, len(self._loop_crops(P)), (B, Tmax + 2),
+                    dict(prefix=((B, P), torch.int32), temp=((B,), torch.float32), seed=((1,), torch.int64)), ins,
+                )
+            staging = prog.take()
+            prog.load(staging, prefix=prefix, temp=temps, seed=[_signed_key(seed)], **ins)
+            run = lambda: self._loop_packed(**prog.ins, greedy_only=greedy)
+            packed = self._fetch(self._dispatch(prog, staging, run, "loop_graph"))
+        else:
+            as_dev = lambda a: torch.from_numpy(a).to(self.device)
+            packed = self._host(self._loop_packed(**ins, prefix=as_dev(prefix), temp=as_dev(temps), seed=int(seed),
+                                                  greedy_only=greedy, eager=eager))
         tokens = packed[:, :Tmax].astype(np.int32)
         n = packed[:, Tmax].astype(np.int32)
         slp = packed[:, Tmax + 1]
@@ -1289,7 +1275,7 @@ class DecodeEngine:
         for b in range(B):
             toks = tokens[b, : n[b]].tolist()
             avg_logprob = float(slp[b]) / max(len(toks), 1)
-            while len(toks) >= 2 and toks[-2] > st.no_timestamps:
+            while len(toks) >= 2 and toks[-2] > self.st.no_timestamps:
                 del toks[-2]
             out.append(
                 DecodingResult(
@@ -1299,6 +1285,21 @@ class DecodeEngine:
                 )
             )
         return out
+
+    def _loop_packed(self, xk, xv, cache_k, cache_v, next_logits, prefix, temp, seed, *, greedy_only: bool,
+                     eager: bool = False):
+        """:meth:`run_loop`'s device work: the token loop over a prefill
+        state from the prefix [B, P], packed as [B, Tmax+2] f32 (tokens, n,
+        sum of logprobs)."""
+        B, P = prefix.shape
+        tokens_init = torch.zeros((B, self.cfg.max_target_positions), dtype=torch.int32, device=prefix.device)
+        tokens_init[:, :P] = prefix
+        loop = self._token_loop_eager if eager else self._token_loop
+        tokens, n, slp = loop(
+            xk, xv, cache_k, cache_v, next_logits, tokens_init, P, prefix[:, -1], prefix[:, -2], temp, seed,
+            greedy_only=greedy_only,
+        )
+        return torch.cat([tokens.to(torch.float32), n.to(torch.float32)[:, None], slp[:, None]], 1)
 
     @instrument  # reference #[instrument], model.rs:163
     def decode_with_fallback(

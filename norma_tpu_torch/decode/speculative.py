@@ -23,12 +23,22 @@ commits n' >= n+1, so rows left by rejected proposals sit at positions
 n'-1) before any read; queries mask keys beyond their own position.
 
 The round loop keeps all its state on the device (tokens, n, grammar
-state, sum of log-probabilities, finished flags, rounds per row).  Rounds
-run in chunks of ``SPEC_CHUNK`` with one host read of the finished flags
-per chunk; on CUDA each chunk is a captured CUDA graph (the counterpart of
-the JAX package's ``lax.while_loop``), on the CPU the same rounds run
-eagerly.  Rounds after every row has finished change nothing (the caches
-carry K+1 rows of slack for the writes of finished rows).
+state, sum of log-probabilities, finished flags, rounds per row, rounds
+run), and its stop test runs there: the loop is one
+``DecodeEngine._device_while`` whose pass is one round, "any row
+unfinished and fewer than ``mtp - 1 - n0`` rounds run" (the JAX package's
+``lax.while_loop``).  Rounds after every row has finished change nothing
+(the caches carry K+1 rows of slack for the writes of finished rows).
+
+A window is one device program with one host read, as the JAX package's
+``(K, detect)`` program and its one fetch are: on CUDA one CUDA graph per
+(rows, samples, detection, K) holds mel, encoder, both cross-K/V, both
+prefills, the no-speech gate, the round loop as one WHILE node and the
+packed result; the host applies the avg_logprob gate to it, and only rows
+that fail it take the t>0 fallback, one more program (a graph per rows)
+with one more read.  On the CPU the same structure runs eagerly.
+:meth:`SpeculativeEngine.transcribe_window_eager` runs the rounds one by
+one with a host read before each, and no graphs: the comparison path.
 
 Tensor parallelism: target and draft as
 :class:`~norma_tpu_torch.parallel.collectives.TPParams` over one group run
@@ -48,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD
+from ..constants import LOGPROB_THRESHOLD, NO_SPEECH_THRESHOLD, TEMPERATURES
 from ..errors import NormaError
 from ..model.config import WhisperConfig
 from ..model.load import Params
@@ -57,49 +67,33 @@ from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
 from ..parallel.collectives import RankList, TPParams, first, per_rank
 from ..tracing import instrument
-from .engine import DecodeEngine, DecodingResult, _copy_into, _like, _signature
+from .engine import DecodeEngine, DecodingResult, _Program, _signature
 from .masks import SpecialTokens
-
-# Rounds per chunk of the speculative loop: one host read of the finished
-# flags, and on CUDA one graph replay, per chunk.
-SPEC_CHUNK = 8
 
 
 class _SpecBuffers:
-    """The round loop's tensors: inputs (both cross-K/V, both caches) and
-    state (tokens, n, p1/p2/last timestamp, sum of logprobs, finished
-    flags, live rounds per row), all on the device.  A ``static`` one
-    (CUDA) owns every tensor, at addresses its captured graphs hold, and
-    :meth:`start` copies a window's inputs in; otherwise (the CPU) it works
-    on the caller's tensors, writing the caches in place.  Under tp the
-    inputs are :class:`~norma_tpu_torch.parallel.collectives.RankList`
-    values (each rank's own, static per rank on CUDA) and the state is
-    held once."""
+    """The round loop's tensors: inputs (both cross-K/V, both caches: the
+    caller's own, the caches written in place) and state (tokens, n,
+    p1/p2/last timestamp, sum of logprobs, finished flags, live rounds per
+    row, and ``pos``, the rounds run: the position of the loop's stop
+    test), all on the device.  Under tp the inputs are
+    :class:`~norma_tpu_torch.parallel.collectives.RankList` values (each
+    rank's own) and the state is held once."""
 
-    def __init__(self, ins, static: bool = False):
+    def __init__(self, ins):
         tokens_init = ins[8]
         B, Tmax = tokens_init.shape
         dev = tokens_init.device
-        self.static = static
-        names = ("xk", "xv", "dxk", "dxv", "ck", "cv", "dk", "dv")
-        for name, t in zip(names, ins[:8]):
-            setattr(self, name, _like(t) if static else t)
+        self.xk, self.xv, self.dxk, self.dxv, self.ck, self.cv, self.dk, self.dv = ins[:8]
         self.tokens = torch.empty((B, Tmax), dtype=torch.int32, device=dev)
         i32 = lambda: torch.empty(B, dtype=torch.int32, device=dev)
         self.n, self.p1, self.p2, self.last_ts, self.rounds = i32(), i32(), i32(), i32(), i32()
         self.slp = torch.empty(B, dtype=torch.float32, device=dev)
         self.fin = torch.empty(B, dtype=torch.bool, device=dev)
+        self.pos = torch.empty(1, dtype=torch.int64, device=dev)
         self.slots = torch.arange(Tmax, device=dev)[None]
-        self.graphs: dict = {}  # (K, rounds, n0) -> CUDAGraph
-        self.launches: dict = {}
 
     def start(self, ins, n0: int, prev1, prev2, fin_init) -> None:
-        names = ("xk", "xv", "dxk", "dxv", "ck", "cv", "dk", "dv")
-        for name, src in zip(names, ins[:8]):
-            if self.static:
-                _copy_into(getattr(self, name), src)
-            else:
-                setattr(self, name, src)
         self.tokens.copy_(ins[8])
         self.n.fill_(n0)
         self.p1.copy_(prev1)
@@ -108,6 +102,7 @@ class _SpecBuffers:
         self.slp.zero_()
         self.fin.copy_(fin_init)
         self.rounds.zero_()
+        self.pos.zero_()
 
 
 class SpeculativeEngine(DecodeEngine):
@@ -218,8 +213,6 @@ class SpeculativeEngine(DecodeEngine):
         # accepted .. spec_k+1 = all accepted).
         self.last_spec_rounds: Optional[int] = None
         self.last_tokens_per_round: Optional[float] = None
-        self._spec_chunk = SPEC_CHUNK
-        self._spec_buffers: dict = {}
 
     def _draft_kernel_params(self, draft: Params) -> Params:
         """On CUDA the draft's heads in their kernel layout, as
@@ -355,17 +348,6 @@ class SpeculativeEngine(DecodeEngine):
         buf.last_ts.copy_(nlts)
         buf.fin.copy_(new_fin)
 
-    def _spec_buffer(self, ins) -> _SpecBuffers:
-        """A fresh :class:`_SpecBuffers` on the CPU; on CUDA the engine's
-        static one for these inputs' shapes, strides and dtypes."""
-        if ins[8].device.type != "cuda":
-            return _SpecBuffers(ins)
-        key = _signature(ins)
-        buf = self._spec_buffers.get(key)
-        if buf is None:
-            buf = self._spec_buffers[key] = _SpecBuffers(ins, static=True)
-        return buf
-
     def _spec_loop(self, ins, n0: int, prev1, prev2, fin_init, k: int):
         """The greedy draft/verify loop over ``ins`` = (xk, xv, dxk, dxv,
         cache_k, cache_v, draft cache_k, draft cache_v, tokens_init), the
@@ -375,36 +357,21 @@ class SpeculativeEngine(DecodeEngine):
 
         Every row has finished within ``mtp - 1 - n0`` rounds (a live row
         commits at least one token a round, and the length guard finishes it
-        by then).  The loop runs chunks of ``_spec_chunk`` rounds until then,
-        with one host read of the finished flags before each; the last chunk
-        may pass that bound (rounds after every row has finished change
-        nothing), so every chunk is one CUDA graph on CUDA, captured on its
-        first use per (buffers, K, n0), even by a window whose rows are all
-        finished before the first round: the warm-up's window captures all a
-        window of its shape replays."""
-        buf = self._spec_buffer(ins)
+        by then), so the loop is one :meth:`_device_while` over rounds while
+        a row is unfinished and fewer rounds have run (a WHILE node in a
+        captured window).  The run before a capture makes one round whatever
+        the flags, so a window whose rows are all finished before the first
+        round (silence, as in a warm-up window) captures the same program a
+        live window replays."""
+        buf = _SpecBuffers(ins)
         buf.start(ins, n0, prev1, prev2, fin_init)
-        budget = self.cfg.max_target_positions - 1 - n0
-        r = self._spec_chunk
 
-        def rounds():
-            for _ in range(r):
-                self._spec_round(buf, k, n0)
+        def one_round():
+            self._spec_round(buf, k, n0)
+            buf.pos.add_(1)
 
-        done = 0
-        while done < budget:
-            self.host_syncs += 1
-            if not bool((~buf.fin).any()):
-                if done == 0 and buf.static and (k, r, n0) not in buf.graphs:
-                    # Every row finished before the first round (silence, as
-                    # in a warm-up window): the chunk is captured all the
-                    # same (its rounds change nothing on finished rows), so
-                    # a live window of this shape captures nothing.
-                    self._graphed(buf, (k, r, n0), rounds)
-                break
-            self._graphed(buf, (k, r, n0), rounds)
-            done += r
-        return buf.tokens.clone(), buf.n.clone(), buf.slp.clone(), buf.rounds.clone()
+        self._device_while(buf, self.cfg.max_target_positions - 1 - n0, one_round)
+        return buf.tokens, buf.n, buf.slp, buf.rounds
 
     def _spec_loop_eager(self, ins, n0: int, prev1, prev2, fin_init, k: int):
         """:meth:`_spec_loop` round by round, a host read before each round
@@ -423,12 +390,13 @@ class SpeculativeEngine(DecodeEngine):
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _spec_window(self, audio, langs, active, *, detect: bool, k: int):
+    def _spec_window(self, audio, langs, active, *, detect: bool, k: int, eager: bool = False):
         """mel -> encoder -> (detection) -> both prefills -> no-speech gate
-        -> the speculative greedy loop.  Returns the packed ladder layout
-        (rung 0 everywhere; the host applies the logprob gate and runs the
-        t>0 fallback on failures) with each row's live rounds as one
-        trailing column, and the encoder features for that fallback."""
+        -> the speculative greedy loop (``eager``: round by round,
+        :meth:`_spec_loop_eager`).  Returns the packed ladder layout (rung 0
+        everywhere; the host applies the logprob gate and runs the t>0
+        fallback on failures) with each row's live rounds as one trailing
+        column, and the encoder features for that fallback."""
         cfg, st = self.cfg, self.st
         B = audio.shape[0]
         dev = audio.device
@@ -451,7 +419,8 @@ class SpeculativeEngine(DecodeEngine):
         tokens_init = torch.zeros((B, cfg.max_target_positions), dtype=torch.int32, device=dev)
         tokens_init[:, :3] = prefix
         gated0 = (nsp > NO_SPEECH_THRESHOLD) | ~active
-        toks, n, slp, lrounds = self._spec_loop(
+        loop = self._spec_loop_eager if eager else self._spec_loop
+        toks, n, slp, lrounds = loop(
             (xk, xv, dxk, dxv, ck, cv, dck, dcv, tokens_init), 3,
             prefix[:, -1].contiguous(), prefix[:, -2].contiguous(), gated0, k,
         )
@@ -461,11 +430,13 @@ class SpeculativeEngine(DecodeEngine):
         return torch.cat([packed, lrounds.to(torch.float32)[:, None]], dim=1), feats
 
     @torch.no_grad()
-    def _fallback_rungs(self, feats, langs, seed: int, settled):
+    def _fallback_rungs(self, feats, langs, seed, settled, eager: bool = False):
         """The t>0 rungs over the window's encoder features for rows whose
         speculative t=0 rung failed the logprob gate: the sequential ladder
         from rung 1 (a row settling at rung r reports TEMPERATURES[r]);
-        settled rows are born finished.  Returns [B, Tmax+3] f32: tokens, n, avg_logprob, rung."""
+        settled rows are born finished.  ``seed``: an ``int``, or the low
+        word in one int64 on the device.  Returns [B, Tmax+3] f32: tokens,
+        n, avg_logprob, rung."""
         cfg, st = self.cfg, self.st
         B = first(feats).shape[0]  # each rank's features under tp
         dev = first(feats).device
@@ -485,25 +456,92 @@ class SpeculativeEngine(DecodeEngine):
         tokens_init[:, :3] = prefix
         btoks, bn, bavg, brung = self._sequential_rungs(
             xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled,
-            start_rung=1,  # rung 0 already ran speculatively
+            start_rung=1, eager=eager,  # rung 0 already ran speculatively
         )
         col = lambda t: t.to(torch.float32)[:, None]
         return torch.cat([btoks.to(torch.float32), col(bn), col(bavg), col(brung)], dim=1)
+
+    def _spec_packed(self, audio, langs_arr, active, detect: bool, k: int, eager: bool = False):
+        """The speculative rung of a window as writable host rows
+        (:meth:`_spec_window`'s packed layout) and the window's encoder
+        features on the device, with one host read.  On CUDA one graph per
+        (rows, samples, detection, K), captured on its first call, holds the
+        window whole and keeps its features for the fallback; on the CPU,
+        and ``eager``, the window runs outside a graph."""
+        B = int(audio.shape[0])
+        if self.device.type != "cuda" or eager:
+            dev = self.device
+            packed, feats = self._spec_window(
+                torch.as_tensor(audio).to(dev, torch.float32), torch.tensor(np.asarray(langs_arr), device=dev),
+                torch.from_numpy(active).to(dev), detect=detect, k=k, eager=eager,
+            )
+            return np.array(self._host(packed)), feats
+        samples = int(audio.shape[-1])
+        key = ("spec", B, samples, detect, k)
+        prog = self._programs.get(key)
+        if prog is None:
+            # _pack_ladder's columns and the live rounds; one WHILE node.
+            n_out = self.cfg.max_target_positions + 5 + (len(self._lang_ids) if detect else 1) + 1
+            prog = self._programs[key] = _Program(
+                self.device, 1, (B, n_out),
+                dict(audio=((B, samples), torch.float32), langs=((B,), torch.int64), active=((B,), torch.bool)),
+            )
+        staging = prog.take()
+        prog.load(staging, audio=audio, langs=langs_arr, active=active)
+        ins = prog.ins
+        run = lambda: self._spec_window(ins["audio"], ins["langs"], ins["active"], detect=detect, k=k)
+        return self._fetch(self._dispatch(prog, staging, run, "spec_window_graph")), prog.keep
+
+    def _fallback(self, feats, langs, seed: int, settled, eager: bool = False) -> np.ndarray:
+        """:meth:`_fallback_rungs` as host rows [B, Tmax+3], with one host
+        read: on CUDA one graph per (rows, features' signature), captured on
+        its first call (``warmup_fallback``), its inputs the features, the
+        languages, the seed and the settled rows; on the CPU, and
+        ``eager``, outside a graph."""
+        settled = np.asarray(settled, bool)
+        langs = np.asarray(langs, np.int64)
+        low = int(seed) & 0xFFFFFFFF
+        key = self._fallback_key(feats)
+        if self.device.type != "cuda" or eager:
+            as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            kw = {"eager": True} if eager else {}
+            return self._host(self._fallback_rungs(feats, as_dev(langs), low, as_dev(settled), **kw))
+        B = len(settled)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _Program(
+                self.device, (len(TEMPERATURES) - 1) * len(self._loop_crops(3)),
+                (B, self.cfg.max_target_positions + 3),
+                dict(langs=((B,), torch.int64), seed=((1,), torch.int64), settled=((B,), torch.bool)),
+                dict(feats=feats),
+            )
+        staging = prog.take()
+        prog.load(staging, feats=feats, langs=langs, seed=[low], settled=settled)
+        ins = prog.ins
+        run = lambda: self._fallback_rungs(ins["feats"], ins["langs"], ins["seed"], ins["settled"])
+        return self._fetch(self._dispatch(prog, staging, run, "fallback_graph"))
+
+    @staticmethod
+    def _fallback_key(feats) -> tuple:
+        """The fallback program's key: its rows, and its features' shapes,
+        strides, dtypes and devices (each rank's under tp)."""
+        return ("fallback", int(first(feats).shape[0]), _signature(feats))
 
     @torch.no_grad()
     def warmup_fallback(self, batch: int = 1) -> None:
         """Run the t>0 fallback once at ``batch`` rows.  Silence never
         reaches it (the no-speech gate), so a warm-up of zeros alone would
         leave the first gate-failing live window to pay its first-use costs
-        (graph captures, allocator growth).  ``WhisperModel.warmup`` calls
-        it."""
+        (its graph's capture, allocator growth).  ``WhisperModel.warmup``
+        calls it."""
         cfg = self.cfg
         feats = torch.zeros(
             (batch, cfg.max_source_positions, cfg.d_model),
             dtype=self.params["decoder"]["tok_emb"].dtype, device=self.device,
         )
-        langs = torch.full((batch,), self.st.sot + 1, dtype=torch.int32, device=self.device)
-        self._fallback_rungs(feats, langs, 0, torch.zeros(batch, dtype=torch.bool, device=self.device))
+        if self._group is not None:  # each rank's features, as a window's are
+            feats = RankList(feats.clone() for _ in self._tp_ranks)
+        self._fallback(feats, np.full(batch, self.st.sot + 1), 0, np.zeros(batch, bool))
 
     # ------------------------------------------------------------------
     # Host orchestration
@@ -521,24 +559,26 @@ class SpeculativeEngine(DecodeEngine):
         self, audio, langs, seed: int, n_active: Optional[int] = None
     ) -> Tuple[List[Optional[DecodingResult]], dict]:
         """Speculative window transcription: one device->host read of the
-        packed result in the common case (t=0 accepted or no speech) besides
-        the round loop's per-chunk reads, and a second pass over the
-        window's encoder features only for streams whose greedy decode
-        failed the reference's avg_logprob gate.  Same contract as
-        :meth:`DecodeEngine.transcribe_window`."""
+        packed result (the window's one program), and a second program and
+        read over the window's encoder features only for streams whose
+        greedy decode failed the reference's avg_logprob gate.  Same
+        contract as :meth:`DecodeEngine.transcribe_window`."""
+        return self._spec_transcribe(audio, langs, seed, n_active, eager=False)
+
+    @torch.no_grad()
+    def transcribe_window_eager(
+        self, audio, langs, seed: int, n_active: Optional[int] = None
+    ) -> Tuple[List[Optional[DecodingResult]], dict]:
+        """:meth:`transcribe_window` with no graphs: the rounds one by one
+        with a host read before each (:meth:`_spec_loop_eager`), the
+        fallback's steps too: the same results from the same rounds and
+        steps, the comparison path on the card."""
+        return self._spec_transcribe(audio, langs, seed, n_active, eager=True)
+
+    def _spec_transcribe(self, audio, langs, seed: int, n_active, eager: bool):
         langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
-        if isinstance(audio, torch.Tensor):
-            audio_t = audio.to(self.device, torch.float32)
-        else:
-            audio_t = torch.from_numpy(np.asarray(audio, np.float32)).to(self.device)
         self.last_spec_k = k = self.spec_k  # the K this window used
-        packed_dev, feats = self._spec_window(
-            audio_t,
-            torch.from_numpy(np.array(langs_arr, np.int64)).to(self.device),
-            torch.from_numpy(active).to(self.device),
-            detect=detect, k=k,
-        )
-        packed = np.array(self._host(packed_dev))  # writable: fallback rows land in it
+        packed, feats = self._spec_packed(audio, langs_arr, active, detect, k, eager=eager)
         Tmax = self.cfg.max_target_positions
         bn = packed[:, Tmax].astype(np.int32)
         bavg = packed[:, Tmax + 1]
@@ -563,12 +603,7 @@ class SpeculativeEngine(DecodeEngine):
         # early regardless).
         need_fb = active & ~(nsp > NO_SPEECH_THRESHOLD) & (bavg < LOGPROB_THRESHOLD)
         if need_fb.any():
-            fb = self._host(
-                self._fallback_rungs(
-                    feats, torch.from_numpy(langs_out).to(self.device), int(seed),
-                    torch.from_numpy(~need_fb).to(self.device),
-                )
-            )
+            fb = self._fallback(feats, langs_out, int(seed), ~need_fb, eager=eager)
             packed[need_fb, : Tmax + 3] = fb[need_fb]
         return self._unpack_ladder(
             packed, active, detect, trailing_cols=1, reject_rung0_below_gate=True

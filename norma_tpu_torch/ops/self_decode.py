@@ -52,7 +52,7 @@ def self_decode_plan(B: int, H: int, S: int, dtype: torch.dtype, dh: int = 64) -
     in registers, at most ``max_rows`` rows per CTA (8 per thread); rank 0
     gathers the cluster's partial sums in ``smem_bytes`` of dynamic shared
     memory.  It depends on the crop, not the position, so one shape serves
-    a graph's whole chunk.  The cluster is the fewest CTAs that hold the
+    every step of a crop's loop.  The cluster is the fewest CTAs that hold the
     rows: at 6 and 8 rows every doubling cost 1-4 us more than the rows
     it spread (the sweep of chip_smoke.py phase 3; PERF.md, Findings), so a
     crop of 128 or 256 bf16 rows runs on one CTA, launched without a

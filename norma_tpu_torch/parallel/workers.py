@@ -28,12 +28,13 @@ worker that dies, or a spawn that is not ready in time, raises
 :class:`~norma_tpu_torch.errors.NormaError` in the parent; nothing falls
 back to the parent's device.
 
-A window dispatched with ``transcribe_window_async`` runs on each card as
-one CUDA graph whose token loops are WHILE nodes with the collectives
-inside (``decode/engine.py``), and the call returns after the dispatch.
-Its fetch waits at most ``FETCH_TIMEOUT_S``: ranks whose loops ran
-different passes would wait on each other inside the graph, where NCCL's
-watchdog does not look, so a window not done by then raises
+Each entry point that runs a loop -- a window, ``run_loop``, a speculative
+window and its fallback -- runs on each card as one CUDA graph whose loops
+are WHILE nodes with the collectives inside (``decode/engine.py``); a
+window dispatched with ``transcribe_window_async`` returns after the
+dispatch.  Every fetch waits at most ``FETCH_TIMEOUT_S``: ranks whose
+loops ran different passes would wait on each other inside the graph,
+where NCCL's watchdog does not look, so a program not done by then raises
 :class:`~norma_tpu_torch.errors.NormaError` naming each rank's WHILE passes
 so far.
 """
@@ -122,19 +123,6 @@ def _host(x):
     return x
 
 
-def _fetch(engine, pending, rank: int):
-    """``engine.transcribe_window_fetch(pending)`` once the window's device
-    work is done, waiting at most ``FETCH_TIMEOUT_S`` (module docstring)."""
-    done = getattr(pending, "done", None)  # a window graph's replay in flight
-    t0 = time.monotonic()
-    while done is not None and not done.query():
-        if time.monotonic() - t0 > FETCH_TIMEOUT_S:
-            raise NormaError(f"rank {rank}: the window is not done after {FETCH_TIMEOUT_S:g} s; its token loops' "
-                             f"WHILE passes so far: {engine.window_passes(pending)}")
-        time.sleep(0.0002)
-    return engine.transcribe_window_fetch(pending)
-
-
 # The group's ranks are processes of this machine: NCCL's and gloo's
 # sockets stay on the loopback interface, and NCCL takes no InfiniBand.
 # NCCL's support for mixing graph and eager launches on one communicator
@@ -185,6 +173,7 @@ def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> No
         del tree
         with torch.no_grad():
             engine = cls(params, *args, **kwargs)
+        engine.fetch_timeout_s = FETCH_TIMEOUT_S  # every program's fetch (module docstring)
         conn.send_bytes(pickle.dumps(("ok", None)))
         pending, states, keys = {}, {}, itertools.count()  # keys alike on every rank
         while True:
@@ -200,8 +189,10 @@ def _worker_main(conn, rank: int, size: int, device: str, store_path: str) -> No
                     if a[0]:
                         for c in launch_counters().values():
                             c.launches = 0
-                elif op == "fetch":  # a pending async window, by key
-                    res = _fetch(engine, pending.pop(a[0]), rank)
+                elif op == "fetch":  # a pending async window, by key; its wait has a deadline
+                    p = pending.pop(a[0])
+                    engine._await(p)
+                    res = engine.transcribe_window_fetch(p)
                 elif op == "on_ranks":  # name: a function of the engine
                     res = name(engine, *a, **kw)
                 elif op == "run_loop":  # a prefill state, by key (a ladder reruns one)

@@ -192,10 +192,10 @@ def test_mesh_warmup_covers_every_served_window(monkeypatch, speculative, tp):
 
 def test_spec_fallback_live_dispatch_hits_warmed_cache(monkeypatch):
     """The twin of the JAX test at dp2 x tp2: the t>0 fallback that
-    ``warmup_fallback`` runs on each replica keys its token loops' buffers
-    (``_loop_buffers``: the CUDA graphs' keys on the card) exactly as the
-    live gate-failure dispatch does, each rank's inputs included, so the
-    live fallback hits the warmed entries."""
+    ``warmup_fallback`` runs on each replica keys its program
+    (``_fallback_key``: the CUDA graph's key on the card) exactly as the
+    live gate-failure dispatch does, each rank's features included, so the
+    live fallback replays the warmed graph."""
     monkeypatch.setattr(spec_mod, "LOGPROB_THRESHOLD", float("inf"))
     tc = dict(d_model=64, encoder_attention_heads=4, decoder_attention_heads=4)
     cfg, dcfg = tiny_config(**tc), tiny_config(**tc, decoder_layers=1, encoder_layers=1)
@@ -208,13 +208,14 @@ def test_spec_fallback_live_dispatch_hits_warmed_cache(monkeypatch):
     keys = {"warm": set(), "live": set()}
     phase = ["warm"]
     for i, r in enumerate(engine.replicas):
-        inner = r.engine._loop_buffers
+        inner = r.engine._fallback_key
 
-        def spy(*ins, i=i, inner=inner):
-            keys[phase[0]].add((i, engine_mod._signature(ins)))
-            return inner(*ins)
+        def spy(feats, i=i, inner=inner):
+            key = inner(feats)
+            keys[phase[0]].add((i, key))
+            return key
 
-        r.engine._loop_buffers = spy
+        r.engine._fallback_key = spy
     B = 2
     try:
         engine.warmup_fallback(batch=B)

@@ -1,22 +1,24 @@
-"""The chunked token loop and the repairs around it, on the CPU.
+"""The device-tested token loop and the repairs around it, on the CPU.
 
-On CUDA the engine's token loop replays captured CUDA graphs, chunk by
-chunk; on the CPU it runs the same chunked steps eagerly, which is what
-these tests hold:
+On CUDA the engine's token loop is one WHILE node per cache crop inside a
+captured program's CUDA graph (a window, ``run_loop``); on the CPU the same
+device-tested loop runs eagerly, its stop test read on the host and not
+counted, which is what these tests hold:
 
   - ``decoder_step`` with a device position (a one-element int64 tensor)
     equals the ``int`` version bit for bit, and the JAX ``decoder_step``
     (f32, the logit tolerance of tests/test_torch_model.py);
   - ``self_attention_decode_torch`` with a device position equals the
     ``int`` version;
-  - the chunked ``_token_loop`` gives the per-step loop's tokens, lengths
-    and logprob sums exactly: greedy and t>0 (the CPU generator), across
-    bucket boundaries, at several chunk lengths, with rows finished early;
+  - the device-tested ``_token_loop`` gives the per-step loop's tokens,
+    lengths and logprob sums exactly: greedy and t>0 (the CPU generator),
+    across bucket boundaries, with rows finished early; ``run_loop`` makes
+    one host read, its fetch, and equals ``run_loop_eager``, which reads
+    the flags before every step;
   - a step run after every row has finished changes no loop state;
-  - the chunk plan never crosses a bucket boundary and never passes
-    ``mtp - 1 - n0`` steps, and a window makes one host read, its fetch
-    (its loops' stop tests are device work, read on the host only on
-    the CPU);
+  - the cache crops follow the buckets and end at ``mtp - 1``, and a
+    window makes one host read, its fetch (its loops' stop tests are
+    device work, read on the host only on the CPU);
   - the engine's own tree: the K-major encoder prep leaves the caller's
     params as they were (pointers, strides, values), so a second engine in
     "w8a16" mode reads codes in the w8 kernel's layout, and unprepped codes
@@ -24,8 +26,6 @@ these tests hold:
 """
 
 import dataclasses
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +34,7 @@ import torch
 from helpers import TEST_LANG_IDS, TEST_ST, confident_params, texty_config, tiny_config
 from torch_port_helpers import n, port_cfg, port_params, port_st, t
 
+from norma_tpu.decode.engine import DecodeEngine as JaxEngine
 from norma_tpu.model import load as jload
 from norma_tpu.model import whisper as jw
 from norma_tpu_torch.decode import DecodeEngine
@@ -125,16 +126,13 @@ def test_self_attention_decode_checks_positions():
         sd.self_attention_decode(r, r, r, c, c.clone(), 0, torch.tensor([1], dtype=torch.int32), 2)
 
 
-# -- the chunked loop ---------------------------------------------------------
+# -- the device-tested loop --------------------------------------------------
 
 
-def _engine(buckets=(), chunk=None, seed=3):
+def _engine(buckets=(), seed=3):
     cfg = tiny_config(decode_buckets=tuple(buckets))
     jp = jload.init_params(cfg, seed=seed)
-    engine = DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
-    if chunk is not None:
-        engine._loop_chunk = chunk
-    return engine
+    return DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
 
 
 def _loop_inputs(engine, B, temps, fin_rows=(), seed=0):
@@ -151,48 +149,67 @@ def _loop_inputs(engine, B, temps, fin_rows=(), seed=0):
         state["xk"], state["xv"], state["cache_k"], state["cache_v"], state["next_logits"],
         torch.from_numpy(tokens_init), 3, torch.from_numpy(prefix[:, -1]), torch.from_numpy(prefix[:, -2]),
         torch.tensor(temps, dtype=torch.float32), 1234,
-    ), fin
+    ), fin, state
 
 
-@pytest.mark.parametrize("chunk", [1, 5, 16])
+def _results(drs):
+    """Each result's tokens and both floats' bits (a deadlocked row's NaN
+    average compares equal to itself)."""
+    bits = lambda x: np.float64(x).tobytes()  # noqa: E731
+    return [(d.tokens, bits(d.avg_logprob), bits(d.no_speech_prob)) for d in drs]
+
+
+@pytest.mark.parametrize("buckets", [(), (8, 20), (10,)], ids=["one_crop", "three_crops", "two_crops"])
 @pytest.mark.parametrize("temps", [[0.0, 0.0, 0.0], [0.0, 0.6, 1.0]], ids=["greedy", "t>0"])
-def test_chunked_loop_matches_per_step(chunk, temps):
-    engine = _engine(buckets=(8, 20), chunk=chunk)
-    args, fin = _loop_inputs(engine, 3, temps, fin_rows=(2,))
+def test_device_loop_matches_per_step(buckets, temps):
+    engine = _engine(buckets=buckets)
+    args, fin, state = _loop_inputs(engine, 3, temps, fin_rows=(2,))
     greedy = all(x == 0.0 for x in temps)
     clone = lambda a: [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
     want = engine._token_loop_eager(*clone(args), fin_init=fin.clone(), greedy_only=greedy)
+    steps = engine.decode_steps
     engine.host_syncs = engine.decode_steps = 0
     got = engine._token_loop(*clone(args), fin_init=fin.clone(), greedy_only=greedy)
     for w, g in zip(want, got):  # bit-equal; a deadlocked row's sum is NaN in both
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert int(got[1][2]) == 3  # the row born finished decoded nothing
-    plan = engine._loop_plan(3)
-    assert engine.host_syncs <= len(plan)
-    assert engine.decode_steps == sum(k for _, k in plan[: engine.host_syncs])
+    assert engine.host_syncs == 0 and engine.decode_steps == steps  # its stop tests are device work
+    # run_loop over the prefill state, at one temperature: one host read,
+    # the per-step twin's results.
+    t_ = max(temps)
+    engine.host_syncs = 0
+    got = engine.run_loop(state, t_, 1234)
+    assert engine.host_syncs == 1
+    eager = engine.run_loop_eager(state, t_, 1234)
+    assert _results(got) == _results(eager)
 
 
-def test_chunked_loop_runs_past_finish_to_the_cap():
-    """Confident texty weights decode to the mtp - 1 guard: the chunked
-    loop runs every planned step, crossing both bucket boundaries, and
-    still equals the per-step loop."""
+def test_device_loop_runs_to_the_cap():
+    """Confident texty weights decode to the mtp - 1 guard: run_loop runs
+    every step, crossing both bucket boundaries, with one host read, and
+    equals the per-step loop; the JAX package's loop gives the same
+    tokens."""
     cfg = texty_config(decode_buckets=(8, 20))
     jp = confident_params(cfg)
     engine = DecodeEngine(port_params(jp), port_cfg(cfg), port_st(TEST_ST), language_token_ids=TEST_LANG_IDS)
-    engine._loop_chunk = 7
-    args, fin = _loop_inputs(engine, 2, [0.0, 0.0])
-    clone = lambda a: [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
-    want = engine._token_loop_eager(*clone(args), fin_init=fin.clone(), greedy_only=True)
-    got = engine._token_loop(*clone(args), fin_init=fin.clone(), greedy_only=True)
-    for w, g in zip(want, got):  # bit-equal; a deadlocked row's sum is NaN in both
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    _, _, state = _loop_inputs(engine, 2, [0.0, 0.0])
+    engine.host_syncs = engine.decode_steps = 0
+    got = engine.run_loop(state, 0.0, 0)
     mtp = cfg.max_target_positions
-    assert int(got[1].max()) == mtp  # a row reached the cap
+    assert engine.host_syncs == 1 and engine.decode_steps == mtp - 4
+    eager = engine.run_loop_eager(state, 0.0, 0)
+    assert _results(got) == _results(eager)
+    assert max(len(d.tokens) for d in got) >= mtp - 2  # a row reached the cap (less the timestamp cleanup)
+    jstate = JaxEngine(jp, cfg, TEST_ST, language_token_ids=TEST_LANG_IDS)
+    feats = np.asarray(engine.encode(torch.zeros(2, cfg.num_mel_bins, 2 * cfg.max_source_positions)))
+    jres = jstate.run_loop(jstate.prefill(jnp.asarray(feats), TEST_LANG_IDS[0]), 0.0, 0)
+    pres = engine.run_loop(engine.prefill(t(feats), TEST_LANG_IDS[0]), 0.0, 0)
+    assert [d.tokens for d in pres] == [d.tokens for d in jres]
 
 
 def test_steps_after_finish_change_nothing(params):
-    engine = _engine(buckets=(8,), chunk=4)
-    args, _ = _loop_inputs(engine, 3, [0.0, 0.5, 1.0])
+    engine = _engine(buckets=(8,))
+    args, _, _ = _loop_inputs(engine, 3, [0.0, 0.5, 1.0])
     ins = args[:6]
     buf = _LoopBuffers(ins)
     buf.start(ins, 3, args[7], args[8], args[9], args[10], torch.ones(3, dtype=torch.bool))
@@ -209,21 +226,26 @@ def test_steps_after_finish_change_nothing(params):
     assert int(buf.pos) == 9 and buf.step.tolist() == [6, 6, 6]
 
 
-@pytest.mark.parametrize("chunk", [4, 16, 32])
+@pytest.mark.parametrize("n0", [2, 3, 7])
 @pytest.mark.parametrize("buckets", [(), (8, 20), (10,)])
-def test_loop_plan_follows_buckets(chunk, buckets):
-    engine = _engine(buckets=buckets, chunk=chunk)
+def test_loop_crops_follow_buckets(n0, buckets):
+    """One crop a bucket segment: each crop's loop runs from the previous
+    crop's end to its own, inside its crop, the last ending at mtp - 1 (the
+    step budget); each step's crop is the smallest that holds its row."""
+    engine = _engine(buckets=buckets)
     mtp = engine.cfg.max_target_positions
-    for n0 in (2, 3):
-        plan = engine._loop_plan(n0)
-        assert sum(k for _, k in plan) == mtp - 1 - n0
-        pos = n0
-        for S, k in plan:
-            assert 1 <= k <= chunk
-            assert pos < S and pos + k <= S  # the chunk stays in one crop
-            assert S == min([b for b in buckets if b > pos] + [mtp])
-            pos += k
-        assert len(plan) <= math.ceil((mtp - 1 - n0) / chunk) + len(buckets)
+    crops = engine._loop_crops(n0)
+    assert [S for S, _ in crops] == [*buckets, mtp]
+    pos = n0
+    for S, pos_end in crops:
+        assert pos < pos_end <= S
+        for p in range(pos, pos_end):  # every step of the crop
+            assert S == min([b for b in buckets if b > p] + [mtp])
+        pos = pos_end
+    assert pos == mtp - 1
+    assert _engine(buckets=(mtp - 1,))._loop_crops(n0) == [(mtp - 1, mtp - 1)]
+    with pytest.raises(ValueError, match="do not exceed"):
+        _engine(buckets=(n0,))._loop_crops(n0)
 
 
 @pytest.mark.parametrize("buckets", [(), (16,)], ids=["one_crop", "two_crops"])

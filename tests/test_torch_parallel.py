@@ -274,15 +274,16 @@ def test_single_device_engine_keeps_kernel_config(params):
 
 
 def test_replicas_own_their_state(params):
-    """Each replica has its own engine state: kernel params, loop buffers,
-    graph pool and side stream are per-engine attributes."""
+    """Each replica has its own engine state: kernel params, device
+    programs, graph pool and side stream are per-engine attributes; each
+    replica's run_loop makes its one host read."""
     eng = DecodeEngine(shard_params(params, _cpu_mesh(2)), PCFG, ST, language_token_ids=TEST_LANG_IDS)
     try:
         a, b = (r.engine for r in eng.replicas)
-        assert a is not b and a._graph_buffers is not b._graph_buffers
+        assert a is not b and a._programs is not b._programs
         assert len({id(r._pool) for r in eng.replicas}) == 2  # a worker thread each
         feats = random_feats(CFG, B=2, T=16, seed=3)
         eng.run_loop(eng.prefill(feats, LANG), 0.0, 0)
-        assert eng.host_syncs == a.host_syncs + b.host_syncs and a.host_syncs > 0 and b.host_syncs > 0
+        assert eng.host_syncs == a.host_syncs + b.host_syncs and a.host_syncs == b.host_syncs == 2  # prefill, loop
     finally:
         eng.close()

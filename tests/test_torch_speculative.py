@@ -7,9 +7,8 @@ The twins of tests/test_speculative.py, plus:
     ``decoder_chunk`` on the same weights and caches;
   - the spec window's tokens equal to the JAX SpeculativeEngine's and to the
     plain greedy ladder at K = 1, 4, 12 and "auto";
-  - the chunked round loop equal to its round-by-round eager twin, with one
-    host read per chunk of rounds, and rounds after every row finished
-    changing nothing;
+  - the device-tested round loop equal to its round-by-round eager twin,
+    which makes one host read per round;
   - the sampling kernel's plan at the verify chunk's row counts.
 
 Tolerances: logits 1e-5 (f32, matmul precision "highest" in JAX); the
@@ -443,33 +442,24 @@ def test_spec_bucketed_matches_unbucketed(spec_k):
 
 
 @pytest.mark.parametrize("spec_k", [1, 4])
-def test_chunked_round_loop_matches_eager_twin(spec_k):
-    """The chunked loop (one host read per chunk of rounds) gives the
-    round-by-round eager twin's tokens, lengths, logprob sums and rounds;
-    chunks of 1 and of 64 rounds (past every row's end) agree too, so rounds
-    after every row finished change nothing."""
+def test_round_loop_matches_eager_twin(spec_k):
+    """The round loop as one device-tested loop (a WHILE node on the card;
+    its stop test read uncounted on the CPU) gives the round-by-round eager
+    twin's tokens, lengths, logprob sums and rounds bit for bit; the twin
+    reads the flags on the host before each round, and once more when a
+    row is still live at the round budget's end it does not reach."""
     _, spec = _engines(1, spec_k=spec_k)
     audio = torch.from_numpy(np.concatenate([_window(500), _window(501)]))
     args = (audio, torch.tensor([LANG] * 2), torch.ones(2, dtype=torch.bool))
     outs = {}
-    for mode in ("chunked", "eager", 1, 64):
-        if mode == "eager":
-            spec._spec_loop = spec._spec_loop_eager
-        elif mode != "chunked":
-            spec._spec_chunk = mode
+    for eager in (False, True):
         h0 = spec.host_syncs
-        outs[mode] = (n(spec._spec_window(*args, detect=False, k=spec_k)[0]), spec.host_syncs - h0)
-        spec.__dict__.pop("_spec_loop", None)
-    rounds = int(outs["eager"][0][:, -1].max())
+        outs[eager] = (n(spec._spec_window(*args, detect=False, k=spec_k, eager=eager)[0]), spec.host_syncs - h0)
+    rounds = int(outs[True][0][:, -1].max())
     budget = CFG.max_target_positions - 4  # mtp - 1 - n0
-
-    def reads(chunk):  # one per chunk run, and one that finds every row finished
-        c = -(-rounds // chunk)
-        return c + (min(c * chunk, budget) < budget)
-
-    for mode, (packed, syncs) in outs.items():
-        np.testing.assert_array_equal(packed, outs["eager"][0], err_msg=str(mode))
-        assert syncs == reads({"chunked": 8, "eager": 1}.get(mode, mode)), mode
+    np.testing.assert_array_equal(outs[False][0], outs[True][0])
+    assert rounds >= 1 and outs[False][1] == 0
+    assert outs[True][1] == min(rounds + 1, budget)
 
 
 @pytest.mark.parametrize("rows", [5, 40, 104])

@@ -18,9 +18,9 @@ hold that structure:
     from each other;
   - (d) tokens equal the JAX package's on ``texty_config`` at B=1 (six
     rungs as rows) and at padded B=8 (sequential rungs);
-  - the loop plan's crops: one WHILE node a cache crop, ending where the
-    crop's chunks end, whatever the host-read chunk; the stop test's plain
-    version;
+  - the loops' crops: a window's loops are one device-tested loop (one
+    WHILE node on the card) a cache crop, each ending where its crop ends;
+    the stop test's plain version;
   - a tp=2 engine over one process's ranks (a LocalGroup) takes the same
     structure: one host read a window, results equal to its per-step
     ``transcribe_window_eager``'s.
@@ -217,25 +217,23 @@ def test_window_matches_jax(texty, B):
 # -- the structure's pieces -----------------------------------------------------
 
 
-@pytest.mark.parametrize("chunk", [1, 4, 16])
-@pytest.mark.parametrize("buckets", [(), (8, 20)])
-def test_loop_runs_cover_the_plan(chunk, buckets):
-    """A window's loops are one WHILE node a cache crop whatever the
-    host-read chunk (``_loop_chunk``), and their one-step passes replay the
-    host-read plan's steps in order."""
+@pytest.mark.parametrize("B", [1, 8], ids=["B1_rungs_as_rows", "B8_sequential"])
+@pytest.mark.parametrize("buckets", [(), (8, 20), (10,)], ids=["one_crop", "three_crops", "two_crops"])
+def test_window_loops_one_while_a_crop(B, buckets):
+    """A window's loops are one device-tested loop (a WHILE node in its
+    graph on the card) a cache crop, in crop order, each ending where its
+    crop ends: B=1 runs every rung as rows of one loop, padded B=8 one loop
+    a rung (six); the window makes one host read."""
     cfg = tiny_config(decode_buckets=buckets)
     engine = _engine(port_params(jload.init_params(cfg, seed=1)), cfg)
-    engine._loop_chunk = chunk
-    plan, crops = engine._loop_plan(3), engine._loop_crops(3)
+    crops = engine._loop_crops(3)
+    keys = []
+    _record_structure(engine, keys)
+    engine.transcribe_window(_audio(B, cfg=cfg, seed=4), [LANG] * B, 3, n_active=None if B == 1 else 5)
+    rows, loops = (6, 1) if B == 1 else (8, 6)
+    assert keys[0][2] == tuple((rows, pos_end) for _ in range(loops) for _, pos_end in crops)
     assert [S for S, _ in crops] == [*buckets, cfg.max_target_positions]
-    pos, i = 3, 0
-    for S, pos_end in crops:  # the crops replay the plan's chunks in order
-        assert pos < pos_end <= S
-        while pos < pos_end:
-            assert plan[i][0] == S
-            pos, i = pos + plan[i][1], i + 1
-        assert pos == pos_end
-    assert i == len(plan) and pos == cfg.max_target_positions - 1
+    assert engine.host_syncs == 1
 
 
 @pytest.mark.parametrize("B", [1, 6, 48])
