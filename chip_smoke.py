@@ -73,7 +73,14 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      B=8 window profiled; then a fresh engine whose WhisperModel.warmup
      windows at B=1 and B=8 have every row finished before its first step
      (the gate's outcome on silence), after which live B=1 and B=8 windows
-     capture no graph;
+     capture no graph; then engines with cross_kv_impl="a8" (int8 q and
+     softmax weights, exact int8 products) and "einsum" on the same
+     params: the a8 B=8 window one graph (its capture survives a dropped
+     engine's graphs being collected inside it), one host read and no
+     capture once warm, the warm B=8 walls of the kernel, a8 and einsum engines
+     in turns, and one layer's a8 output on the card against the same
+     function on the CPU (within 1e-5 of the max, or one weight code's
+     step where a code flipped at a rounding tie);
  10. w4_matmul kernel vs its plain version at the int4 head's pitched
      codes [1280 -> 51866] and at 1280x1280, rows 1/6/8/16/48/200, bf16 and
      f32 x, one launch per product; contiguous codes (copied pitched for the
@@ -208,7 +215,9 @@ Needs one CUDA card, nvcc and this repository's sources; it exits non-zero
      warmup, the B=8 round median, peak memory); a B=1 window at tp=4
      (the ragged int8 head, q8a8 at K 320 and N 960) and phase 8's checks
      at the tp=4 shapes; phase 5's f32 config at tp=2, greedy tokens equal
-     one engine's at B=8.  Then speculative decoding at tp=2 over the card
+     one engine's at B=8, with the plain cross-attention and with
+     cross_kv_impl="a8" over int8 cross-K/V (q's row scale the max over
+     both ranks' columns).  Then speculative decoding at tp=2 over the card
      named twice on phase 14's configs, full width and depth: f32, the
      greedy speculative rung's tokens of a B=1 and a padded B=8 window
      (5 active) equal tp=1's (phase 14's rows of the same run), and a
@@ -1913,7 +1922,7 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
     # and one B=8 window of the eager loop profiled: device-only ms per
     # launch of each kernel on this path (the same kernels the graphs
     # replay, each launched from the host).
-    prof, modes, idle, one_read, gated = {}, {}, {}, {}, {}
+    prof, modes, idle, one_read, gated, a8 = {}, {}, {}, {}, {}, {}
     if cuda:
         rows_t = torch.from_numpy(rows).to(dev)
         modes = window_modes(engine, rows_t, [lang_ids[0]] * 8, 1)
@@ -1934,13 +1943,14 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
         rec.setdefault("profile", {}).update(prof)
         rec["serving_window"] = (engine, rows_t, [lang_ids[0]] * 8)  # phase 18's window
         gated = gated_warmup_check(params, cfg, st, lang_ids, rows, IdsTokenizer())
+        a8 = a8_window_check(engine, params, cfg, st, lang_ids, rows, dev)
     b8 = [r["ms"] for r in rep["rounds"] if r["B"] == 8]
     b8_ms = dict(n=len(b8), median=float(np.median(b8)), min=min(b8), max=max(b8)) if b8 else None
     graphs = window_graph_stats(engine) if cuda else []
     rec["serving"].update(int4_ms=int4_ms, int4_steps=int4_steps, int4_launches=int4_launches,
                           step_b1=step_b1, step_b8=step_b8, encode_b8_ms=enc_ms, round_b8_ms=b8_ms,
                           direct_b8_ms=direct_ms, modes_b8=modes, idle_b8=idle, one_read=one_read, gated=gated,
-                          graphs=graphs)
+                          graphs=graphs, a8=a8)
     chars = [len("".join(rep["texts"][i])) for i in range(n_streams)]
     b8_txt = (f"B=8 rounds n={b8_ms['n']} median {b8_ms['median']:.1f} ms (min {b8_ms['min']:.1f}, "
               f"max {b8_ms['max']:.1f}); direct B=8 windows {[round(x, 1) for x in direct_ms]} ms"
@@ -1971,6 +1981,153 @@ def phase_serving(rec, dev, cfg=None, params=None, st=None, lang_ids=None, secon
             f"{gated['warm_steps']} decode steps, {gated['warm_captures']} graphs captured; then live B=1 and B=8 "
             f"(5 active) windows: {gated['captures']} captured, {gated['steps']} steps, tokens per row "
             f"{gated['lens']}; graphs: {graph_stats_text(gated['graphs'])}")
+        log(f"  serving a8 cross-attention (cross_kv_impl='a8': int8 q and softmax weights, exact int8 products "
+            f"through f32): {a8_text(a8)}; {smi_line()}")
+
+
+# "a8" on two devices (two implementations of its softmax): every element
+# within A8_REL of the output's max, or within one code step
+# (model/whisper.py::a8_code_step) where a weight code flipped at a
+# rounding tie, in at most A8_FLIP_ROWS head rows; a bf16 output may also
+# differ by one bf16 step where the f32 values straddle a rounding boundary.
+A8_REL = 1e-5
+A8_FLIP_ROWS = 2
+
+
+def a8_gap(got, want, step, dh):
+    """(max |got - want| / max |want|, head rows past A8_REL of the max);
+    raises past the tolerance above."""
+    import torch
+
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max())
+    tol = A8_REL * scale + (2.0 ** -8 * want.abs() if bf16 else 0.0)
+    gap = (got - want).abs()
+    rows = int((gap > tol).reshape(*gap.shape[:-1], -1, dh).any(-1).sum())
+    if bool((gap > tol + 1.01 * step.float()).any()) or rows > A8_FLIP_ROWS:
+        raise AssertionError(f"a8 gap {float(gap.max())} (max |out| {scale}), {rows} head rows past {A8_REL} of "
+                             f"the max")
+    return float(gap.max()) / scale, rows
+
+
+def a8_window_check(engine, params, cfg, st, lang_ids, rows, dev):
+    """Phase 9's "a8" part: an engine with ``cross_kv_impl="a8"`` (int8 q and
+    softmax weights, exact int8 products) and one with "einsum" on the same
+    params beside ``engine`` (the cross kernel): each new engine's first B=8
+    window captures its graph, then a warm B=8 window (5 active) dispatched
+    under set_sync_debug_mode("error") must be one host read and capture
+    nothing, though the cyclic collector frees a dropped engine's graphs
+    inside that first capture; the three engines' warm B=8 walls in turns
+    kernel, a8, einsum, einsum, a8, kernel; and one layer's "a8" output on the device against
+    the same function on the CPU, on that window's int8 cross-K/V, f32 and
+    bf16 q."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import norma_tpu_torch.decode.engine as engine_mod
+    from norma_tpu_torch.decode import DecodeEngine
+    from norma_tpu_torch.model.whisper import a8_code_step, attention_cross_q8_a8, int8_products, quantize_cross_kv
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    langs = [lang_ids[0]] * len(rows)
+    rows_t = torch.from_numpy(rows).to(dev)
+    engines = {"kernel": engine}
+    warm = {}
+    # A dropped engine's graphs freed by the cyclic collector while another
+    # engine captures must not invalidate that capture (the engine collects
+    # before it captures): drop one in a cycle, then collect inside the a8
+    # engine's first capture.
+    junk = DecodeEngine(params, cfg, st, language_token_ids=lang_ids, quantize_cross_kv=True)
+    junk.transcribe_window(rows_t[:1], langs[:1], seed=1)
+    junk.cycle = junk
+    del junk
+    inner = engine_mod.capture_nodes
+
+    def collecting(stream):
+        gc.collect()
+        return inner(stream)
+
+    for impl in ("a8", "einsum"):
+        e = engines[impl] = DecodeEngine(params, cfg.with_(cross_kv_impl=impl), st, language_token_ids=lang_ids,
+                                         quantize_cross_kv=True)
+        sync()
+        t0, c0 = time.perf_counter(), e.graph_captures
+        engine_mod.capture_nodes = collecting if impl == "a8" else inner
+        try:
+            e.transcribe_window(rows_t, langs, seed=1)
+        finally:
+            engine_mod.capture_nodes = inner
+        sync()
+        warm[impl] = dict(first_ms=(time.perf_counter() - t0) * 1e3, captures=e.graph_captures - c0)
+    read = one_read_window(engines["a8"], rows, langs, 3, n_active=5)[1] if cuda else None
+    c0 = engines["a8"].graph_captures
+    walls = {k: [] for k in engines}
+    for impl in ("kernel", "a8", "einsum", "einsum", "a8", "kernel"):
+        sync()
+        t0 = time.perf_counter()
+        engines[impl].transcribe_window(rows_t, langs, seed=1)
+        sync()
+        walls[impl].append((time.perf_counter() - t0) * 1e3)
+    if engines["a8"].graph_captures != c0 or (cuda and warm["a8"]["captures"] != 1):
+        raise AssertionError(f"a8 engine: {warm['a8']['captures']} captures in its first B=8 window, "
+                             f"{engines['a8'].graph_captures - c0} in warm ones")
+    # One layer, device against host, on the window's own cross-K/V.
+    e = engines["a8"]
+    with torch.no_grad():
+        _, xk, xv, _, _, _ = e._window_front(rows_t, torch.full((len(rows),), lang_ids[0], device=dev), detect=False)
+        kq, vq = quantize_cross_kv(xk, xv)
+    kq0, vq0 = {k: v[0] for k, v in kq.items()}, {k: v[0] for k, v in vq.items()}
+    H, D = cfg.decoder_attention_heads, cfg.d_model
+    gen = torch.Generator().manual_seed(9)
+    gaps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(len(rows), 1, D, generator=gen).to(dtype)
+        got = attention_cross_q8_a8(q.to(dev), kq0, vq0, H)
+        want = attention_cross_q8_a8(q, {k: v.cpu() for k, v in kq0.items()}, {k: v.cpu() for k, v in vq0.items()}, H)
+        if got.dtype != dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"a8 layer on the device: {got.dtype}, finite {bool(torch.isfinite(got).all())}")
+        gaps[str(dtype).split(".")[-1]] = a8_gap(got, want, a8_code_step(q, kq0, vq0, H), D // H)
+    # The PV product exact on the device at the path's shape, TF32 on and
+    # off: codes at 127 in a row make its sums over Ta keys reach Ta * 127**2
+    # (24.2M at Ta 1500, past 2**24).
+    Ta, dh = kq0["q"].shape[1], D // H
+    w = torch.randint(0, 128, (len(rows), H, 1, Ta), generator=gen, dtype=torch.int8)
+    v = torch.randint(-127, 128, (1, H, Ta, dh), generator=gen, dtype=torch.int8)
+    w[0], v[..., 0] = 127, 127
+    want = torch.matmul(w.long(), v.long())
+    exact = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            exact[f"tf32={tf32}"] = torch.equal(int8_products(w.to(dev), v.to(dev)).long().cpu(), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if not all(exact.values()) or int(want.max()) != Ta * 127**2:
+        raise AssertionError(f"int8_products on the device: exact {exact}, largest sum {int(want.max())}")
+    out = dict(warm=warm, one_read=read, walls_ms=walls, median_ms={k: float(np.median(v)) for k, v in walls.items()},
+               layer_gap=gaps, Ta=Ta, exact=exact, max_sum=int(want.max()),
+               graphs=window_graph_stats(engines["a8"]) if cuda else None)
+    del engines, e
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def a8_text(a8) -> str:
+    walls = "; ".join(f"{k} {[round(x, 1) for x in v]} ms (median {a8['median_ms'][k]:.1f})"
+                      for k, v in a8["walls_ms"].items())
+    gaps = ", ".join(f"{k} {g[0]:.3g} of the max ({g[1]} head rows past {A8_REL})" for k, g in a8["layer_gap"].items())
+    read = one_read_text(a8["one_read"]) if a8["one_read"] else "not run"
+    first = ", ".join(f"{k} {v['first_ms']:.1f} ms" for k, v in a8["warm"].items())
+    return (f"first B=8 windows (capture) {first}; warm a8 B=8 window (5 active): {read}; warm B=8 walls in turns "
+            f"kernel, a8, einsum, einsum, a8, kernel: {walls}; one layer device vs CPU (B=8, Ta {a8['Ta']}): "
+            f"{gaps}; PV products exact {a8['exact']} (largest sum {a8['max_sum']}, 2**24 = {2**24}); a8 graphs: "
+            f"{graph_stats_text(a8['graphs']) if a8['graphs'] else 'not run'}")
 
 
 def gated_warmup_check(params, cfg, st, lang_ids, rows, tokenizer):
@@ -4346,25 +4503,36 @@ def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, 
     t30 = np.arange(30 * sr) / sr
     a5 = (0.15 * np.sin(2 * np.pi * 440 * t30) + 0.05 * rng.standard_normal(30 * sr)).astype(np.float32)
     batch = np.stack([prepare_audio(a5 * (1.0 + 0.1 * i), 2 * cfg5.max_source_positions) for i in range(8)])
-    one5 = DecodeEngine(params5, cfg5, st, language_token_ids=lang_ids)
-    want5 = one5.run_loop(one5.prefill_window(batch, lang_ids[0]), 0.0, 0)
-    del one5
-    tp5 = DecodeEngine(shard_params(params5, mesh2), cfg5, st, language_token_ids=lang_ids)
-    try:
-        got5 = tp5.run_loop(tp5.prefill_window(batch, lang_ids[0]), 0.0, 0)
-    finally:
-        tp5.close()
-    differ = [k for k, (w, g) in enumerate(zip(want5, got5)) if w.tokens != g.tokens]
-    if differ:
-        k = differ[0]
-        w_, g_ = want5[k].tokens, got5[k].tokens
-        i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
-        raise AssertionError(f"f32 tp=2 greedy rows {differ} differ from the one-device engine's at B=8; row {k} "
-                             f"first at position {i}: {w_[i:i + 3]} vs {g_[i:i + 3]}")
-    out["f32"] = dict(tokens=[len(w.tokens) for w in want5])
+    def f32_rows(cfg_, **kw):
+        """Greedy rows of the B=8 batch on one device and at tp=2 (equal)."""
+        one5 = DecodeEngine(params5, cfg_, st, language_token_ids=lang_ids, **kw)
+        want5 = one5.run_loop(one5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+        del one5
+        tp5 = DecodeEngine(shard_params(params5, mesh2), cfg_, st, language_token_ids=lang_ids, **kw)
+        try:
+            got5 = tp5.run_loop(tp5.prefill_window(batch, lang_ids[0]), 0.0, 0)
+        finally:
+            tp5.close()
+        differ = [k for k, (w, g) in enumerate(zip(want5, got5)) if w.tokens != g.tokens]
+        if differ:
+            k = differ[0]
+            w_, g_ = want5[k].tokens, got5[k].tokens
+            i = next((j for j, (x, y) in enumerate(zip(w_, g_)) if x != y), min(len(w_), len(g_)))
+            raise AssertionError(f"f32 tp=2 greedy rows {differ} differ from the one-device engine's at B=8 "
+                                 f"({cfg_.cross_kv_impl}, {kw}); row {k} first at position {i}: {w_[i:i + 3]} vs "
+                                 f"{g_[i:i + 3]}")
+        return [len(w.tokens) for w in want5]
+
+    out["f32"] = dict(tokens=f32_rows(cfg5))
     log(f"  tp f32 (phase 5's config): tp=2 greedy tokens equal the one-device engine's at B=8 "
         f"({out['f32']['tokens']} tokens)")
-    del tp5, params5, f32
+    # "a8" over int8 cross-K/V: q's row scale is the max over both ranks'
+    # columns (one more collective a layer), so the rows are tp=1's.
+    t0 = time.perf_counter()
+    out["f32_a8"] = dict(tokens=f32_rows(cfg5.with_(cross_kv_impl="a8"), quantize_cross_kv=True))
+    log(f"  tp f32 a8 (phase 5's config, cross_kv_impl='a8', int8 cross-K/V): tp=2 greedy tokens equal the "
+        f"one-device engine's at B=8 ({out['f32_a8']['tokens']} tokens; {time.perf_counter() - t0:.1f} s)")
+    del params5, f32
     gc.collect()
 
     del one, params
@@ -4375,8 +4543,8 @@ def phase_tp(rec, dev, cfg=None, params=None, st=None, lang_ids=None, f32=None, 
     # ---- 4. speculative decoding at tp=2 on one device ----
     out["speculative"] = tp_speculative(rec, dev, **(spec or {}))
     rec["tp"] = out
-    log(f"phase 20 tp: ok; serving params {make_s:.1f} s to make; tp=2 and tp=4 on one device, f32 tokens equal, "
-        f"speculative tp=2 f32 tokens equal; {smi_line() if cuda else 'cpu'}")
+    log(f"phase 20 tp: ok; serving params {make_s:.1f} s to make; tp=2 and tp=4 on one device, f32 tokens equal "
+        f"(einsum and a8 cross-attention), speculative tp=2 f32 tokens equal; {smi_line() if cuda else 'cpu'}")
 
 
 # bf16 tolerance of the tp=2 verify chunk's f32 logits against one

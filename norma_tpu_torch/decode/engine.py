@@ -78,6 +78,7 @@ package.
 
 from __future__ import annotations
 
+import gc
 import logging
 import threading
 import time
@@ -665,13 +666,25 @@ class DecodeEngine:
         # The wrappers' launches while captured are tallied, not counted;
         # each replay counts them.
         with _CAPTURE_LOCK, torch.cuda.stream(side), _build.recording_launches() as tally:
+            # A graph destroyed while this one is captured invalidates the
+            # capture (its destruction is a call a capturing stream does not
+            # permit), and a dropped engine's graphs are freed by the cyclic
+            # collector whenever it runs: collect first (as torch.cuda.graph
+            # does) and keep the collector off until the capture ends.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             t0 = time.perf_counter()
-            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
             try:
-                out = fn()
+                graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    t1 = time.perf_counter()
+                    graph.capture_end()  # instantiates the graph
             finally:
-                t1 = time.perf_counter()
-                graph.capture_end()  # instantiates the graph
+                if collecting:
+                    gc.enable()
         cur.wait_stream(side)
         self.graph_captures += 1
         return graph, tally, out, dict(record_s=t1 - t0, instantiate_s=time.perf_counter() - t1)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import HOP_LENGTH, N_FFT, N_FRAMES, N_SAMPLES
+from ..utils import default_device
 from .filters import mel_filterbank
 
 
@@ -97,3 +98,30 @@ def log_mel_spectrogram(
     log_max = log_spec.amax(dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, log_max - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+def pcm_to_mel(audio: np.ndarray, n_mels: int = 80, device=None) -> torch.Tensor:
+    """Host-convenience wrapper: raw PCM window -> [1, n_mels, N_FRAMES] on
+    ``device`` (None: the card where there is one, else the CPU)."""
+    pcm = torch.from_numpy(prepare_audio(audio)).to(default_device(device))
+    return log_mel_spectrogram(pcm, n_mels=n_mels)
+
+
+def log_mel_reference(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
+    """Slow float64 numpy reference of the frontend, frame by frame (the
+    check on :func:`log_mel_spectrogram` and the log-mel kernel)."""
+    audio = prepare_audio(audio)
+    window = hann_window().astype(np.float64)
+    filters = mel_filterbank(n_mels).astype(np.float64)
+    frames = np.stack(
+        [
+            audio[i * HOP_LENGTH : i * HOP_LENGTH + N_FFT].astype(np.float64) * window
+            for i in range(N_FRAMES)
+        ]
+    )
+    spec = np.fft.rfft(frames, axis=-1)
+    power = spec.real**2 + spec.imag**2
+    mel = filters @ power.T  # [n_mels, n_frames]
+    log_spec = np.log10(np.maximum(mel, 1e-10))
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return ((log_spec + 4.0) / 4.0).astype(np.float32)

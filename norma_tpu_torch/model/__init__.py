@@ -4,6 +4,7 @@ from .load import (
     fuse_qkv,
     init_params,
     load_safetensors,
+    param_count,
     params_from_hf_tensors,
     params_from_numpy,
     params_to_numpy,
@@ -26,6 +27,7 @@ __all__ = [
     "fuse_qkv",
     "init_params",
     "load_safetensors",
+    "param_count",
     "params_from_hf_tensors",
     "params_from_numpy",
     "params_to_numpy",

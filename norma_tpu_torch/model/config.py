@@ -15,8 +15,12 @@ package reads:
     card), with no dequantized weight;
   - ``cross_kv_impl`` (with an engine's ``quantize_cross_kv``): "kernel"
     lays the codes out for the cross-decode kernel
-    (``ops/paged_cross.py``); "einsum", "chunked" and "a8" run the plain
-    ``attention_cross_q8`` (the last two are TPU forms recorded as losses);
+    (``ops/paged_cross.py``); "einsum" and "chunked" run the plain
+    ``attention_cross_q8`` ("chunked" is the TPU's key-chunked form of
+    the same function: only the softmax sum's order differs); "a8" runs
+    ``attention_cross_q8_a8``, another function: q and the softmax
+    weights quantized to int8 per row, exact int8 x int8 -> int32
+    products;
   - ``self_kv_impl``: "xla" = plain write-row + attention, "kernel" = the
     self-decode kernel (``ops/self_decode.py``);
   - ``decode_buckets``.

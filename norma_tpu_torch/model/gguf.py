@@ -149,9 +149,10 @@ def read_gguf(path: str) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
     return meta, tensors
 
 
-def load_gguf_q8(path: str, cfg, dtype, device="cpu"):
+def load_gguf_q8(path: str, cfg, dtype, device=None):
     """GGUF checkpoint -> :class:`~norma_tpu_torch.model.load.Params` on
-    ``device`` (dequantized to ``dtype``)."""
+    ``device`` (dequantized to ``dtype``; None: the card where there is
+    one, else the CPU)."""
     from .load import params_from_hf_tensors
 
     _, tensors = read_gguf(path)

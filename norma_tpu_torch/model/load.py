@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import default_device
 from .config import WhisperConfig
 
 NumpyTree = Dict[str, Any]
@@ -100,11 +101,13 @@ def _tensor(v: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(
     tree: NumpyTree,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
     dtype: Optional[torch.dtype] = torch.float32,
 ) -> Params:
     """Nested numpy arrays (e.g. the JAX package's params after
-    ``jax.tree.map(np.asarray, params)``) -> :class:`Params` on ``device``.
+    ``jax.tree.map(np.asarray, params)``) -> :class:`Params` on ``device``
+    (None: the card where there is one, else the CPU;
+    :func:`~norma_tpu_torch.utils.default_device`).
     Floating weights are cast to ``dtype`` (None keeps each leaf's dtype);
     quantization scales keep their own dtype whatever ``dtype`` is
     (:func:`_scale_dtype`: bf16 for the int4 head, f32 otherwise), and
@@ -124,6 +127,7 @@ def params_from_numpy(
                 t = t.to(dtype)
         return t.to(device)
 
+    device = default_device(device)
     return Params(conv(("",), tree))
 
 
@@ -227,10 +231,44 @@ def init_params(
     cfg: WhisperConfig,
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> Params:
-    """Random-init params (tests/bench); see :func:`init_params_numpy`."""
+    """Random-init params (tests/bench) on ``device`` (None: the card where
+    there is one); see :func:`init_params_numpy`."""
     return params_from_numpy(init_params_numpy(cfg, seed), device, dtype)
+
+
+def _numels(trees) -> Dict[Tuple[str, ...], list]:
+    """Each leaf path of the same-keyed ``trees`` -> its element count in
+    each tree."""
+    out: Dict[Tuple[str, ...], list] = {}
+
+    def walk(path, nodes):
+        if hasattr(nodes[0], "items"):
+            for k, _ in nodes[0].items():
+                walk(path + (k,), [n[k] for n in nodes])
+        else:
+            out[path] = [int(np.prod(n.shape)) for n in nodes]
+
+    walk((), list(trees))
+    return out
+
+
+def param_count(params) -> int:
+    """The number of parameters in ``params`` (a :class:`Params` or a nested
+    dict of tensors or arrays).  Sharded params (``parallel.ShardedParams``,
+    a tp engine's ``TPParams``) count as the whole tree, as a sharded JAX
+    array counts its global shape: a leaf split over tp counts every rank's
+    slice, a replicated leaf once."""
+    from ..parallel.collectives import TPParams
+    from ..parallel.sharding import ShardedParams, _leaf_spec
+
+    if not isinstance(params, (ShardedParams, TPParams)):
+        return sum(n for n, in _numels([params]).values())
+    shards = params.ranks(0) if isinstance(params, ShardedParams) else params.shards
+    if isinstance(params, TPParams) and len(shards) != params.group.size:
+        raise ValueError(f"{len(shards)} of the group's {params.group.size} ranks are in this process")
+    return sum(sum(ns) if "tp" in _leaf_spec(path) else ns[0] for path, ns in _numels(shards).items())
 
 
 def fuse_qkv(params: Params) -> Params:
@@ -411,8 +449,10 @@ def params_from_hf_tensors(
     t: Dict[str, np.ndarray],
     cfg: WhisperConfig,
     dtype: torch.dtype = torch.float32,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> Params:
+    """HF-named tensors -> :class:`Params` on ``device`` (None: the card
+    where there is one)."""
     return params_from_numpy(params_numpy_from_hf_tensors(t, cfg), device, dtype)
 
 
@@ -420,6 +460,8 @@ def load_safetensors(
     path: str,
     cfg: WhisperConfig,
     dtype: torch.dtype = torch.float32,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> Params:
+    """A HF safetensors checkpoint -> :class:`Params` on ``device`` (None:
+    the card where there is one)."""
     return params_from_hf_tensors(read_safetensors(path), cfg, dtype, device)

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import default_device
 from .load import Params, _tensor, read_safetensors
 
 FORMAT_KEY = "norma_tpu_format"
@@ -152,8 +153,9 @@ def peek_format(path: str) -> Optional[Dict[str, str]]:
     return meta if meta.get(FORMAT_KEY) else None
 
 
-def load_params_file(path: str, device: "torch.device | str" = "cpu") -> Tuple[Params, Dict[str, str]]:
-    """Load a params-v1 file -> (:class:`Params` on ``device``, metadata).
+def load_params_file(path: str, device: "torch.device | str | None" = None) -> Tuple[Params, Dict[str, str]]:
+    """Load a params-v1 file -> (:class:`Params` on ``device``, metadata);
+    None: the card where there is one, else the CPU.
     Every leaf keeps the dtype it was stored in (BF16 included)."""
     _, header = _read_header(path)
     meta = header.get("__metadata__") or {}
@@ -161,6 +163,7 @@ def load_params_file(path: str, device: "torch.device | str" = "cpu") -> Tuple[P
         raise ValueError(f"{path}: not a norma-tpu params file (missing {FORMAT_KEY!r} metadata)")
     if meta[FORMAT_KEY] != FORMAT_V1:
         raise ValueError(f"{path}: unsupported {FORMAT_KEY}={meta[FORMAT_KEY]!r}")
+    device = default_device(device)
     flat = {}
     for name, arr in read_safetensors(path).items():
         t = _tensor(arr)

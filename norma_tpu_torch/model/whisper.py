@@ -26,7 +26,8 @@ and, under ``encoder_q8_mode="w8a16"``, in the encoder; "w8a8" /
 The token loop's cross-attention runs over int8 / int4 codes when the
 engine quantizes the cross-K/V: the stacked kernel layout
 (``ops/paged_cross.py``) or the plain per-channel dict
-(:func:`attention_cross_q8`); its self-attention over an int8 cache with
+(:func:`attention_cross_q8`; under ``cross_kv_impl="a8"``
+:func:`attention_cross_q8_a8`, int8 q and softmax weights); its self-attention over an int8 cache with
 per-row scales (:func:`attention_self_q8`) when the engine quantizes the
 self-K/V.
 
@@ -41,7 +42,7 @@ the row-parallel partial products of ``o_w``, ``xo_w`` and ``fc2_w`` and of
 the D-sharded tied head, before the bias and the one rounding, as
 ``jnp.dot(..., preferred_element_type=f32)`` under GSPMD reduces them;
 "max" of the row amax where a row is split (the w8a8 activations of
-``o_w`` and ``fc2_w``, the int8 self-KV rows); "gather" of the D-sharded
+``o_w`` and ``fc2_w``, the int8 self-KV rows, q's rows under "a8"); "gather" of the D-sharded
 token embedding and of the int8 head's vocabulary shards.
 ``parallel/collectives.py::lockstep`` drives every rank of a process
 through them; the public functions here run one unsharded rank
@@ -499,6 +500,93 @@ def attention_cross_q8(
     return out.to(q.dtype).reshape(gb, tq, d)
 
 
+# Exact integer products of int8 codes through f32: a code in [-127, 127]
+# is exact in f32 (and in TF32, should cuBLAS use it), each product is an
+# integer below 2**14, and a sum of at most this many products stays below
+# 2**24 (1040 * 127**2 = 16,774,160), so every partial sum of the f32
+# accumulation is exact in any order.  Longer contractions add such chunks
+# in int32, as the JAX package's ``preferred_element_type=int32`` sums.
+EXACT_F32_TERMS = 1040
+
+
+def int8_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., M, K] @ b [..., K, N]`` over integer codes in [-127, 127]
+    (any dtype), exact, as int32: f32 products of K-chunks of at most
+    :data:`EXACT_F32_TERMS`, added in int32."""
+    K = a.shape[-1]
+    out = None
+    for k0 in range(0, K, EXACT_F32_TERMS):
+        part = torch.matmul(a[..., k0:k0 + EXACT_F32_TERMS].float(),
+                            b[..., k0:k0 + EXACT_F32_TERMS, :].float()).to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
+def _codes(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / s), -127, 127), kept in f32 (the values of int8 codes;
+    ``torch.round`` rounds half to even, as ``jnp.round`` does)."""
+    return torch.clamp(torch.round(x / s), -127, 127)
+
+
+def attention_cross_q8_a8(
+    q: torch.Tensor, kq: XKV, vq: XKV, n_heads: int, n_groups: int = 1
+) -> torch.Tensor:
+    """Fully-int8 cross-attention (``cross_kv_impl="a8"``): int8 x int8 ->
+    int32 QK and PV products over the per-channel K/V codes.
+
+    q (times the K scale and dh**-0.5, in f32) is quantized per row over
+    all of D with sq = max(amax, 1e-8) / 127; the f32 softmax weights per
+    (head, query row) with sw = max(max_k w, 1e-8) / 127.  The products are
+    exact (:func:`int8_products`: QK sums at most dh * 127**2, PV sums split
+    into key chunks of at most 1040), then scaled by sq, and by sw and the
+    V scale.  Shapes as :func:`attention_cross_q8`."""
+    return _solo(_attention_cross_q8_a8(q, kq, vq, n_heads, n_groups))
+
+
+def _attention_cross_q8_a8(q, kq: XKV, vq: XKV, n_heads: int, n_groups: int = 1, tp=None):
+    """:func:`attention_cross_q8_a8` on a rank's heads: the row scale sq is
+    taken over the whole row, the max over the ranks' columns."""
+    gb, tq, d = q.shape
+    b = kq["q"].shape[0]
+    g = n_groups
+    dh = d // n_heads
+    qf = q.float().reshape(g, b, tq, d) * kq["s"][None, :, None, :] * float(dh) ** -0.5
+    amax = yield from _meet(tp, "max", qf.abs().amax(dim=-1, keepdim=True))
+    sq = torch.clamp(amax, min=1e-8) / 127.0  # [G, B, Tq, 1]
+    qi = _codes(qf, sq).reshape(g, b, tq, n_heads, dh).permute(0, 1, 3, 2, 4)  # [G, B, H, Tq, dh]
+    ki = _split_heads(kq["q"], n_heads)[None]  # [1, B, H, Tk, dh]
+    vi = _split_heads(vq["q"], n_heads)[None]
+    logits = int8_products(qi, ki.transpose(-1, -2)).float() * sq.transpose(2, 3)[:, :, :, :, None]
+    w = torch.softmax(logits, dim=-1)  # f32 [G, B, H, Tq, Tk]
+    sw = torch.clamp(w.amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    out = int8_products(_codes(w, sw), vi).float() * sw  # [G, B, H, Tq, dh]
+    out = out.permute(0, 1, 3, 2, 4).reshape(g, b, tq, d) * vq["s"][None, :, None, :]
+    return out.to(q.dtype).reshape(gb, tq, d)
+
+
+def a8_code_step(q: torch.Tensor, kq: XKV, vq: XKV, n_heads: int, n_groups: int = 1) -> torch.Tensor:
+    """What one softmax weight code moves :func:`attention_cross_q8_a8`'s
+    output by, per element [G*B, Tq, D], on the host in f64: sw * max_k
+    |v codes| * vq.s.  Two implementations whose softmaxes differ in the
+    last bits (two devices, two libraries) may round a weight that lies at
+    a half to neighbouring codes; their outputs then differ by up to this
+    where that happened, and agree to rounding elsewhere."""
+    q = q.detach().cpu().double()
+    kq = {k: v.detach().cpu().double() for k, v in kq.items()}
+    vq = {k: v.detach().cpu().double() for k, v in vq.items()}
+    gb, tq, d = q.shape
+    b, ta = kq["q"].shape[:2]
+    g, dh = n_groups, d // n_heads
+    qf = q.reshape(g, b, tq, d) * kq["s"][None, :, None, :] * dh**-0.5
+    sq = torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    qi = _codes(qf, sq).reshape(g, b, tq, n_heads, dh).permute(0, 1, 3, 2, 4)
+    ki = _split_heads(kq["q"], n_heads).transpose(-1, -2)[None]  # [1, B, H, dh, Tk]
+    logits = torch.matmul(qi, ki) * sq.transpose(2, 3)[..., None]
+    sw = torch.clamp(torch.softmax(logits, dim=-1).amax(dim=-1), min=1e-8) / 127.0  # [G, B, H, Tq]
+    vmax = (vq["q"].abs().amax(dim=1) * vq["s"]).reshape(b, n_heads, dh)
+    return (sw[..., None] * vmax[None, :, :, None, :]).permute(0, 1, 3, 2, 4).reshape(gb, tq, d)
+
+
 def _cross_impl(cfg: WhisperConfig) -> str:
     if cfg.cross_kv_impl not in _CROSS_IMPLS:
         raise ValueError(
@@ -512,11 +600,20 @@ def cross_q8_attn(
 ) -> torch.Tensor:
     """Quantized cross-attention for one layer: the kernel over the kernel
     layout (``codes``/``codes4``, built by the engine under
-    ``cross_kv_impl="kernel"``), else the plain :func:`attention_cross_q8`
-    (also for "chunked" and "a8", TPU forms recorded as losses)."""
-    _cross_impl(cfg)
+    ``cross_kv_impl="kernel"``); else :func:`attention_cross_q8_a8` under
+    "a8", and the plain :func:`attention_cross_q8` under "einsum" and
+    "chunked" (the TPU's key-chunked form of the same function: only the
+    softmax sum's order differs)."""
+    return _solo(_cross_q8_attn(cfg, q, kq, vq, n_heads, n_groups))
+
+
+def _cross_q8_attn(cfg: WhisperConfig, q, kq: XKV, vq: XKV, n_heads: int, n_groups: int = 1, tp=None):
+    """:func:`cross_q8_attn` on a rank's heads ("a8" meets the ranks once)."""
+    impl = _cross_impl(cfg)
     if "codes" in kq or "codes4" in kq:
         return cross_attention_q8_kernel(q, kq, vq, n_heads, n_groups)
+    if impl == "a8":
+        return (yield from _attention_cross_q8_a8(q, kq, vq, n_heads, n_groups, tp))
     return attention_cross_q8(q, kq, vq, n_heads, n_groups)
 
 
@@ -575,11 +672,19 @@ def attention_self_q8(
     return _merge_heads(torch.matmul(w.to(q.dtype).float(), vh).to(q.dtype))
 
 
+def _ready(value):
+    """A layer generator that meets no rank and returns ``value``."""
+    return value
+    yield  # never reached: it makes this function a generator
+
+
 def _decoder_layer_cross_mlp(lp: Layer, x: torch.Tensor, cross_attn: Callable, tp=None):
-    """The cross-attention + MLP tail of one decoder layer."""
+    """The cross-attention + MLP tail of one decoder layer; ``cross_attn(xq)``
+    is a layer generator (the "a8" form meets the ranks)."""
     h = layer_norm(x, lp["xattn_ln_g"], lp["xattn_ln_b"])
     xq = ldense(lp, "xq_w", h, lp["xq_b"])
-    x = x + (yield from _row_dense(lp, "xo_w", cross_attn(xq), lp["xo_b"], tp))
+    a = yield from cross_attn(xq)
+    x = x + (yield from _row_dense(lp, "xo_w", a, lp["xo_b"], tp))
     h = layer_norm(x, lp["mlp_ln_g"], lp["mlp_ln_b"])
     return x + (yield from _mlp(lp, h, tp))
 
@@ -625,7 +730,7 @@ def _decoder_prefill(params: Params, cfg: WhisperConfig, tokens, xk, xv, tp=None
         cache_k[i, :, :P] = k
         cache_v[i, :, :P] = v
         x = yield from _decoder_layer_cross_mlp(
-            lp, x, lambda xq, i=i: attention(xq, xk[i], xv[i], n_heads), tp
+            lp, x, lambda xq, i=i: _ready(attention(xq, xk[i], xv[i], n_heads)), tp
         )
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
     return (yield from _logits_head(dec, x, tp)), cache_k, cache_v
@@ -706,13 +811,13 @@ def _decoder_step(params: Params, cfg: WhisperConfig, tok, pos, cache_k, cache_v
                 return cross_attention_q8_kernel_stacked(xq, xk, xv, li, n_heads, n_rungs)
             kq = {k: v[li] for k, v in xk.items()}
             vq = {k: v[li] for k, v in xv.items()}
-            return cross_q8_attn(cfg, xq, kq, vq, n_heads, n_rungs)
+            return (yield from _cross_q8_attn(cfg, xq, kq, vq, n_heads, n_rungs, tp))
     else:
 
         def cross_attn(xq, li):
             if n_rungs == 1:
-                return attention(xq, xk[li], xv[li], n_heads)
-            return attention_grouped(xq, xk[li], xv[li], n_heads, n_rungs)
+                return _ready(attention(xq, xk[li], xv[li], n_heads))
+            return _ready(attention_grouped(xq, xk[li], xv[li], n_heads, n_rungs))
 
     layers = dec["layers"]
     for li in range(cfg.decoder_layers):
@@ -808,11 +913,11 @@ def _decoder_chunk(params: Params, cfg: WhisperConfig, toks, pos, cache_k, cache
         def cross_attn(xq, li):
             kq = {k: v[li] for k, v in xk.items()}
             vq = {k: v[li] for k, v in xv.items()}
-            return cross_q8_attn(cfg, xq, kq, vq, n_heads)
+            return (yield from _cross_q8_attn(cfg, xq, kq, vq, n_heads, 1, tp))
     else:
 
         def cross_attn(xq, li):
-            return attention(xq, xk[li], xv[li], n_heads)
+            return _ready(attention(xq, xk[li], xv[li], n_heads))
 
     layers = dec["layers"]
     for li in range(cfg.decoder_layers):

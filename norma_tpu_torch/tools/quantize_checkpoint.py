@@ -93,7 +93,7 @@ def main(argv=None) -> str:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     st_path = os.path.join(args.in_dir, "model.safetensors")
     if os.path.exists(st_path):
-        params = load_safetensors(st_path, cfg, dtype)
+        params = load_safetensors(st_path, cfg, dtype, "cpu")
     else:
         # A GGUF q8_0 file (the reference's quantized distribution) converts too.
         ggufs = sorted(glob.glob(os.path.join(args.in_dir, "*.gguf")))
@@ -101,7 +101,7 @@ def main(argv=None) -> str:
             raise SystemExit(f"{args.in_dir}: no model.safetensors or *.gguf found")
         from ..model.gguf import load_gguf_q8
 
-        params = load_gguf_q8(ggufs[0], cfg, dtype)
+        params = load_gguf_q8(ggufs[0], cfg, dtype, "cpu")
     params, tiers = quantize(fuse_qkv(params), args.decoder, args.encoder, args.logits)
 
     os.makedirs(args.out_dir, exist_ok=True)

@@ -83,7 +83,7 @@ def build_model(cpu: bool):
 
     if cpu:
         cfg = WhisperConfig(**TINY_CFG)
-        params = init_params(cfg, seed=3)
+        params = init_params(cfg, seed=3, device="cpu")
         params["decoder"]["ln_g"].mul_(8.0)  # a peaked softmax: rung 0 passes the gate
         engine = DecodeEngine(params, cfg, SpecialTokens(**TINY_ST), language_token_ids=TINY_LANG_IDS)
         return WhisperModel(engine, _TinyTokenizer(), LanguageState(const=TINY_LANG_IDS[0]))

@@ -27,6 +27,15 @@ def _leaves(tree) -> Iterator[object]:
         yield tree
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None names the card where there is
+    one, else the CPU -- the port's entry points run on the card unless
+    asked for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def params_platform(params) -> str:
     """The device type a computation over ``params`` runs on: that of the
     first tensor leaf (``"cuda"``, ``"cpu"``; a sharded tree's first
@@ -37,7 +46,7 @@ def params_platform(params) -> str:
         device = getattr(leaf, "device", None)
         if isinstance(device, torch.device):
             return device.type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    return default_device().type
 
 
 def params_device_count(params) -> int:

@@ -162,7 +162,9 @@ def test_decoder_step_over_kernel_layout_matches_jax(model_params, n_rungs, int4
 @pytest.mark.parametrize("impl", ["einsum", "chunked", "a8"])
 def test_plain_impls_run_attention_cross_q8(model_params, impl):
     """The per-channel dict (any non-kernel cross_kv_impl) runs the plain
-    attention_cross_q8 -- equal to JAX's "einsum" form."""
+    forms: "einsum" and "chunked" attention_cross_q8, equal to JAX's
+    "einsum" form (chunked is the same function, its softmax sum taken in
+    another order); "a8" attention_cross_q8_a8, equal to JAX under "a8"."""
     jp, pp = model_params
     rng = np.random.default_rng(21)
     toks = rng.integers(0, CFG.vocab_size, (2, 3)).astype(np.int32)
@@ -174,7 +176,8 @@ def test_plain_impls_run_attention_cross_q8(model_params, impl):
     jk, jv = jw.quantize_cross_kv(jxk, jxv)
     pk, pv = pw.quantize_cross_kv(pxk, pxv)
     tok = np.asarray([5, 6], np.int32)
-    jl, _, _ = jw.decoder_step(jp, CFG, jnp.asarray(tok), jnp.int32(3), jck, jcv, jk, jv)
+    jcfg = CFG.with_(cross_kv_impl="a8") if impl == "a8" else CFG
+    jl, _, _ = jw.decoder_step(jp, jcfg, jnp.asarray(tok), jnp.int32(3), jck, jcv, jk, jv)
     pl, _, _ = pw.decoder_step(pp, PCFG.with_(cross_kv_impl=impl), t(tok), 3, pck, pcv, pk, pv)
     np.testing.assert_allclose(n(pl), np.asarray(jl), rtol=5e-4, atol=5e-4)
     with pytest.raises(ValueError, match="cross_kv_impl"):

@@ -337,18 +337,23 @@ def test_spec_quantize_cross_kv_matches_plain():
 
 
 def test_spec_cross_kv_impls_match_einsum():
-    """"chunked" and "a8" run the plain int8 cross-attention on the port:
-    the same results as "einsum"."""
+    """"chunked" runs the plain int8 cross-attention on the port (the same
+    function, the softmax sum in another order): the same results as
+    "einsum".  "a8" is another function (int8 q and softmax weights); its
+    speculative window equals its own reference, the plain engine's window
+    under "a8"."""
     params, dparams = init_params(CFG, seed=4), init_params(DCFG, seed=104)
     audio = _window(96)
     outs = {}
     for impl in ("einsum", "chunked", "a8"):
-        spec = SpeculativeEngine(params, CFG.with_(cross_kv_impl=impl, cross_kv_chunk=5), dparams,
-                                 DCFG.with_(cross_kv_impl=impl, cross_kv_chunk=5), ST,
+        cfg = CFG.with_(cross_kv_impl=impl, cross_kv_chunk=5)
+        spec = SpeculativeEngine(params, cfg, dparams, DCFG.with_(cross_kv_impl=impl, cross_kv_chunk=5), ST,
                                  language_token_ids=TEST_LANG_IDS, quantize_cross_kv=True)
         outs[impl] = spec.transcribe_window(audio, [LANG], seed=0)[0][0]
     _cmp(outs["chunked"], outs["einsum"])
-    _cmp(outs["a8"], outs["einsum"])
+    plain = DecodeEngine(params, CFG.with_(cross_kv_impl="a8"), ST, language_token_ids=TEST_LANG_IDS,
+                         quantize_cross_kv=True)
+    _cmp(outs["a8"], plain.transcribe_window(audio, [LANG], seed=0)[0][0])
 
 
 def test_spec_quantized_draft():
