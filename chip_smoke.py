@@ -1624,9 +1624,9 @@ def serve_streams(model, n_streams, seconds, timeout=600.0, mesh=None):
         fed[id(self)] = fed.get(id(self), 0) + len(data)
         return orig_feed(self, data)
 
-    def try_send(self, data, length, final=None):
+    def try_send(self, data, length, final=None, stamp=None):
         before = self.dropped
-        ok = orig_send(self, data, length, final)
+        ok = orig_send(self, data, length, final, stamp)
         if self.dropped != before:
             dropped[id(self)] = dropped.get(id(self), 0) + length
         return ok

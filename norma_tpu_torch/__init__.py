@@ -33,8 +33,10 @@ to find:
                             (``make_mesh``, ``shard_params``) and data
                             parallelism: ``DecodeEngine`` on dp-sharded
                             params runs one replica per dp position
-  - ``tracing``             spans, and the device report over
-                            ``torch.profiler`` (``profile``, ``annotate``,
+  - ``tracing``             spans, window regions and the store of the
+                            program's records (``span``, ``region``,
+                            ``snapshot``), and the device report over
+                            ``torch.profiler`` (``profile``,
                             ``device_time_report``, ``profiled_device_ms``)
   - ``tools``               ``quantize_checkpoint`` (the offline
                             quantizer), WER, flip rates, the serving soak

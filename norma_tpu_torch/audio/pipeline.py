@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -56,6 +57,10 @@ class Packer:
     round per stream lifetime.  The early chunk is sent with an explicit
     ``final=False`` so its short length doesn't read as the reference's
     capacity-based EOS signal.  Steady-state cadence is unchanged.
+
+    Each chunk carries the time its last sample came in
+    (``perf_counter_ns``, :attr:`Chunk.stamp`): a full buffer is sent when
+    the next sample arrives, or at close, and keeps the time it filled.
     """
 
     def __init__(
@@ -73,6 +78,7 @@ class Packer:
             else None
         )
         self._flushed_once = False
+        self._full_ns = 0  # when the buffer last filled
 
     def append(self, data: np.ndarray) -> None:
         pos = 0
@@ -86,6 +92,8 @@ class Packer:
             self.buf[self.fill : self.fill + take] = data[pos : pos + take]
             self.fill += take
             pos += take
+            if self.fill == len(self.buf):
+                self._full_ns = time.perf_counter_ns()
             if (
                 not self._flushed_once
                 and self.first_flush_len is not None
@@ -94,7 +102,8 @@ class Packer:
                 self.flush(final=False)
 
     def flush(self, final: Optional[bool] = None) -> None:
-        self.ring.try_send(self.buf, self.fill, final=final)
+        stamp = self._full_ns if self.fill == len(self.buf) else time.perf_counter_ns()
+        self.ring.try_send(self.buf, self.fill, final=final, stamp=stamp)
         self._flushed_once = True
         self.fill = 0
 

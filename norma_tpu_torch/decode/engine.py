@@ -116,7 +116,10 @@ from ..ops.quant_matmul import head_kernel_layout
 from ..ops.sample_step import sample_step
 from ..parallel.collectives import Rank, RankList, TPParams, first, lockstep, per_rank, unzip
 from ..parallel.sharding import ShardedParams
-from ..tracing import annotate, decode_telemetry, instrument, prime_device_tracer
+from .. import tracing
+from ..tracing import Marks, clock_anchor, decode_telemetry, instrument, marking, prime_device_tracer, record, region
+from ..tracing import regions as mark_regions
+from ..tracing import span
 from .masks import SpecialTokens, build_masks
 
 logger = logging.getLogger(__name__)
@@ -163,6 +166,11 @@ def _rung_seed(seed, rung: int):
         return (seed & 0xFFFFFFFF) | (int(rung) << 32)
     return (int(seed) & 0xFFFFFFFF) | (int(rung) << 32)
 
+
+# Time marks a window writes: the start and end of its regions -- the
+# whole window, its front, each token loop (one a rung of the sequential
+# ladder) and its finish.
+_WINDOW_MARKS = 2 * (3 + len(TEMPERATURES))
 
 # One CUDA graph capture at a time in the process: instantiating a graph
 # that holds conditional (WHILE) nodes waits on the device, so two threads
@@ -270,15 +278,21 @@ class _Program:
     flight (one more is made when every set is in flight).  ``stats``: the
     graph's nodes (its own and its WHILE bodies'), and the seconds its
     capture took to record and to instantiate; ``passes``: the WHILE
-    passes of the last fetch."""
+    passes of the last fetch.  A window's program has ``marks`` more slots
+    in ``iters``, after the ``n_nodes`` counters, for its regions' device
+    time marks (``tracing.region``; ``mark_names`` in the order the
+    capture wrote them), which the copy of ``iters`` brings to the host."""
 
     def __init__(self, dev: torch.device, n_nodes: int, out_shape, host: dict, device: Optional[dict] = None,
-                 staging: int = 1):
+                 staging: int = 1, marks: int = 0):
         self.host = dict(host)
         self.ins = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (shape, dtype) in self.host.items()}
         self.ins.update({k: _like(v) for k, v in (device or {}).items()})
-        self.iters = torch.zeros(n_nodes, dtype=torch.int64, device=dev)
-        self._shapes = {**self.host, "out": (tuple(out_shape), torch.float32), "iters": ((n_nodes,), torch.int64)}
+        self.n_nodes, self.n_marks = n_nodes, marks
+        self.iters = torch.zeros(n_nodes + marks, dtype=torch.int64, device=dev)
+        self.mark_names: list = []
+        self._shapes = {**self.host, "out": (tuple(out_shape), torch.float32),
+                        "iters": ((n_nodes + marks,), torch.int64)}
         self.graph = None
         self.out = self.keep = None
         self.passes: Optional[List[int]] = None  # per WHILE node, the last fetch's
@@ -314,13 +328,24 @@ class _Program:
 class _Pending:
     """A program's replay in flight: its staging set, whose packed result
     and pass counts are on their way to it, the event after those copies,
-    and what its fetch needs besides (a window's active rows and detect
-    flag)."""
+    what its fetch needs besides (a window's active rows and detect flag),
+    and a window's record, which the fetch completes and stores."""
 
     prog: _Program
     staging: dict
     done: "torch.cuda.Event"
     meta: tuple = ()
+    record: Optional[dict] = None
+
+
+class _HostPending(tuple):
+    """A window run outside a graph (the CPU, the eager path) up to its
+    packed result: ``(packed, active, detect)``, with its record and its
+    marks (their names, and their host stamps or a pinned copy of the
+    card's)."""
+
+    record = None
+    marks = None
 
 
 # The layer generators (model/whisper.py) of the model functions a tp
@@ -449,6 +474,12 @@ class DecodeEngine:
         # most ``fetch_timeout_s`` (``parallel/workers.py``).
         self._graph_launched = getattr(self._group, "graph_launched", None)
         self.fetch_timeout_s: Optional[float] = None
+        # Window records (tracing.py): the card's clock anchor, taken at
+        # the first window; the eager window's mark slots and their pinned
+        # copy; the passes of each loop of a window run outside a graph.
+        self._clock: Optional[dict] = None
+        self._eager_marks = None
+        self._loop_passes: Optional[list] = None
 
     @staticmethod
     def _kernel_params(params: Params, cfg: WhisperConfig, device: torch.device) -> Params:
@@ -592,7 +623,7 @@ class DecodeEngine:
         """
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
         buf, generator = self._loop_start(ins, n0, prev1, prev2, temp, seed, fin_init, greedy_only)
-        with annotate("token_loop"):
+        with region("token_loop"):
             for S, pos_end in self._loop_crops(n0):
                 self._device_while(buf, pos_end, lambda S=S: self._loop_step(buf, S, n_rungs, greedy_only, generator))
         return buf.tokens, buf.n, buf.slp
@@ -617,7 +648,8 @@ class DecodeEngine:
         kernel of the body runs before it is captured; the run's result is
         dropped, and the pass stays inside the crop: a loop's passes start
         at its first row); otherwise the condition is read on the host
-        before each pass (counted on CUDA)."""
+        before each pass (counted on CUDA), and a window run outside a graph
+        keeps the loop's passes (``_loop_passes``) for its record."""
         steps = isinstance(buf, _LoopBuffers)
         prog = self._capturing
         if prog is not None:
@@ -638,14 +670,18 @@ class DecodeEngine:
             body()
             return
         cuda = buf.fin.device.type == "cuda"
+        passes = 0
         while True:
             go = loop_cond(buf.fin, buf.pos, pos_end)
             if cuda:
                 self.host_syncs += 1
             if not bool(go):
-                return
+                break
             body()
+            passes += 1
             self.decode_steps += steps
+        if self._loop_passes is not None:
+            self._loop_passes.append(passes)
 
     def _capture(self, dev: torch.device, fn):
         """Capture ``fn()`` into a new CUDA graph on the engine's side stream
@@ -749,15 +785,23 @@ class DecodeEngine:
         ins = (xk, xv, cache_k, cache_v, next_logits, tokens_init)
         buf, generator = self._loop_start(ins, n0, prev1, prev2, temp, seed, fin_init, greedy_only)
         pos = n0
-        with annotate("token_loop"):
-            for S, pos_end in self._loop_crops(n0):
+        crops = self._loop_crops(n0)
+        passes = [0] * len(crops)  # per crop, as the graph's WHILE nodes count them
+        with region("token_loop"):
+            for i, (S, pos_end) in enumerate(crops):
                 for _ in range(pos_end - pos):
                     self.host_syncs += 1
                     if not bool((~buf.fin).any()):
-                        return buf.tokens, buf.n, buf.slp
+                        break
                     self._loop_step(buf, S, n_rungs, greedy_only, generator)
                     self.decode_steps += 1
-                pos = pos_end
+                    passes[i] += 1
+                else:
+                    pos = pos_end
+                    continue
+                break
+        if self._loop_passes is not None:
+            self._loop_passes.extend(passes)
         return buf.tokens, buf.n, buf.slp
 
     def _window_front(self, audio, langs, *, detect: bool):
@@ -820,7 +864,7 @@ class DecodeEngine:
         B = audio.shape[0]
         dev = audio.device
         loop = self._token_loop_eager if eager else self._token_loop
-        with annotate("window_front"):  # mel, encoder, cross-K/V, detection, prefill
+        with region("window_front"):  # mel, encoder, cross-K/V, detection, prefill
             feats, xk, xv, prefix, langs, lang_probs = self._window_front(
                 audio, langs, detect=detect
             )
@@ -846,7 +890,7 @@ class DecodeEngine:
                 temps_row, _rung_seed(seed, 0),
                 n_rungs=R, fin_init=gated0.repeat(R),
             )
-            with annotate("ladder_finish"):
+            with region("ladder_finish"):
                 avg = slp / torch.clamp(n, min=1).to(torch.float32)
                 # A NaN avg (grammar deadlock) compares False => accepted, as
                 # the reference's f64 comparison does.
@@ -863,8 +907,15 @@ class DecodeEngine:
         btoks, bn, bavg, brung = self._sequential_rungs(
             xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, gated0, eager=eager,
         )
-        with annotate("ladder_finish"):
+        with region("ladder_finish"):
             return self._pack_ladder(btoks, bn, bavg, brung, nsp, langs, lang_probs)
+
+    def _window_program(self, audio, langs, seed, active, *, detect: bool, eager: bool = False):
+        """:meth:`_ladder_impl` as a window's program: the whole of it the
+        region "window", inside which the front, each token loop and the
+        finish are regions of their own (``tracing.region``)."""
+        with region("window"):
+            return self._ladder_impl(audio, langs, seed, active, detect=detect, eager=eager)
 
     def _sequential_rungs(
         self, xk, xv, cache_k, cache_v, next_logits, tokens_init, prefix, seed, settled0,
@@ -942,13 +993,6 @@ class DecodeEngine:
             active[n_active:] = False
         return langs_arr, detect, active
 
-    @instrument(
-        fields={
-            "B": lambda a: int(a["audio"].shape[0]),
-            "samples": lambda a: int(a["audio"].shape[1]),
-            "seed": lambda a: a["seed"],
-        }
-    )
     def transcribe_window(
         self, audio, langs, seed: int, n_active: Optional[int] = None
     ) -> Tuple[List[Optional[DecodingResult]], dict]:
@@ -962,10 +1006,13 @@ class DecodeEngine:
         — the prefix-only result when the no-speech probe fired, None when
         every temperature failed the logprob gate or the row is padding.
         info carries ``langs`` and, when detection ran, ``lang_probs``.
+        The window's record (:meth:`transcribe_window_async`) is in the
+        process's store.
         """
-        return self.transcribe_window_fetch(
-            self.transcribe_window_async(audio, langs, seed, n_active)
-        )
+        with span("DecodeEngine.transcribe_window", B=int(audio.shape[0]), samples=int(audio.shape[1]), seed=seed):
+            return self.transcribe_window_fetch(
+                self.transcribe_window_async(audio, langs, seed, n_active)
+            )
 
     # The window splits into dispatch and fetch (the batching scheduler
     # pipelines rounds on it): on CUDA the dispatch queues the window's
@@ -981,12 +1028,25 @@ class DecodeEngine:
         flight, in stream order.  A window shape's first call runs the
         window once on the side stream (one pass of each loop), captures
         its graph, then replays it.  On the CPU the window runs up to its
-        packed result.  :meth:`transcribe_window_fetch` completes it."""
-        langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
-        key = int(seed) & 0xFFFFFFFF
-        if self.device.type == "cuda":
-            return self._window_graph_async(audio, langs_arr, key, active, detect)
-        return self._window_run(audio, langs_arr, key, active, detect)
+        packed result.  :meth:`transcribe_window_fetch` completes it.
+
+        Each window has a record (``tracing.py``; the fetch completes it and
+        puts it in the process's store, and ``pending.record`` holds it):
+        ``key`` (B, detect), ``graph``, ``n_active``, ``dispatch`` (this
+        call's host start and end), ``regions`` (``[name, start, end]`` of
+        the whole window, its front, each token loop and its finish: the
+        card's time marks mapped onto ``perf_counter_ns`` within
+        ``clock_err_ns``, or host stamps on the CPU), ``passes`` (per loop
+        of decode steps) and ``fetched`` (when the fetch had the result)."""
+        with span("window_dispatch") as sp:
+            langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
+            key = int(seed) & 0xFFFFFFFF
+            if self.device.type == "cuda":
+                pending = self._window_graph_async(audio, langs_arr, key, active, detect)
+            else:
+                pending = self._window_run(audio, langs_arr, key, active, detect)
+        pending.record.update(t0=sp["t0"], dispatch=[sp["t0"], sp["t1"]])
+        return pending
 
     @torch.no_grad()
     def transcribe_window_eager(
@@ -996,29 +1056,58 @@ class DecodeEngine:
         :meth:`_token_loop_eager` (a host read of the finished flags before
         every step): the same results from the same steps, the comparison
         path on the card."""
-        langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
-        return self.transcribe_window_fetch(
-            self._window_run(audio, langs_arr, int(seed) & 0xFFFFFFFF, active, detect, eager=True)
-        )
+        with span("window_dispatch") as sp:
+            langs_arr, detect, active = self._window_inputs(audio, langs, n_active)
+            pending = self._window_run(audio, langs_arr, int(seed) & 0xFFFFFFFF, active, detect, eager=True)
+        pending.record.update(t0=sp["t0"], dispatch=[sp["t0"], sp["t1"]])
+        return self.transcribe_window_fetch(pending)
 
-    def _window_run(self, audio, langs_arr, seed: int, active, detect: bool, eager: bool = False):
+    def _window_record(self, B: int, detect: bool, active, graph: bool) -> dict:
+        """A window's record as its dispatch starts it (the fetch completes
+        it); on the card the first one takes the engine's clock anchor."""
+        if self.device.type == "cuda" and self._clock is None and tracing.ENABLED:
+            with _CAPTURE_LOCK:  # no capture in flight in the process while it waits on the card
+                self._clock = clock_anchor(self.device)
+        return dict(key=[B, bool(detect)], graph=graph, n_active=int(np.count_nonzero(active)),
+                    clock_err_ns=self._clock["err_ns"] if self._clock else 0)
+
+    def _window_run(self, audio, langs_arr, seed: int, active, detect: bool, eager: bool = False) -> _HostPending:
         """The window run up to its packed device result, outside a graph
-        (the CPU, and the eager comparison path)."""
+        (the CPU, and the eager comparison path), its regions marked (on the
+        card into the engine's eager slots, copied to pinned memory after
+        the window)."""
+        cuda = self.device.type == "cuda"
+        rec = self._window_record(int(audio.shape[0]), detect, active, graph=False)
+        if cuda and self._eager_marks is None:
+            self._eager_marks = (torch.zeros(_WINDOW_MARKS, dtype=torch.int64, device=self.device),
+                                 torch.zeros(_WINDOW_MARKS, dtype=torch.int64, pin_memory=True))
+        marks = Marks(self._eager_marks[0] if cuda else None)
         if isinstance(audio, torch.Tensor):
             audio_t = audio.to(self.device, torch.float32)
         else:
             audio_t = torch.from_numpy(np.asarray(audio, np.float32)).to(self.device)
-        packed = self._ladder_impl(
-            audio_t,
-            torch.from_numpy(np.array(langs_arr, np.int64)).to(self.device),
-            torch.tensor([seed], dtype=torch.int64, device=self.device),
-            torch.from_numpy(active).to(self.device),
-            detect=detect, eager=eager,
-        )
-        return packed, active, detect
+        self._loop_passes = []
+        try:
+            with marking(marks):
+                packed = self._window_program(
+                    audio_t,
+                    torch.from_numpy(np.array(langs_arr, np.int64)).to(self.device),
+                    torch.tensor([seed], dtype=torch.int64, device=self.device),
+                    torch.from_numpy(active).to(self.device),
+                    detect=detect, eager=eager,
+                )
+            rec["passes"] = self._loop_passes
+        finally:
+            self._loop_passes = None
+        if cuda:
+            self._eager_marks[1].copy_(self._eager_marks[0], non_blocking=True)
+        pending = _HostPending((packed, active, detect))
+        pending.record, pending.marks = rec, marks
+        return pending
 
     def _window_graph_async(self, audio, langs_arr, seed: int, active, detect: bool) -> _Pending:
         B, samples = int(audio.shape[0]), int(audio.shape[-1])
+        rec = self._window_record(B, detect, active, graph=True)
         key = ("window", B, samples, detect)
         prog = self._programs.get(key)
         if prog is None:
@@ -1030,22 +1119,25 @@ class DecodeEngine:
                 dict(audio=((B, samples), torch.float32), langs=((B,), torch.int64), active=((B,), torch.bool),
                      seed=((1,), torch.int64)),
                 staging=2,  # two windows in flight take them in turn
+                marks=_WINDOW_MARKS,
             )
         staging = prog.take()
         prog.load(staging, audio=audio, langs=langs_arr, active=active, seed=[seed])
         ins = prog.ins
-        run = lambda: self._ladder_impl(ins["audio"], ins["langs"], ins["seed"], ins["active"], detect=detect)
-        return self._dispatch(prog, staging, run, "window_graph", meta=(active, detect))
+        run = lambda: self._window_program(ins["audio"], ins["langs"], ins["seed"], ins["active"], detect=detect)
+        pending = self._dispatch(prog, staging, run, "window_graph", meta=(active, detect))
+        pending.record = rec
+        return pending
 
-    def _dispatch(self, prog: _Program, staging: dict, run, region: str, meta: tuple = ()) -> _Pending:
+    def _dispatch(self, prog: _Program, staging: dict, run, name: str, meta: tuple = ()) -> _Pending:
         """Replay ``prog`` on its inputs, as loaded into it, and queue the
         copies of its result and passes to ``staging``, all on the current
         stream, without waiting; a program's first call captures it first
-        (:meth:`_capture_program` of ``run``).  ``region``: a profiler's
-        device span of the replay's kernels."""
+        (:meth:`_capture_program` of ``run``).  ``name``: the region of the
+        replay (a profiler's device span of its kernels)."""
         if prog.graph is None:
             self._capture_program(prog, run)
-        with annotate(region):
+        with region(name):
             prog.graph.replay()
         _build.count_all(prog.launches)
         staging["out"].copy_(prog.out, non_blocking=True)
@@ -1074,11 +1166,14 @@ class DecodeEngine:
         def capture():
             prog.iters.zero_()
             prog.loops, prog.stats = [], {}
+            marks = Marks(prog.iters[prog.n_nodes:]) if prog.n_marks else None
             self._capturing = prog
             try:
-                out = run()
+                with marking(marks):
+                    out = run()
             finally:
                 self._capturing = None
+            prog.mark_names = marks.names if marks is not None else []
             prog.stats["nodes"] = capture_nodes(torch.cuda.current_stream(dev))
             return out
 
@@ -1134,18 +1229,32 @@ class DecodeEngine:
     def _fetch(self, pending: _Pending) -> np.ndarray:
         """A replay's one host read: wait for its copies (:meth:`_await`),
         then scale each WHILE node's launches, and steps, by its passes
-        into the counters.  Returns the packed result."""
+        into the counters; a window's record gets its passes and marks and
+        goes to the store.  Returns the packed result."""
         self._await(pending)
         self.host_syncs += 1
         prog, staging = pending.prog, pending.staging
         out = staging["out"].numpy().copy()
-        prog.passes = staging["iters"].tolist()[:len(prog.loops)]
+        counts = staging["iters"].tolist()
+        prog.passes = counts[:len(prog.loops)]
         for passes, (tally, steps) in zip(prog.passes, prog.loops):
             _build.count_all({c: n * passes for c, n in tally.items()})
             if steps:
                 self.decode_steps += passes
         prog.give(staging)
+        if pending.record is not None:
+            self._file_window(pending, prog.mark_names, counts[prog.n_nodes:], prog.passes)
         return out
+
+    def _file_window(self, pending, names, times, passes, device_clock: bool = True) -> None:
+        """Complete a window's record and put it in the store (``pending.
+        record`` is then the stored record): its regions from its marks (the
+        card's mapped by the engine's clock anchor), its loops' passes, the
+        time its fetch had the result."""
+        offset = self._clock["offset_ns"] if device_clock and self._clock else 0
+        t = time.perf_counter_ns()
+        pending.record = record("window", **pending.record, passes=list(passes), fetched=t, t1=t,
+                                regions=mark_regions(names, [v + offset for v in times]))
 
     def transcribe_window_fetch(self, pending) -> Tuple[List[Optional[DecodingResult]], dict]:
         """Complete a :meth:`transcribe_window_async` window: the window's
@@ -1153,7 +1262,13 @@ class DecodeEngine:
         if isinstance(pending, _Pending):
             return self._unpack_ladder(self._fetch(pending), *pending.meta)
         packed, active, detect = pending
-        return self._unpack_ladder(self._host(packed), active, detect)
+        packed = self._host(packed)
+        marks = getattr(pending, "marks", None)
+        if marks is not None:
+            on_card = marks.slots is not None
+            times = self._eager_marks[1].tolist()[:len(marks.names)] if on_card else marks.host
+            self._file_window(pending, marks.names, times, pending.record.pop("passes"), device_clock=on_card)
+        return self._unpack_ladder(packed, active, detect)
 
     def _unpack_ladder(
         self,

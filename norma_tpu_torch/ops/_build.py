@@ -104,6 +104,7 @@ SIGNATURES = {
         P,  # stream
     ],
     "norma_loop_cond": [P, I, P, I64, P, P],  # fin, B, pos, pos_end, out, stream
+    "norma_mark": [P, P],  # slot, stream (tracing.py::device_mark)
     # While a stream captures (ops/loop_cond.py::while_node): fin, B, pos,
     # pos_end, the body's stream, the handle (out), the body graph (out),
     # the capturing stream; the handle, fin, B, pos, pos_end, iterations,

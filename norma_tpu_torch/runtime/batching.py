@@ -30,10 +30,29 @@ or in NCCL worker processes -- queues the window's CUDA graph and returns
 before its device work, and the fetch is the window's one host read (each
 rank's).  ``warmup`` captures every bucket's graphs on every replica and
 rank, so served rounds capture nothing.
+
+Every round leaves a record in the process's store (``tracing.py``;
+``tracing.snapshot()["rounds"]``): its ``id``, ``sched`` (the scheduler's
+number in the process), ``B`` and ``n_active``; the host spans of the
+rings' drain before it, its ``dispatch``, the ``fetch`` during which the
+scheduler thread waits for its window (None when the engine does not
+split dispatch and fetch) and its ``apply``, each ``[start, end]`` on
+``perf_counter_ns``; ``windows``, the engine's window records; and
+``rows``, one per active row: ``stream`` (its id), ``start`` / ``end``
+(the window's samples in its stream), ``due_src`` (when the packer
+completed the chunk that holds the first sample no window decoded
+before, None when the window holds none), ``skipped`` (samples between
+the end of what was decoded before and the window's start, which no
+window decoded), ``ready`` (when the stream's window became decodable,
+for the first round of a ready period), ``applied`` and ``admitted``
+(the stream's admission, on the row whose result was its first text).
+:meth:`BatchedTranscriber.metrics` reads its latencies from them.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import logging
 import threading
 import time
@@ -47,10 +66,13 @@ from ..errors import NormaError, StartError
 from ..frontend.mel import prepare_audio
 from ..input import Settings
 from ..models.whisper.model import WhisperModel
-from ..tracing import instrument
+from .. import tracing
+from ..tracing import instrument, span
 from .channels import ReceiverClosed, RecycledRing, StringChannel, StringReceiver
 
 logger = logging.getLogger(__name__)
+
+_schedulers = itertools.count()  # each scheduler's number, in its round records
 
 
 class TooManyStreams(StartError):
@@ -81,12 +103,20 @@ class _Stream:
         self.dead = False
         self.served = False  # taken by a round (dispatched or failed)
         self.seed = sid * 100_003
-        # Latency bookkeeping (metrics()): admission time, when the
-        # current ready period began (want_decode False->True), and
-        # whether the first partial has been emitted.
-        self.t_admit = time.monotonic()
-        self.t_ready: float | None = None
+        # Latency bookkeeping (the round records), on perf_counter_ns:
+        # admission time, when the current ready period began
+        # (want_decode False->True), and whether the first partial has
+        # been emitted.
+        self.t_admit = time.perf_counter_ns()
+        self.t_ready: int | None = None
         self.first_emit_done = False
+        # Where the decoder's buffer lies in the stream: samples fed so
+        # far; the (end sample, packer stamp) of the chunks fed whose
+        # samples a later window may decode for the first time; the end of
+        # the audio a window has decoded.
+        self.fed = 0
+        self.chunks: collections.deque = collections.deque()
+        self.decoded = 0
         # True while this stream's window is inside a dispatched round
         # whose results have not been applied yet (round pipelining).
         self.in_flight = False
@@ -184,15 +214,15 @@ class BatchedTranscriber:
         # counters make the tradeoff observable (zero under nominal load).
         self._retired_transcript_drops = 0
         self._retired_audio_drops = 0
-        # Latency sample series (seconds), bounded so a long-lived server
-        # keeps a sliding window: admission -> first emitted partial, and
-        # window-ready -> results-applied per dispatched stream-round
-        # (the scheduler's queueing + round latency — the number the
-        # max_round_streams knob trades against throughput).
-        from collections import deque
-
-        self._lat_admit = deque(maxlen=4096)
-        self._lat_round = deque(maxlen=4096)
+        # Samples drained from a buffer that no window decoded (audio that
+        # arrived while its stream's window was in flight, drained with
+        # that window's whole slice).
+        self._skipped_samples = 0
+        # Round records (module docstring): this scheduler's number, the
+        # next round's id, the last drain's span.
+        self._sched = next(_schedulers)
+        self._round_ids = itertools.count()
+        self._last_drain = None
         # Round pipelining: dispatch round N+1 before blocking on round
         # N's device->host fetch.  Only an engine whose window splits into
         # dispatch and fetch supports it.
@@ -357,6 +387,12 @@ class BatchedTranscriber:
     # ------------------------------------------------------------------
 
     def _drain_rings(self) -> bool:
+        with span("scheduler.drain") as sp:
+            got = self._drain()
+        self._last_drain = [sp["t0"], sp["t1"]]
+        return got
+
+    def _drain(self) -> bool:
         got = False
         with self._lock:
             streams = list(self._streams.values())
@@ -365,11 +401,13 @@ class BatchedTranscriber:
                 status, chunk = s.ring.poll()
                 if status == "chunk":
                     s.state.feed(chunk.data)
+                    s.fed += chunk.length
+                    s.chunks.append((s.fed, chunk.stamp if chunk.stamp is not None else time.perf_counter_ns()))
                     if chunk.is_final:
                         s.final = True
                     s.ring.release(chunk)
                     if not s.want_decode:
-                        s.t_ready = time.monotonic()
+                        s.t_ready = time.perf_counter_ns()
                     s.want_decode = True
                     got = True
                 elif status == "closed":
@@ -389,7 +427,7 @@ class BatchedTranscriber:
                         s.final = True
                         if s.state.next_window() is not None:
                             if not s.want_decode:
-                                s.t_ready = time.monotonic()
+                                s.t_ready = time.perf_counter_ns()
                             s.want_decode = True
                     break
                 else:
@@ -463,11 +501,9 @@ class BatchedTranscriber:
         B = max(self._batch_size(n, self.max_streams), self._dp)
         return min(-(-B // self._dp) * self._dp, self.max_streams)
 
-    @instrument(
-        fields={"n_ready": lambda a: len(a["ready"])}
-    )
     def _dispatch_round(self, ready: List[_Stream]):
-        """Build and DISPATCH one fused round; returns the pending handle.
+        """Build and DISPATCH one fused round; returns the round (its
+        streams, the pending handle, its batch and its record so far).
 
         The program covers mel, encoder, per-stream language detection
         (lang slot -1), prefill, the no-speech gate and the FULL
@@ -479,14 +515,40 @@ class BatchedTranscriber:
         With ``pipeline_rounds`` the dispatch returns before the
         device->host fetch and `_apply_round` fetches later.
         """
+        with span("scheduler.dispatch", n_ready=len(ready)) as sp:
+            round_ = self._dispatch(ready)
+        round_[3]["dispatch"] = [sp["t0"], sp["t1"]]
+        return round_
+
+    def _row(self, s: _Stream, n_window: int) -> dict:
+        """A round's row record for stream ``s`` (module docstring), whose
+        window is the first ``n_window`` samples of its buffer; moves the
+        stream's decoded mark to the window's end."""
+        start = s.fed - s.state.buf.size
+        end = start + n_window
+        first_new = max(start, s.decoded)
+        due = None
+        if first_new < end:
+            while s.chunks and s.chunks[0][0] <= first_new:
+                s.chunks.popleft()
+            due = s.chunks[0][1] if s.chunks else None
+        skipped = max(0, start - s.decoded)
+        self._skipped_samples += skipped
+        s.decoded = max(s.decoded, end)
+        return dict(stream=s.sid, start=start, end=end, due_src=due, skipped=skipped)
+
+    def _dispatch(self, ready: List[_Stream]):
         n = len(ready)
         B = self._round_batch(n)
         lf0 = ready[0].state
         n_frames = lf0.n_frames
 
         windows = np.zeros((B, (n_frames - 1) * 160 + 400), np.float32)
+        rows = []
         for i, s in enumerate(ready):
-            windows[i] = prepare_audio(s.state.next_window(), n_frames=n_frames)
+            window = s.state.next_window()
+            rows.append(self._row(s, window.size))
+            windows[i] = prepare_audio(window, n_frames=n_frames)
         if n < B:
             # Pad rows: content is irrelevant (n_active marks them inert in
             # the ladder program — born-finished, zero decode steps); row 0
@@ -508,10 +570,11 @@ class BatchedTranscriber:
             s.seed += len(TEMPERATURES)
             s.in_flight = True
 
+        rec = dict(id=next(self._round_ids), sched=self._sched, B=B, n_active=n, drain=self._last_drain,
+                   rows=rows)
         # The engine moves the rows itself, without a host wait where it
         # dispatches asynchronously (a dp engine each replica's rows to its
         # own device).
-        t_dispatch = time.monotonic()
         if self.pipeline_rounds:
             pending = self.engine.transcribe_window_async(
                 windows, langs, seed=ready[0].seed, n_active=n
@@ -520,53 +583,65 @@ class BatchedTranscriber:
             pending = self.engine.transcribe_window(
                 windows, langs, seed=ready[0].seed, n_active=n
             )
-        return ready, pending, B, t_dispatch
+        return ready, pending, B, rec
 
     def _apply_round(self, round_) -> None:
-        """Fetch a dispatched round's results and apply them per stream."""
-        ready, pending, B, t_dispatch = round_
+        """Fetch a dispatched round's results, apply them per stream, and
+        put the round's record in the store."""
+        ready, pending, B, rec = round_
+        rec["fetch"] = None
         try:
             if self.pipeline_rounds:
-                drs, info = self.engine.transcribe_window_fetch(pending)
+                with span("scheduler.fetch") as sp:
+                    drs, info = self.engine.transcribe_window_fetch(pending)
+                rec["fetch"] = [sp["t0"], sp["t1"]]
             else:
                 drs, info = pending
         finally:
             for s in ready:
                 s.in_flight = False
 
-        now = time.monotonic()
-        # Cost-model EMA for the SLA round sizing (also a metrics column).
-        dt = now - t_dispatch
-        prev = self._round_cost_ema.get(B)
-        self._round_cost_ema[B] = dt if prev is None else 0.7 * prev + 0.3 * dt
-        for i, s in enumerate(ready):
-            if s.t_ready is not None:
-                self._lat_round.append(now - s.t_ready)
-                s.t_ready = None
-            if s.state.lang.needs_detection:
-                s.state.lang.set_detected(int(info["langs"][i]))
-            cont = s.state.apply_result(drs[i], s.final)
-            s.want_decode = bool(cont)
-            if cont:
-                # The next window is already buffered: its ready period
-                # starts now.
-                s.t_ready = now
-            self._emit(s)
+        with span("scheduler.apply") as sp:
+            now = time.perf_counter_ns()
+            # Cost-model EMA for the SLA round sizing (also a metrics column).
+            dt = (now - rec["dispatch"][0]) / 1e9
+            prev = self._round_cost_ema.get(B)
+            self._round_cost_ema[B] = dt if prev is None else 0.7 * prev + 0.3 * dt
+            for i, s in enumerate(ready):
+                row = rec["rows"][i]
+                row["ready"], s.t_ready = s.t_ready, None
+                if s.state.lang.needs_detection:
+                    s.state.lang.set_detected(int(info["langs"][i]))
+                cont = s.state.apply_result(drs[i], s.final)
+                row["applied"] = time.perf_counter_ns()
+                s.want_decode = bool(cont)
+                if cont:
+                    # The next window is already buffered: its ready period
+                    # starts now.
+                    s.t_ready = now
+                row["admitted"] = self._emit(s)
+        rec["apply"] = [sp["t0"], sp["t1"]]
+        rec["windows"] = _window_records(pending)
+        tracing.record("round", t0=(rec["drain"] or rec["dispatch"])[0], t1=sp["t1"], **rec)
 
     def _decode_round(self, ready: List[_Stream]) -> None:
         self._apply_round(self._dispatch_round(ready))
 
-    def _emit(self, s: _Stream) -> None:
+    def _emit(self, s: _Stream):
+        """Send the stream's new text; returns its admission time when this
+        is its first text, else None."""
+        admitted = None
         text = s.state.finish_call(final_chunk=False)
         if text:
             if not s.first_emit_done:
                 s.first_emit_done = True
-                self._lat_admit.append(time.monotonic() - s.t_admit)
+                admitted = s.t_admit
             try:
                 s.schan.try_send(text)
             except ReceiverClosed:
                 s.dead = True
                 s.pipeline.stop()
+        return admitted
 
     def _finish_stream(self, s: _Stream) -> None:
         s.state.finish_call(final_chunk=True)  # clears detected language
@@ -591,7 +666,13 @@ class BatchedTranscriber:
         admission to its first emitted text) and ``ready_to_applied``
         (a window becoming decodable to its round's results applied: the
         scheduler queueing + round latency that ``max_round_streams``
-        and round pipelining trade against throughput).
+        and round pipelining trade against throughput).  Both come from
+        this scheduler's round records in the process's store, so they are
+        None with ``NORMA_TPU_TORCH_TRACE=0``.
+
+        ``audio_skipped_s``: seconds of audio drained from a stream's
+        buffer without any window having decoded it (it arrived while the
+        stream's window was in flight and went with that window's slice).
         """
         with self._lock:
             live = list(self._streams.values())
@@ -599,8 +680,9 @@ class BatchedTranscriber:
                 s.schan.dropped for s in live
             )
             a = self._retired_audio_drops + sum(s.ring.dropped for s in live)
-            lat_admit = list(self._lat_admit)
-            lat_round = list(self._lat_round)
+        rows = [row for r in tracing.snapshot()["rounds"] if r["sched"] == self._sched for row in r["rows"]]
+        lat_admit = [(r["applied"] - r["admitted"]) / 1e9 for r in rows if r["admitted"] is not None][-4096:]
+        lat_round = [(r["applied"] - r["ready"]) / 1e9 for r in rows if r["ready"] is not None][-4096:]
 
         def pct(samples):
             if not samples:
@@ -617,6 +699,7 @@ class BatchedTranscriber:
         out = {
             "transcript_drops": t,
             "audio_drops": a,
+            "audio_skipped_s": self._skipped_samples / self.model.SAMPLE_RATE,
             "latency": {
                 "admit_to_first_partial": pct(lat_admit),
                 "ready_to_applied": pct(lat_round),
@@ -728,3 +811,13 @@ class BatchedTranscriber:
                 # Event-driven idle: woken by any ring's send/close or by
                 # close(); the timeout is only a liveness backstop.
                 self._wake.wait(timeout=0.5)
+
+
+def _window_records(pending) -> list:
+    """The engine's records of a fetched round's windows: one for an
+    engine, one a replica for a dp engine's list of (replica, pending);
+    none where the engine keeps none (worker processes keep theirs)."""
+    if isinstance(pending, list):
+        return [r for _, p in pending for r in _window_records(p)]
+    rec = getattr(pending, "record", None)
+    return [rec] if rec is not None else []

@@ -48,6 +48,9 @@ class Chunk:
     # chunk (the first-partial-latency early flush) without it reading as
     # EOS.
     final_flag: Optional[bool] = None
+    # When its producer completed it (its last sample in), on
+    # ``time.perf_counter_ns()``: the due time of its audio at the source.
+    stamp: Optional[int] = None
 
     @property
     def data(self) -> np.ndarray:
@@ -90,14 +93,18 @@ class RecycledRing:
         return self._chunk_len
 
     def try_send(
-        self, data: np.ndarray, length: int, final: Optional[bool] = None
+        self, data: np.ndarray, length: int, final: Optional[bool] = None, stamp: Optional[int] = None
     ) -> bool:
         """Non-blocking lossy send (reference: try_send_ref, lib.rs:244).
 
         Copies ``data[:length]`` into a recycled slot.  Returns False (chunk
         dropped) when no slot is free or the channel is closed.  ``final``
-        overrides the capacity-based EOS rule (see :class:`Chunk`).
+        overrides the capacity-based EOS rule (see :class:`Chunk`);
+        ``stamp`` is the chunk's completion time (``perf_counter_ns``; the
+        send's time when None).
         """
+        if stamp is None:
+            stamp = time.perf_counter_ns()
         with self._cond:
             if self._closed:
                 return False
@@ -124,7 +131,7 @@ class RecycledRing:
                 # dropped == 0 across nominal stop()s).
                 self._free.append(slot)
                 return False
-            self._full.append(Chunk(slot, length, final))
+            self._full.append(Chunk(slot, length, final, stamp))
             self._cond.notify()
         if self._wakeup is not None:
             self._wakeup.set()

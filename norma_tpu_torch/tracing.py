@@ -1,12 +1,30 @@
-"""Structured spans and the device report (``norma_tpu/tracing.py``).
+"""Structured spans, the program's own records, and the device report
+(``norma_tpu/tracing.py``).
 
-  - ``span`` / ``instrument`` — timed spans on Python ``logging`` with
-    user fields
+  - ``span`` / ``instrument`` — timed spans: each is a record in the
+    process's store (name, start and end on ``time.perf_counter_ns()``,
+    its id, its parent span on the same thread, its fields), a
+    ``record_function`` while a ``torch.profiler`` session is open (so the
+    Chrome trace holds the program's spans on the clock of its kernel
+    events), and a ``logging`` line when the logger is enabled for its
+    level
+  - ``region`` — a named region of a window: device time marks
+    (``%globaltimer``, one single-thread kernel each, inside a captured
+    window graph or launched eagerly) at its start and end on CUDA, host
+    stamps on the CPU, where a window's :class:`Marks` collects them
+    (``marking``); a ``record_function`` while a session is open, outside
+    a capture; ``clock_anchor`` maps a card's marks onto
+    ``perf_counter_ns``
+  - ``record`` / ``snapshot`` — the store: a bounded deque of span,
+    window, round and clock records (``STORE_RECORDS``; ``dropped`` counts
+    what it let go), and a copy of it by kind.  ``NORMA_TPU_TORCH_TRACE=0``
+    in the environment, read once at import, turns the records and the
+    device marks off
   - ``decode_telemetry`` — the reference's per-decode trace fields
     (at_temp, logprob, no_speech_prob)
   - ``profile`` / ``annotate`` — a ``torch.profiler`` session over a
     region (CPU and CUDA activity, a Chrome trace per session under
-    ``log_dir``) and named regions inside it
+    ``log_dir``) and named regions inside it (``annotate`` is ``region``)
   - ``device_time_report`` / ``device_time_report_multi`` /
     ``profiled_device_ms`` — device time by name from those traces: the
     one measurement path for every device-ms figure; ``idle_share`` — the
@@ -22,42 +40,154 @@
 The report reads the trace's event categories as JAX's reads xplane lines:
 ``"kernel"`` (one event per kernel, graph replays' included, every pass
 of a graph's WHILE nodes) is the counterpart of "XLA Ops", ``"gpu_user_annotation"`` (the device span of
-each :func:`annotate` region) that of "XLA Modules"; ``"gpu_memcpy"`` and
+each :func:`region` opened outside a capture) that of "XLA Modules"; ``"gpu_memcpy"`` and
 ``"gpu_memset"`` are the copies and fills.  Host events are ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import glob
 import inspect
+import itertools
 import json
 import logging
 import os
 import shutil
 import socket
+import sys
 import tempfile
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger("norma_tpu_torch")
 
+# Whether the program records spans, windows and rounds and writes device
+# marks: read once, at import.
+ENABLED = os.environ.get("NORMA_TPU_TORCH_TRACE", "1") != "0"
+# The store holds this many records, the newest: a 51 s live run of 22
+# streams makes a few thousand.
+STORE_RECORDS = 1 << 16
 
-@contextlib.contextmanager
+_store: collections.deque = collections.deque(maxlen=STORE_RECORDS)
+_store_lock = threading.Lock()
+_dropped = 0
+_ids = itertools.count(1)
+_local = threading.local()  # per thread: the open spans' ids, the window's marks
+
+
+def _append(rec: Dict[str, Any]) -> None:
+    global _dropped
+    with _store_lock:
+        if len(_store) == _store.maxlen:
+            _dropped += 1
+        _store.append(rec)
+
+
+def record(kind: str, **fields: Any) -> Dict[str, Any]:
+    """Append one record ``{"kind": kind, **fields}`` to the store (when
+    recording is on) and return it; the store lets its oldest record go
+    when full, and counts it in ``dropped``.  ``kind`` is "window",
+    "round" or "clock" (spans record themselves)."""
+    rec = {"kind": kind, **fields}
+    if ENABLED:
+        _append(rec)
+    return rec
+
+
+def snapshot(since_ns: Optional[int] = None) -> Dict[str, Any]:
+    """A copy of the store: ``{"spans", "windows", "rounds", "clocks"}``
+    (lists of records, oldest first, those that ended at or after
+    ``since_ns`` when given), ``dropped`` (records the store let go since
+    the process began) and ``kept_from_ns`` (the end of the oldest record
+    it holds, None when empty: a reader's span that starts before it may
+    have lost records when ``dropped`` > 0).  Every record has ``t0`` and
+    ``t1``, on ``perf_counter_ns``."""
+    with _store_lock:
+        recs, dropped = list(_store), _dropped
+    out: Dict[str, Any] = {"spans": [], "windows": [], "rounds": [], "clocks": []}
+    for r in recs:
+        if since_ns is None or r["t1"] >= since_ns:
+            out[r["kind"] + "s"].append(r)
+    out["dropped"] = dropped
+    out["kept_from_ns"] = recs[0]["t1"] if recs else None
+    return out
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session is open (torch loaded)."""
+    t = sys.modules.get("torch")
+    return t is not None and t.autograd.profiler._is_profiler_enabled
+
+
+def _annotation(name: str):
+    """An entered ``record_function`` while a profiler session is open and
+    this thread's stream is not capturing a CUDA graph (inside a capture it
+    would record nothing at replay), else None."""
+    if not _profiling():
+        return None
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Span:
+    __slots__ = ("rec", "level", "log", "rf")
+
+    def __init__(self, name: str, level: int, fields: Dict[str, Any]):
+        self.rec = {"kind": "span", "name": name, "id": 0, "parent": None, "t0": 0, "t1": 0, "fields": fields}
+        self.level = level
+
+    def __enter__(self):
+        rec = self.rec
+        self.log = logger.isEnabledFor(self.level)
+        if self.log:
+            logger.log(self.level, "%s enter %s", rec["name"], rec["fields"] if rec["fields"] else "")
+        self.rf = _annotation(rec["name"])
+        stack = getattr(_local, "spans", None)
+        if stack is None:
+            stack = _local.spans = []
+        rec["id"] = sid = next(_ids)
+        rec["parent"] = stack[-1] if stack else None
+        stack.append(sid)
+        rec["t0"] = time.perf_counter_ns()
+        return rec
+
+    def __exit__(self, typ, e, tb):
+        rec = self.rec
+        rec["t1"] = t1 = time.perf_counter_ns()
+        stack = _local.spans
+        if stack and stack[-1] == rec["id"]:
+            stack.pop()
+        elif rec["id"] in stack:  # spans of interleaved coroutines on one thread
+            stack.remove(rec["id"])
+        if self.rf is not None:
+            self.rf.__exit__(typ, e, tb)
+        ms = (t1 - rec["t0"]) / 1e6
+        if e is not None and isinstance(e, Exception):
+            rec["error"] = repr(e)
+            logger.log(logging.ERROR, "%s error after %.3fms: %r", rec["name"], ms, e)
+        elif self.log:
+            logger.log(self.level, "%s exit %.3fms", rec["name"], ms)
+        if ENABLED:
+            _append(rec)
+        return False
+
+
 def span(name: str, level: int = logging.DEBUG, **fields: Any):
-    """A timed, structured span: logs entry fields and exit duration.
-    Errors are logged at ERROR level with the elapsed time."""
-    t0 = time.perf_counter()
-    logger.log(level, "%s enter %s", name, fields if fields else "")
-    try:
-        yield fields
-    except Exception as e:
-        logger.log(logging.ERROR, "%s error after %.3fms: %r",
-                   name, (time.perf_counter() - t0) * 1e3, e)
-        raise
-    else:
-        logger.log(level, "%s exit %.3fms", name, (time.perf_counter() - t0) * 1e3)
+    """A timed, structured span (module docstring): a context manager that
+    yields its record (``t0`` set on entry, ``t1`` on exit).  It logs its
+    entry fields and exit duration when the logger is enabled for
+    ``level``; errors are logged at ERROR level with the elapsed time and
+    kept in the record (``error``)."""
+    return _Span(name, level, fields)
 
 
 def instrument(
@@ -80,7 +210,7 @@ def instrument(
 
         def extract(args, kwargs) -> Dict[str, Any]:
             fvals: Dict[str, Any] = {}
-            if fields:
+            if fields and logger.isEnabledFor(level):
                 try:
                     bound = sig.bind_partial(*args, **kwargs)
                     bound.apply_defaults()
@@ -94,11 +224,14 @@ def instrument(
                         pass
             return fvals
 
+        def traced() -> bool:
+            return ENABLED or logger.isEnabledFor(level) or _profiling()
+
         if inspect.iscoroutinefunction(fn):  # the span covers the awaited call
 
             @functools.wraps(fn)
             async def awrapper(*args, **kwargs):
-                if not logger.isEnabledFor(level):
+                if not traced():
                     try:
                         return await fn(*args, **kwargs)
                     except Exception as e:
@@ -111,7 +244,7 @@ def instrument(
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not logger.isEnabledFor(level):
+            if not traced():
                 try:
                     return fn(*args, **kwargs)
                 except Exception as e:
@@ -303,13 +436,126 @@ def prime_device_tracer() -> None:
         torch.cuda.synchronize()
 
 
-def annotate(name: str):
-    """A named region inside a profiler session (``record_function``); on
-    the device timeline it is a ``gpu_user_annotation`` span from its first
-    kernel's start to its last kernel's end."""
+def device_mark(slot) -> None:
+    """Write the card's ``%globaltimer`` (ns) into ``slot`` (one int64 on
+    the card) by a one-thread kernel on the current stream
+    (``csrc/mark.cu``); ``device_mark.launches`` counts its launches."""
+    from .ops import _build
+
+    _build.launch("norma_mark", device_mark, slot.device, slot.data_ptr())
+
+
+device_mark.launches = 0
+
+
+class Marks:
+    """One window's time marks, in the order its regions open and close
+    (``names``: ``(region, 0 at its start | 1 at its end)``).  On a card
+    each mark is :func:`device_mark` into the next of ``slots`` (int64 on
+    the card, inside a graph's capture or eagerly), read after the window
+    and mapped by :func:`clock_anchor`; with ``slots`` None each is the
+    host's ``perf_counter_ns()``, in ``host``."""
+
+    def __init__(self, slots=None):
+        self.slots = slots
+        self.names: List[tuple] = []
+        self.host: List[int] = []
+
+    def mark(self, name: str, edge: int) -> None:
+        i = len(self.names)
+        if self.slots is None:
+            self.host.append(time.perf_counter_ns())
+        elif i >= self.slots.numel():
+            raise RuntimeError(f"a window has more than {self.slots.numel()} time marks")
+        else:
+            device_mark(self.slots[i:i + 1])
+        self.names.append((name, edge))
+
+
+@contextlib.contextmanager
+def marking(marks: Optional[Marks]):
+    """Within the block this thread's :func:`region` calls mark ``marks``
+    (nothing is marked with recording off)."""
+    prev = getattr(_local, "marks", None)
+    _local.marks = marks if ENABLED else None
+    try:
+        yield marks
+    finally:
+        _local.marks = prev
+
+
+class region:
+    """A named region of the program: its start and end marked into the
+    thread's window :class:`Marks` (:func:`marking`), where one is set; a
+    ``record_function`` while a profiler session is open and the stream is
+    not capturing, so an eager window's trace holds it as a
+    ``gpu_user_annotation`` span from its first kernel's start to its last
+    kernel's end."""
+
+    __slots__ = ("name", "marks", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = _annotation(self.name)
+        self.marks = getattr(_local, "marks", None)
+        if self.marks is not None:
+            self.marks.mark(self.name, 0)
+        return self
+
+    def __exit__(self, typ, e, tb):
+        if self.marks is not None and e is None:
+            self.marks.mark(self.name, 1)
+        if self.rf is not None:
+            self.rf.__exit__(typ, e, tb)
+        return False
+
+
+# The JAX package's name for a named region.
+annotate = region
+
+
+def regions(names, times) -> List[list]:
+    """``[name, start, end]`` of each region from a window's marks
+    (:attr:`Marks.names` and their times), in the order the regions
+    started; a region left open has no entry."""
+    out, open_ = [], {}
+    for (name, edge), t in zip(names, times):
+        if edge == 0:
+            open_.setdefault(name, []).append(len(out))
+            out.append([name, int(t), None])
+        elif open_.get(name):
+            out[open_[name].pop()][2] = int(t)
+    return [r for r in out if r[2] is not None]
+
+
+def clock_anchor(device, tries: int = 5) -> Dict[str, Any]:
+    """The offset that maps the card's ``%globaltimer`` onto
+    ``perf_counter_ns`` (host = device + ``offset_ns``), from ``tries``
+    marks each launched on a stream of its own and waited for: the host's
+    times before the launch and after the wait bracket the mark, the
+    offset is the midpoint of the tightest bracket and ``err_ns`` half its
+    width.  Kept in the store as a "clock" record and returned."""
     import torch
 
-    return torch.profiler.record_function(name)
+    slot = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.Stream(device=device)
+    best = None
+    with torch.cuda.stream(stream):
+        device_mark(slot)  # the first launch loads the kernel
+        stream.synchronize()
+        for _ in range(tries):
+            h0 = time.perf_counter_ns()
+            device_mark(slot)
+            stream.synchronize()
+            h1 = time.perf_counter_ns()
+            g = int(slot.item())
+            if best is None or h1 - h0 < best[1] - best[0]:
+                best = (h0, h1, g)
+    h0, h1, g = best
+    return record("clock", device=str(device), offset_ns=(h0 + h1) // 2 - g, err_ns=(h1 - h0 + 1) // 2,
+                  t0=h0, t1=h1)
 
 
 def profiled_device_ms(fn, n: int, trace_dir: str, ops: int = 0):
